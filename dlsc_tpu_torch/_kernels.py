@@ -5,6 +5,7 @@ use with ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/dlsc_tpu_torch/`` at the repository root, then loaded with
 ``ctypes``. The library's file name carries a hash of the source and the
 flags, so an edited source is rebuilt and never mixed with a stale build.
+``build(*names)`` compiles several sources at once, one ``nvcc`` each.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception. There is no fallback: a
@@ -44,29 +45,49 @@ def _nvcc() -> str:
     return found
 
 
+def _paths(name: str) -> tuple[Path, Path]:
+    src = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, _BUILD / f"lib{name}-{digest}.so"
+
+
+def build(*names: str) -> None:
+    """Build the named libraries that are not built yet: one ``nvcc`` per
+    source, all started together, then waited for."""
+    with _lock:
+        procs = []
+        for name in names:
+            src, so = _paths(name)
+            if so.exists():
+                continue
+            _BUILD.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            procs.append((name, src, so, tmp, proc, time.perf_counter()))
+        failed = []
+        for name, src, so, tmp, proc, t0 in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}\n{err}")
+                continue
+            os.replace(tmp, so)
+            build_seconds[name] = time.perf_counter() - t0
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build(name)
     with _lock:
         if name in _libs:
             return _libs[name]
-        src = _CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = _BUILD / f"lib{name}-{digest}.so"
-        if not so.exists():
-            _BUILD.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {src.name} ({proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, so)
-            build_seconds[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(so))
+        lib = ctypes.CDLL(str(_paths(name)[1]))
         lib.dlsc_error_string.argtypes = [ctypes.c_int]
         lib.dlsc_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

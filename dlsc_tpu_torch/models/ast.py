@@ -33,11 +33,15 @@ def ASTModel(
     depth: int | None = None,
     num_heads: int | None = None,
     dtype: torch.dtype | str = torch.bfloat16,
+    remat: bool = True,               # ViT-Base at ~1650 tokens: remat blocks
+    remat_policy: str = "attn_res",   # keep attention out + lse: the backward
+                                      # does not rerun the forward kernel
     device: torch.device | str | None = None,
     generator: torch.Generator | None = None,
 ) -> ASTViT:
     """AST over a deit ViT trunk, with the arguments ``configs/model/ast.yaml``
-    passes plus ``dtype``, ``device`` and the init ``generator``."""
+    passes plus ``dtype``, the remat settings (the JAX defaults,
+    ``dlsc_tpu/models/ast.py:56-60``), ``device`` and the init ``generator``."""
     var = _DEIT_VARIANTS.get(pretrained_model)
     if var is None and (emb_dim is None or depth is None or num_heads is None):
         raise ValueError(
@@ -56,6 +60,8 @@ def ASTModel(
         sample_rate=sample_rate,
         f_dim=128,
         dtype=dtype,
+        remat=remat,
+        remat_policy=remat_policy,
         device=device,
         generator=generator,
     )

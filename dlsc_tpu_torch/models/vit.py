@@ -1,6 +1,6 @@
-"""AST ViT trunk in eval mode.
+"""AST ViT trunk, eval and train mode.
 
-Counterpart of ``dlsc_tpu/models/vit.py`` ``ASTViT`` with ``train=False``:
+Counterpart of ``dlsc_tpu/models/vit.py`` ``ASTViT``:
 
 - patch-embed conv over the (n_mels, T) log-mel with stride
   ``patch_size - overlap``, a CLS token, and the 10-s positional table
@@ -8,36 +8,67 @@ Counterpart of ``dlsc_tpu/models/vit.py`` ``ASTViT`` with ``train=False``:
 - tokens padded to the 128 grain once for the whole encoder, on every
   device, so that CPU and card run one token layout; attention masks keys
   >= n_real and the head reads only the CLS row, so pad rows never reach
-  the output;
+  the output, and their gradients are exact zeros;
 - pre-LN blocks (eps 1e-6, stats in f32) with packed qkv in [q|k|v] column
   order, the head-merge projection and an exact-erf GELU MLP;
 - the final LN, the head in f32 on the CLS token, and the reference's
   sigmoid on the head output (kept, as the JAX package keeps it).
 
 Parameters are float32; the encoder computes in ``dtype`` (bfloat16 for
-AST-Base), casting each weight at use, as the Flax modules do. Attention is
-``ops.attn_fast.fast_mha_forward``: kernel K2 on the card, the plain
-version on the CPU. ``forward(..., attention=...)`` takes another function
-with the same contract, e.g. ``mha_forward_reference`` for a plain run on
-the card.
+AST-Base), casting each weight at use, as the Flax modules do, so the
+parameter gradients come back in f32 through the casts. Attention is
+``ops.attn_fast.fast_mha_lse``: kernels K2f and K2b on the card, the plain
+versions on the CPU. ``forward(..., attention=...)`` takes another function
+with the same contract, e.g. ``mha_forward_reference`` for a plain run
+(autograd of plain ops) on the card.
+
+Training: ``model.train()``, then the blocks are rematerialised when
+``remat`` is set (``torch.utils.checkpoint``, non-reentrant), under one of
+the JAX package's policies (``remat_kwargs``, ``vit.py:274-327``):
+
+- ``'full'`` saves nothing: the backward reruns the whole block, K2f
+  included;
+- ``'attn_res'`` keeps each block's attention ``out`` and ``lse`` (the
+  outputs of the ``dlsc_tpu_torch::mha`` op, by a selective-checkpoint
+  policy): the backward recomputes LN1 → qkv → q, k, v but does not launch
+  K2f again.
+
+The other JAX policies (``dots``, ``attn_out``, ``attn_res_qkv``,
+``attn_res_fc1``, ``attn_res_moe``) and dropout are not ported yet (ROADMAP
+§1 M3, M7); AST-Base's dropout is 0.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (checkpoint, create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
-from dlsc_tpu_torch.ops.attn_fast import fast_mha_forward
+from dlsc_tpu_torch.ops.attn_fast import fast_mha_lse
 
 PAD_GRAIN = 128  # token padding grain of the attention kernel's layout
 LN_EPS = 1e-6
 
 AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int],
                        tuple[torch.Tensor, torch.Tensor]]
+
+REMAT_POLICIES = ("full", "attn_res")
+
+
+def _remat_context_fn(policy: str) -> Callable:
+    """``context_fn`` of ``torch.utils.checkpoint`` for a remat policy."""
+    if policy == "full":
+        return noop_context_fn
+    if policy == "attn_res":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 [torch.ops.dlsc_tpu_torch.mha.default])
+    raise ValueError(f"remat_policy {policy!r} is not ported; known: {REMAT_POLICIES}")
 
 
 def _as_dtype(dtype: torch.dtype | str) -> torch.dtype:
@@ -112,13 +143,15 @@ class ASTViT(nn.Module):
     (B, num_classes) f32. ``features``: (B, n_mels, T) or (B, 1, n_mels, T).
 
     ``config`` holds the constructor arguments (dtype by name), enough to
-    rebuild the module for an exported artifact.
+    rebuild the module for an exported artifact. ``remat`` and
+    ``remat_policy`` act only in train mode with autograd on.
     """
 
     def __init__(self, num_classes: int = 50, emb_dim: int = 384, depth: int = 12,
                  num_heads: int = 6, patch_size: int = 16, patch_stride: int = 10,
                  overlap: int = 6, sample_rate: int = 44_100, f_dim: int = 128,
                  dtype: torch.dtype | str = torch.float32,
+                 remat: bool = False, remat_policy: str = "full",
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -129,13 +162,17 @@ class ASTViT(nn.Module):
                 f"patch_stride ({patch_stride}) must equal patch_size - overlap "
                 f"({patch_size - overlap}); the positional-embedding grid "
                 "assumes it")
+        _remat_context_fn(remat_policy)  # validates the policy
         dtype = _as_dtype(dtype)
         self.config = dict(
             num_classes=num_classes, emb_dim=emb_dim, depth=depth,
             num_heads=num_heads, patch_size=patch_size, patch_stride=patch_stride,
             overlap=overlap, sample_rate=sample_rate, f_dim=f_dim,
-            dtype=str(dtype).removeprefix("torch."))
+            dtype=str(dtype).removeprefix("torch."), remat=remat,
+            remat_policy=remat_policy)
         self.dtype = dtype
+        self.remat = remat
+        self.remat_policy = remat_policy
         self.patch_stride = patch_stride
         t_dim = int(sample_rate * 10 / 160) + 1  # 10-s clip at hop 160
         self.grid_size = ((f_dim - patch_size) // patch_stride + 1,
@@ -196,8 +233,14 @@ class ASTViT(nn.Module):
         return torch.sigmoid(F.linear(cls, self.head.weight, self.head.bias))
 
     def forward(self, x: torch.Tensor,
-                attention: AttentionFn = fast_mha_forward) -> torch.Tensor:
+                attention: AttentionFn = fast_mha_lse) -> torch.Tensor:
         x, n_real = self.embed(x)
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        context_fn = _remat_context_fn(self.remat_policy)
         for blk in self.blocks:
-            x = blk(x, n_real, attention)
+            if remat:
+                x = checkpoint(blk, x, n_real, attention, use_reentrant=False,
+                               context_fn=context_fn)
+            else:
+                x = blk(x, n_real, attention)
         return self.finalize(x)

@@ -1,15 +1,24 @@
-"""Kernel K2, forward: masked multi-head attention (``csrc/attn_fwd.cu``).
+"""Kernel K2: masked multi-head attention, forward (``csrc/attn_fwd.cu``)
+and backward (``csrc/attn_bwd.cu``).
 
-Counterpart of the forward of ``dlsc_tpu/ops/attn_fast.py``
-(``make_fast_mha`` → ``fwd_kernel``), with the same contract: q, k, v are
-(B, H, N, dh) with q already multiplied by the softmax scale; keys at
-positions >= ``n_real`` are masked; query rows >= ``n_real`` produce finite
-values that callers ignore. It also returns lse = logsumexp of the masked
-scores (natural log, f32) for the backward.
+Counterpart of ``dlsc_tpu/ops/attn_fast.py`` (``make_fast_mha``: the
+forward ``fwd_kernel`` and the custom VJP's ``bwd_kernel``), with the same
+contract: q, k, v are (B, H, N, dh) with q already multiplied by the softmax
+scale; keys at positions >= ``n_real`` are masked; query rows >= ``n_real``
+produce finite values that callers ignore. The forward also returns lse =
+logsumexp of the masked scores (natural log, f32), which the backward reads
+instead of recomputing the softmax's max and sum.
 
-``fast_mha_forward`` launches the CUDA kernel for CUDA tensors and takes
-``mha_forward_reference`` for CPU tensors; it never falls back from one to
-the other. The backward kernel comes with the training step.
+- ``fast_mha_forward`` / ``fast_mha_backward`` launch the CUDA kernels for
+  CUDA tensors and take ``mha_forward_reference`` /
+  ``mha_backward_reference`` for CPU tensors; they never fall back from one
+  to the other.
+- ``fast_mha_lse`` is the differentiable op (``torch.library`` custom op
+  ``dlsc_tpu_torch::mha``): forward K2f, residuals (q, k, v, out, lse),
+  backward K2b. Being an op, it is visible to a selective-checkpoint
+  policy, which can keep its outputs so that a rematerialised block does
+  not run the forward kernel again (``models/vit.py``, ``attn_res``).
+  ``fast_mha`` returns its ``out`` alone.
 """
 
 from __future__ import annotations
@@ -23,12 +32,14 @@ from dlsc_tpu_torch import _kernels
 HEAD_DIM = 64   # the kernel's head width
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
-launches = 0    # kernel launches since the last reset (see reset_launches)
+launches = 0      # forward kernel launches since the last reset (see reset_launches)
+bwd_launches = 0  # backward kernel launches (one per call: the dQ and dK/dV pair)
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, bwd_launches
     launches = 0
+    bwd_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -37,6 +48,38 @@ def _lib() -> ctypes.CDLL:
     lib.dlsc_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.dlsc_attn_fwd.restype = i
     return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _kernels.load("attn_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dlsc_attn_bwd.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.dlsc_attn_bwd.restype = i
+    return lib
+
+
+def _check_qkv(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               n_real: int) -> None:
+    if q.shape != k.shape or q.shape != v.shape or q.ndim != 4:
+        raise ValueError(f"{what}: q/k/v shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if not 1 <= n_real <= q.shape[2]:
+        raise ValueError(f"{what}: n_real {n_real} not in [1, {q.shape[2]}]")
+
+
+def _check_kernel_operands(what: str, q: torch.Tensor, *others: torch.Tensor) -> None:
+    """What the CUDA kernels take: dh 64, bf16/f32 alike, one card,
+    contiguous, 16-byte aligned (they load 16-byte vectors)."""
+    ts = (q, *others)
+    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
+        raise ValueError(f"{what}: devices {[str(t.device) for t in ts]}")
+    if q.shape[-1] != HEAD_DIM or q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"{what}: the kernel takes head_dim {HEAD_DIM} in "
+                         f"bfloat16/float32, got {q.shape[-1]} {[t.dtype for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{what}: operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{what}: operands must start on a 16-byte boundary")
 
 
 def mha_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -55,27 +98,14 @@ def fast_mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      n_real: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked attention forward: (B, H, N, dh) ×3 → (out (B, H, N, dh), lse (B, H, N)).
 
-    CUDA tensors: kernel K2 (dh 64, bfloat16 or float32). CPU tensors:
+    CUDA tensors: kernel K2f (dh 64, bfloat16 or float32). CPU tensors:
     ``mha_forward_reference``.
     """
-    if q.shape != k.shape or q.shape != v.shape or q.ndim != 4:
-        raise ValueError(f"fast_mha_forward: q/k/v shapes {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _check_qkv("fast_mha_forward", q, k, v, n_real)
     B, H, N, dh = q.shape
-    if not 1 <= n_real <= N:
-        raise ValueError(f"fast_mha_forward: n_real {n_real} not in [1, {N}]")
     if q.device.type == "cpu":
         return mha_forward_reference(q, k, v, n_real)
-    if q.device.type != "cuda" or {k.device, v.device} != {q.device}:
-        raise ValueError(f"fast_mha_forward: devices {q.device}, {k.device}, "
-                         f"{v.device}")
-    if dh != HEAD_DIM or q.dtype not in _DTYPES or {k.dtype, v.dtype} != {q.dtype}:
-        raise ValueError(f"fast_mha_forward: the kernel takes head_dim "
-                         f"{HEAD_DIM} in bfloat16/float32, got {dh} {q.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("fast_mha_forward: q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):  # the kernel loads 16-byte vectors
-        raise ValueError("fast_mha_forward: q, k, v must start on a 16-byte boundary")
+    _check_kernel_operands("fast_mha_forward", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -88,3 +118,100 @@ def fast_mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     launches += 1
     return out, lse
+
+
+def mha_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                           n_real: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain attention backward in f32 with the TPU kernel's formulas
+    (``attn_fast.py:219-251``): P = exp(S - lse); D = rowsum(dO*O);
+    dS = P*(dP - D); dQ = dS K, dK = dS^T Q, dV = P^T dO. P and dS are
+    rounded to the input type before their products, as there. Returns
+    (dq, dk, dv) in q's dtype; dK and dV rows >= n_real are zero."""
+    dt = q.dtype
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, do))
+    N = q.shape[-2]
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    if n_real < N:
+        s = s.masked_fill(torch.arange(N, device=q.device) >= n_real, float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    d = (dof * of).sum(-1, keepdim=True)
+    ds = (p * (torch.matmul(dof, vf.transpose(-1, -2)) - d)).to(dt).float()
+    p = p.to(dt).float()
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dk[..., n_real:, :] = 0.0
+    dv[..., n_real:, :] = 0.0
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def fast_mha_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      n_real: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Masked attention backward from the forward's residuals: (q, k, v, out,
+    dO (B, H, N, dh), lse (B, H, N) f32) → (dq, dk, dv) in the input type.
+
+    CUDA tensors: kernel K2b (the dQ kernel, then the dK/dV kernel). CPU
+    tensors: ``mha_backward_reference``. ``do`` may be strided: it is made
+    contiguous here.
+    """
+    _check_qkv("fast_mha_backward", q, k, v, n_real)
+    if out.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(f"fast_mha_backward: out {tuple(out.shape)}, do "
+                         f"{tuple(do.shape)}, lse {tuple(lse.shape)} for q {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return mha_backward_reference(q, k, v, out, lse, do, n_real)
+    do = do.contiguous()
+    _check_kernel_operands("fast_mha_backward", q, k, v, out, do)
+    if lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"fast_mha_backward: lse must be contiguous float32 on "
+                         f"{q.device}, got {lse.dtype} on {lse.device}")
+    B, H, N, dh = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        err = lib.dlsc_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B * H, N, dh, n_real, _DTYPES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _kernels.check(lib, err, "attention backward kernel")
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+@torch.library.custom_op("dlsc_tpu_torch::mha", mutates_args=())
+def fast_mha_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 n_real: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable masked attention: (out, lse), as ``fast_mha_forward``;
+    its backward is ``fast_mha_backward``. lse takes no gradient."""
+    return fast_mha_forward(q, k, v, n_real)
+
+
+@fast_mha_lse.register_fake
+def _(q, k, v, n_real):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    q, k, v, n_real = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.n_real = n_real
+    ctx.mark_non_differentiable(lse)
+
+
+def _backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    return (*fast_mha_backward(q, k, v, out, lse, dout, ctx.n_real), None)
+
+
+fast_mha_lse.register_autograd(_backward, setup_context=_setup_context)
+
+
+def fast_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_real: int) -> torch.Tensor:
+    """Differentiable masked attention output (see ``fast_mha_lse``)."""
+    return fast_mha_lse(q, k, v, n_real)[0]

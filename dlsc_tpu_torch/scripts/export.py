@@ -20,7 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from dlsc_tpu.config import compose
+from dlsc_tpu_torch.config import compose
 from dlsc_tpu_torch.data.pipeline import pipeline_from_dataset_config
 from dlsc_tpu_torch.models.ast import ASTModel
 from dlsc_tpu_torch.models.convert import params_from_jax

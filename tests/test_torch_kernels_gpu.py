@@ -7,19 +7,29 @@ conftest.py does import jax, hence on the card:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances: K1 normalised error < 1e-4 (tests/test_mel_pallas.py's bar;
-f32 FMA sums reach ~1e-6); K2 f32 1e-4 (summation order only), K2 bf16 2e-2
-(P rounded to bf16 before P·V, out stored in bf16); the small AST model in
-f32 through both kernels vs plain ops 1e-4 on its sigmoid outputs.
+f32 FMA sums reach ~1e-6); K2f f32 1e-4 (summation order only), K2f bf16
+2e-2 (P rounded to bf16 before P·V, out stored in bf16); K2b f32 1e-4 and
+bf16 2e-2 normalised by the max |gradient| (the same reasons; the plain
+version rounds P and dS where the kernel does); the small AST model in f32
+through the kernels vs plain ops 1e-4 on its sigmoid outputs, and one f32
+train step 1e-4 on the loss (relative) and on each parameter's gradient
+(normalised).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from dlsc_tpu_torch.data.pipeline import DevicePipeline, PipelineConfig
 from dlsc_tpu_torch.models.ast import ASTModel
 from dlsc_tpu_torch.ops import attn_fast as A
 from dlsc_tpu_torch.ops import mel as M
 from dlsc_tpu_torch.ops import mel_kernel as MK
+from dlsc_tpu_torch.train.losses import CrossEntropyLoss
+from dlsc_tpu_torch.train.metrics import MetricState
+from dlsc_tpu_torch.train.optim import sgd
+from dlsc_tpu_torch.train.state import TrainState
+from dlsc_tpu_torch.train.steps import make_train_step
 
 pytestmark = pytest.mark.gpu
 
@@ -97,3 +107,73 @@ def test_small_ast_through_kernels_matches_plain(cuda_device):
                      attention=A.mha_forward_reference)
     assert got.shape == (2, 7)
     assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n,n_real", [(256, 256), (256, 200), (200, 131), (1664, 1645)])
+def test_attention_backward_kernel_matches_reference(dtype, tol, n, n_real, cuda_device):
+    """K2b from K2f's residuals, any N and n_real: dQ, dK, dV over rows <
+    n_real against the plain version on the same inputs; dK/dV rows >=
+    n_real exactly 0; one launch."""
+    rng = np.random.default_rng(n * 7 + n_real)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 3, n, 64)).astype(np.float32))
+                   for _ in range(4))
+    q, k, v, do = ((t * s).to(cuda_device, dtype)
+                   for t, s in ((q, 0.125), (k, 1), (v, 1), (do, 1)))
+    out, lse = A.fast_mha_forward(q, k, v, n_real)
+    before = A.bwd_launches
+    got = A.fast_mha_backward(q, k, v, out, lse, do, n_real)
+    torch.cuda.synchronize()
+    assert A.bwd_launches == before + 1
+    want = A.mha_backward_reference(q, k, v, out, lse, do, n_real)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == q.shape
+        assert torch.isfinite(g).all(), name
+        assert _norm_err(g[:, :, :n_real].float(), w[:, :, :n_real].float()) <= tol, name
+    for g in got[1:]:
+        assert (g[:, :, n_real:] == 0).all()
+
+
+def test_fast_mha_gradient_matches_autograd_of_plain(cuda_device):
+    g = torch.Generator().manual_seed(1)
+    q, k, v, do = (torch.randn(2, 3, 384, 64, generator=g).to(cuda_device) for _ in range(4))
+    q = q * 0.125
+    t = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(A.fast_mha(*t, 325), t, do)
+    r = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(A.mha_forward_reference(*r, 325)[0], r, do)
+    for a, b in zip(got, want):
+        assert _norm_err(a, b) <= 1e-4
+
+
+def test_small_ast_train_step_through_kernels_matches_plain(cuda_device):
+    """One f32 step (SpecAugment + Mixup, the same draws, SGD with momentum
+    so that the momentum buffer holds each parameter's gradient) through
+    K1, K2f and K2b vs the same step with plain attention."""
+    pipe = DevicePipeline(PipelineConfig(mode="ast", num_classes=7, time_mask=192,
+                                         freq_mask=48, enable_mixup=True))
+    rng = np.random.default_rng(0)
+    wave = torch.from_numpy((rng.standard_normal((4, 44_100)) * 0.3).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 7, 4))
+    draws = pipe.draw(4, 44_100, rng)
+    results = []
+    for attention in (None, A.mha_forward_reference):
+        model = ASTModel(num_classes=7, emb_dim=128, depth=2, num_heads=2,
+                         dtype=torch.float32, device=cuda_device,
+                         generator=torch.Generator().manual_seed(0))
+        state = TrainState.create(model, sgd(lr=0.1, momentum=0.9), None, 1)
+        step = make_train_step(pipe, CrossEntropyLoss(), attention=attention)
+        A.reset_launches()
+        state, _, loss = step(state, MetricState.create(7, cuda_device), wave.to(cuda_device),
+                              labels.to(cuda_device), draws)
+        torch.cuda.synchronize()
+        results.append((loss.item(), A.launches, A.bwd_launches,
+                        [state.optimizer.state[p]["momentum_buffer"] for p in model.parameters()]))
+    (l_k, f_k, b_k, g_k), (l_p, f_p, b_p, g_p) = results
+    assert (f_k, b_k, f_p, b_p) == (2, 2, 0, 0)
+    assert abs(l_k - l_p) <= 1e-4 * abs(l_p)
+    for a, b in zip(g_k, g_p):
+        if b.abs().max() > 0:
+            assert _norm_err(a, b) <= 1e-4
+        else:
+            assert (a == 0).all()

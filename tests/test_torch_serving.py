@@ -181,14 +181,20 @@ def test_export_cli_with_jax_params(slice_pair, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port and chip_smoke.py's imports load neither jax nor flax. A
+    """Every module of the port, and chip_smoke.py, loads nothing of jax,
+    flax or the JAX package ``dlsc_tpu`` (not even its jax-free modules). A
     subprocess, because this test process imported jax in conftest."""
     code = (
-        "import sys\n"
-        "import dlsc_tpu_torch, dlsc_tpu_torch.serving, dlsc_tpu_torch.server\n"
-        "import dlsc_tpu_torch.models.convert, dlsc_tpu_torch.scripts.export\n"
-        "import dlsc_tpu_torch.scripts.serve, chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax'))\n"
+        "import importlib, pkgutil, sys\n"
+        "import dlsc_tpu_torch, chip_smoke\n"
+        "names = [m.name for m in pkgutil.walk_packages(dlsc_tpu_torch.__path__,\n"
+        "                                                'dlsc_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'dlsc_tpu_torch.config', 'dlsc_tpu_torch.train.steps',\n"
+        "        'dlsc_tpu_torch.scripts.bench', 'dlsc_tpu_torch.ops.augment'} <= set(names)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'dlsc_tpu'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
