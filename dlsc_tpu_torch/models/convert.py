@@ -9,7 +9,9 @@ arrays, in either block layout the JAX package writes:
 The moves: conv kernel HWIO → OIHW; Dense kernel (in, out) → Linear weight
 (out, in); LayerNorm ``scale`` → ``weight``. The qkv columns keep their
 [q|k|v] order and the proj rows their concatenated-head order, which is
-what the port's packed-qkv split and head merge expect.
+what the port's packed-qkv split and head merge expect. An MoE block's
+``moe/router/kernel`` is a Dense kernel like any other; its stacked expert
+tensors ``wi``, ``bi``, ``wo`` and ``bo`` keep their layout.
 """
 
 from __future__ import annotations

@@ -31,15 +31,23 @@ the JAX package's policies (``remat_kwargs``, ``vit.py:274-327``):
 - ``'attn_res'`` keeps each block's attention ``out`` and ``lse`` (the
   outputs of the ``dlsc_tpu_torch::mha`` op, by a selective-checkpoint
   policy): the backward recomputes LN1 → qkv → q, k, v but does not launch
-  K2f again.
+  K2f again. Everything else reruns, the MoE's grouped products
+  (``dlsc_tpu_torch::gmm``) included.
 
+MoE blocks (``moe=``, ``models/moe.py``) replace the dense MLP with the
+routed experts; ``forward(..., return_aux=True)`` then also returns the
+sum over blocks of the pre-weighted aux losses and the block means of the
+MoE stats, carried through the checkpoints as block outputs. Dropout
+(``dropout``, the MLP's or the experts') draws its masks from a generator
+that each block seeds from ``dropout_seed`` and its index at the point of
+use, so the re-forward of a rematerialised block draws the same masks.
 The other JAX policies (``dots``, ``attn_out``, ``attn_res_qkv``,
-``attn_res_fc1``, ``attn_res_moe``) and dropout are not ported yet (ROADMAP
-§1 M3, M7); AST-Base's dropout is 0.
+``attn_res_fc1``, ``attn_res_moe``) are not ported yet (ROADMAP §1 M3, M8).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Callable
@@ -50,7 +58,10 @@ from torch import nn
 from torch.utils.checkpoint import (checkpoint, create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from dlsc_tpu_torch.models.moe import (MOE_METRICS, GroupedMatmulFn, MoeMlp, MoeSpec,
+                                       TopkFn, as_moe_spec, dropout, topk_routes)
 from dlsc_tpu_torch.ops.attn_fast import fast_mha_lse
+from dlsc_tpu_torch.ops.gmm import grouped_matmul as gmm_op
 
 PAD_GRAIN = 128  # token padding grain of the attention kernel's layout
 LN_EPS = 1e-6
@@ -105,27 +116,44 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, ratio: float = 4.0):
+    def __init__(self, dim: int, ratio: float = 4.0, dropout: float = 0.0):
         super().__init__()
+        self.rate = dropout
         self.fc1 = nn.Linear(dim, int(dim * ratio))
         self.fc2 = nn.Linear(int(dim * ratio), dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _linear(F.gelu(_linear(x, self.fc1)), self.fc2)
+    def forward(self, x: torch.Tensor, gen: torch.Generator | None = None) -> torch.Tensor:
+        h = dropout(F.gelu(_linear(x, self.fc1)), self.rate, gen)
+        return dropout(_linear(h, self.fc2), self.rate, gen)
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    """Pre-LN block; the MLP is ``Mlp``, or ``MoeMlp`` (``self.moe``) when
+    ``moe`` is given. ``forward`` returns (x, aux, stats), aux and stats
+    None for a dense block; ``seed`` (None: no dropout) seeds the block's
+    dropout generator."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dropout: float = 0.0, moe: MoeSpec | None = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = Attention(dim, num_heads)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, mlp_ratio)
+        if moe is None:
+            self.mlp = Mlp(dim, mlp_ratio, dropout)
+        else:
+            self.moe = MoeMlp(dim, moe, mlp_ratio, dropout)
 
-    def forward(self, x: torch.Tensor, n_real: int,
-                attention: AttentionFn) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, n_real: int, attention: AttentionFn,
+                grouped_matmul: GroupedMatmulFn = gmm_op, topk: TopkFn = topk_routes,
+                seed: int | None = None):
+        gen = None if seed is None else torch.Generator(x.device).manual_seed(seed)
         x = x + self.attn(_layer_norm(x, self.norm1), n_real, attention)
-        return x + self.mlp(_layer_norm(x, self.norm2))
+        y = _layer_norm(x, self.norm2)
+        if not hasattr(self, "moe"):
+            return x + self.mlp(y, gen), None, None
+        out, aux, stats = self.moe(y, n_real, grouped_matmul, topk, gen)
+        return x + out, aux, stats
 
 
 def _trunc_normal_(t: torch.Tensor, std: float, gen: torch.Generator | None) -> None:
@@ -142,9 +170,11 @@ class ASTViT(nn.Module):
     """AST trunk; ``forward(features) -> sigmoid(head(CLS))`` of shape
     (B, num_classes) f32. ``features``: (B, n_mels, T) or (B, 1, n_mels, T).
 
-    ``config`` holds the constructor arguments (dtype by name), enough to
-    rebuild the module for an exported artifact. ``remat`` and
-    ``remat_policy`` act only in train mode with autograd on.
+    ``config`` holds the constructor arguments (dtype by name, the MoE spec
+    as a dict), enough to rebuild the module for an exported artifact.
+    ``remat`` and ``remat_policy`` act only in train mode with autograd on,
+    ``dropout`` only in train mode. ``dropout`` defaults to 0, AST-Base's
+    (the JAX ``ASTViT`` field defaults to 0.1; ``ASTModel`` and ``ASTMoE`` set it).
     """
 
     def __init__(self, num_classes: int = 50, emb_dim: int = 384, depth: int = 12,
@@ -152,6 +182,7 @@ class ASTViT(nn.Module):
                  overlap: int = 6, sample_rate: int = 44_100, f_dim: int = 128,
                  dtype: torch.dtype | str = torch.float32,
                  remat: bool = False, remat_policy: str = "full",
+                 dropout: float = 0.0, moe: MoeSpec | dict | None = None,
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -164,13 +195,16 @@ class ASTViT(nn.Module):
                 "assumes it")
         _remat_context_fn(remat_policy)  # validates the policy
         dtype = _as_dtype(dtype)
+        moe = as_moe_spec(moe)
         self.config = dict(
             num_classes=num_classes, emb_dim=emb_dim, depth=depth,
             num_heads=num_heads, patch_size=patch_size, patch_stride=patch_stride,
             overlap=overlap, sample_rate=sample_rate, f_dim=f_dim,
             dtype=str(dtype).removeprefix("torch."), remat=remat,
-            remat_policy=remat_policy)
+            remat_policy=remat_policy, dropout=dropout,
+            moe=None if moe is None else dataclasses.asdict(moe))
         self.dtype = dtype
+        self.dropout = dropout
         self.remat = remat
         self.remat_policy = remat_policy
         self.patch_stride = patch_stride
@@ -183,7 +217,7 @@ class ASTViT(nn.Module):
             self.cls_token = nn.Parameter(torch.empty(1, 1, emb_dim))
             self.pos_embed = nn.Parameter(torch.empty(1, 1 + num_patches, emb_dim))
             self.blocks = nn.ModuleList(
-                Block(emb_dim, num_heads) for _ in range(depth))
+                Block(emb_dim, num_heads, dropout=dropout, moe=moe) for _ in range(depth))
             self.norm = nn.LayerNorm(emb_dim, eps=LN_EPS)
             self.head = nn.Linear(emb_dim, num_classes)
         self.to_empty(device="cpu")
@@ -194,12 +228,19 @@ class ASTViT(nn.Module):
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator | None) -> None:
-        """Flax's inits: lecun-normal kernels, zero biases, unit LN scales,
-        zero CLS token, truncated-normal(0.02) positions."""
+        """Flax's inits: lecun-normal kernels (the experts' over their input
+        axis, ``_expert_params``), zero biases, unit LN scales, zero CLS
+        token, truncated-normal(0.02) positions."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 _lecun_normal_(m.weight, m.in_features, gen)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, MoeMlp):
+                _lecun_normal_(m.wi, m.wi.shape[-2], gen)
+                _lecun_normal_(m.wo, m.wo.shape[-2], gen)
+                m.bi.zero_()
+                m.bo.zero_()
             elif isinstance(m, nn.Conv2d):
                 _lecun_normal_(m.weight, m.weight[0].numel(), gen)
                 m.bias.zero_()
@@ -232,15 +273,35 @@ class ASTViT(nn.Module):
         cls = _layer_norm(x[:, 0], self.norm).float()
         return torch.sigmoid(F.linear(cls, self.head.weight, self.head.bias))
 
-    def forward(self, x: torch.Tensor,
-                attention: AttentionFn = fast_mha_lse) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attention: AttentionFn = fast_mha_lse,
+                grouped_matmul: GroupedMatmulFn = gmm_op, topk: TopkFn = topk_routes,
+                dropout_seed: int | None = None, return_aux: bool = False):
+        """Sigmoid outputs (B, num_classes); with ``return_aux``, (outputs,
+        aux, stats): the MoE blocks' summed aux loss (0.0 without MoE) and
+        their mean ``MOE_METRICS`` stats ({} without MoE). ``attention``,
+        ``grouped_matmul`` and ``topk`` replace the ops (plain versions for
+        a reference run); ``dropout_seed`` seeds this call's dropout in
+        train mode (drawn from torch's default generator when None)."""
         x, n_real = self.embed(x)
         remat = self.remat and self.training and torch.is_grad_enabled()
         context_fn = _remat_context_fn(self.remat_policy)
-        for blk in self.blocks:
+        seed = None
+        if self.training and self.dropout > 0:
+            seed = (int(torch.randint(2**62, ())) if dropout_seed is None
+                    else int(dropout_seed))
+        aux, stats = 0.0, []
+        for i, blk in enumerate(self.blocks):
+            args = (x, n_real, attention, grouped_matmul, topk,
+                    None if seed is None else seed + i)
             if remat:
-                x = checkpoint(blk, x, n_real, attention, use_reentrant=False,
-                               context_fn=context_fn)
+                x, a, s = checkpoint(blk, *args, use_reentrant=False, context_fn=context_fn)
             else:
-                x = blk(x, n_real, attention)
-        return self.finalize(x)
+                x, a, s = blk(*args)
+            if a is not None:
+                aux = aux + a
+                stats.append(s)
+        out = self.finalize(x)
+        if not return_aux:
+            return out
+        means = dict(zip(MOE_METRICS, torch.stack(stats).mean(0).unbind())) if stats else {}
+        return out, aux, means

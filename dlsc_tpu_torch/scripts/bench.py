@@ -1,6 +1,7 @@
-"""AST-Base train-step throughput on one GPU.
+"""AST-Base (default) or AST-MoE train-step throughput on one GPU.
 
-    python -m dlsc_tpu_torch.scripts.bench [--batch 64] [--steps 10] [--warmup 2] [--seed 0]
+    python -m dlsc_tpu_torch.scripts.bench [--model ast|ast_moe] [--batch 64] [--steps 10] \
+        [--warmup 2] [--seed 0]
 
 The configuration of the root ``bench.py`` (``bench.py:49-73``): AST-Base
 (``configs/model/ast.yaml``) in bf16 with remat ``attn_res``, seeded random
@@ -8,7 +9,11 @@ weights; SpecAugment (time 192, freq 48) and Mixup (alpha 0.5); soft-label
 cross-entropy; Adam lr 5e-4, weight decay 1e-6, cosine T_max 100 over 25
 steps per epoch, global-norm clip 1.0; a batch of 64 synthetic 5-s clips
 (220 500 samples at 44.1 kHz). The step is ``train/steps.py``'s, through
-kernels K1, K2f and K2b.
+kernels K1, K2f and K2b. ``--model ast_moe`` runs AST-MoE
+(``configs/model/ast_moe.yaml``, ``ASTMoE``'s defaults: bf16, remat
+``attn_res``, dropout 0.1; 8 experts, top-2, dropless ragged dispatch) with
+the same pipeline and optimizer, since the two configs' dataset overrides
+are the same; its experts run on kernels K4a and K4b.
 
 Prints one JSON line: ``metric``, ``value`` (clips/s), ``unit``, ``batch``,
 ``step_ms`` (host clock over ``--steps`` steps ending in a synchronize,
@@ -17,8 +22,10 @@ the card's bf16 peak), ``device``, ``n_chips``, the peak device memory,
 ``profile`` (two more steps under ``torch.profiler``: device ms per step by
 kind of kernel, the top kernels, the busy share) and ``decomp``, read from
 that profile: the attention kernels K2f and K2b per step (depth launches
-each) and the rest of the step. The attention FLOP convention is the useful
-count of ``utils/mfu.py``: 4·n²·D forward and 10·n²·D backward at n_real.
+each), for AST-MoE the grouped-matmul kernels K4a and K4b, and the rest of
+the step. The FLOP convention is the useful count of ``utils/mfu.py``:
+4·n²·D forward and 10·n²·D backward at n_real for attention; an MoE block
+counts top_k × its two expert products per real token plus the router.
 A fixed batch runs or raises: no back-off.
 """
 
@@ -33,6 +40,8 @@ import torch
 
 from dlsc_tpu_torch.data.pipeline import DevicePipeline, PipelineConfig
 from dlsc_tpu_torch.models.ast import ASTModel
+from dlsc_tpu_torch.models.ast_moe import ASTMoE
+from dlsc_tpu_torch.models.moe import MOE_METRICS
 from dlsc_tpu_torch.train.losses import CrossEntropyLoss
 from dlsc_tpu_torch.train.metrics import MetricState
 from dlsc_tpu_torch.train.optim import adam, cosine_annealing
@@ -43,20 +52,37 @@ from dlsc_tpu_torch.utils.mfu import ast_step_flops, ast_token_counts, peak_tflo
 # configs/model/ast.yaml, written out: the card's machine may lack pyyaml.
 AST_BASE = dict(num_classes=50, sample_rate=44_100, patch_size=16, patch_stride=10,
                 overlap=6, pretrained_model="deit_base_patch16_384")
+# configs/model/ast_moe.yaml, written out
+AST_MOE = dict(num_classes=50, sample_rate=44_100, patch_size=16, patch_stride=16, overlap=0,
+               n_experts=8, top_k=2, capacity_factor=1.25, aux_weight=0.01,
+               router_z_weight=0.001, router="token", dispatch="ragged", group_size=256)
 CLIP = 220_500
 FLOP_CONVENTION = ("useful FLOPs (utils/mfu.py): parameter matmuls x3, attention "
                    "4·n²·D forward + 10·n²·D backward, at n_real tokens")
+MOE_FLOP_CONVENTION = ("; an MoE block: top_k x the two expert products (2·D·F each) per "
+                       "real token plus the router (2·D·E), x3")
+METRICS = {
+    "ast": "AST-Base train-step throughput (K1 mel + SpecAugment + Mixup + ViT-Base bf16 "
+           "fwd/bwd, remat attn_res, + Adam), 5-s clips",
+    "ast_moe": "AST-MoE train-step throughput (K1 mel + SpecAugment + Mixup + AST-Small "
+               "trunk with 8-expert top-2 MoE MLPs, dropless ragged dispatch on K4a/K4b, bf16 "
+               "fwd/bwd, dropout 0.1, remat attn_res, + Adam), 5-s clips",
+}
 K2F, K2B = "K2f attention forward", "K2b attention backward"
+K4A, K4B = "K4a gmm", "K4b tgmm"
 
 # Device-kernel name fragments → the layer they belong to, first match wins.
 _KERNEL_KINDS = (
     (K2F, ("attn_fwd",)),
     (K2B, ("attn_bwd",)),
+    (K4B, ("tgmm",)),
+    (K4A, ("gmm",)),
     ("K1 mel", ("mel_power",)),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
     ("patch conv (cuDNN)", ("conv", "cudnn", "dgrad", "wgrad")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
     ("optimizer", ("multi_tensor", "adam", "Adam")),
+    ("routing sort", ("Radix", "radix", "Sort", "sort")),
     ("copies and casts", ("copy", "Copy", "CatArray", "cat_")),
     ("reductions", ("reduce", "Reduce")),
     ("other elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -69,10 +95,18 @@ def bench_pipeline() -> DevicePipeline:
                                          mixup_alpha=0.5))
 
 
-def build(batch: int, seed: int, device: torch.device):
-    """(train_step, state, metric state, waves, labels) of the bench on ``device``."""
-    model = ASTModel(**AST_BASE, dtype=torch.bfloat16, remat=True, remat_policy="attn_res",
-                     generator=torch.Generator().manual_seed(seed), device=device)
+def build(batch: int, seed: int, device: torch.device, model_name: str = "ast"):
+    """(train_step, state, metric state, waves, labels) of the bench on
+    ``device`` for ``model_name`` (``ast`` or ``ast_moe``)."""
+    gen = torch.Generator().manual_seed(seed)
+    if model_name == "ast":
+        model = ASTModel(**AST_BASE, dtype=torch.bfloat16, remat=True, remat_policy="attn_res",
+                         generator=gen, device=device)
+    elif model_name == "ast_moe":
+        model = ASTMoE(**AST_MOE, generator=gen, device=device)
+    else:
+        raise ValueError(f"unknown bench model {model_name!r}; known: {sorted(METRICS)}")
+    extras = MOE_METRICS if model.config["moe"] else ()
     state = TrainState.create(model, adam(lr=5e-4, weight_decay=1e-6),
                               cosine_annealing(T_max=100), steps_per_epoch=25,
                               gradient_clip_val=1.0, seed=seed)
@@ -80,7 +114,7 @@ def build(batch: int, seed: int, device: torch.device):
     wave = torch.from_numpy((rng.standard_normal((batch, CLIP)) * 0.3).astype(np.float32))
     labels = torch.from_numpy(rng.integers(0, AST_BASE["num_classes"], batch))
     step = make_train_step(bench_pipeline(), CrossEntropyLoss())
-    return (step, state, MetricState.create(AST_BASE["num_classes"], device),
+    return (step, state, MetricState.create(AST_BASE["num_classes"], device, extras),
             wave.to(device), labels.to(device))
 
 
@@ -103,38 +137,58 @@ def timed_steps(step, state, ms, wave, labels, warmup: int, steps: int):
     return state, ms, losses, step_s
 
 
-def profile_steps(step, state, ms, wave, labels, n: int = 2, top: int = 15) -> dict:
-    """``n`` steps under ``torch.profiler``: device ms per step by kind of
-    kernel, the ``top`` kernels, and the device's busy share of the
-    profiled wall time (the profiler slows the host, so the share is a
-    lower bound)."""
+def profile_calls(fn, n: int = 2, top: int = 15) -> dict:
+    """``n`` calls of ``fn`` under ``torch.profiler``: device ms per call by
+    kind of kernel, the ``top`` kernels, kernels launched per call, the
+    device's busy share of the profiled wall time (the profiler slows the
+    host, so the share is a lower bound), and the host ops with the most
+    self CPU time (where a host-bound call spends its wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            state, ms, _ = step(state, ms, wave, labels)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = {}
+    n_kernels = 0
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+            n_kernels += 1
     kinds: dict[str, float] = {}
     for name, t in by_name.items():
         kind = next((k for k, frags in _KERNEL_KINDS if any(f in name for f in frags)), "other")
         kinds[kind] = kinds.get(kind, 0.0) + t / n
     busy = sum(by_name.values())
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / n, e.count / n)
+                   for e in prof.key_averages()), key=lambda kv: -kv[1])[:top]
     return {
-        "steps": n,
-        "device_ms_per_step": busy / n,
-        "wall_ms_per_step": wall_ms / n,
+        "calls": n,
+        "device_ms_per_call": busy / n,
+        "wall_ms_per_call": wall_ms / n,
         "busy_share": busy / wall_ms,
+        "kernels_per_call": n_kernels / n,
         "by_kind_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": {name[:90]: t / n for name, t in
                            sorted(by_name.items(), key=lambda kv: -kv[1])[:top]},
+        "host_self_cpu_ms": {key[:60]: dict(ms=t, calls=c) for key, t, c in host},
     }
+
+
+def profile_steps(step, state, ms, wave, labels, n: int = 2, top: int = 15) -> dict:
+    """``profile_calls`` over ``n`` train steps, its per-call numbers named
+    per step."""
+    box = [ms]
+
+    def one_step():
+        box[0] = step(state, box[0], wave, labels)[1]
+
+    prof = profile_calls(one_step, n, top)
+    return {"steps": n, **{k.replace("_per_call", "_per_step"): v for k, v in prof.items()
+                           if k != "calls"}}
 
 
 def record(model: torch.nn.Module, batch: int, step_s: float, losses: np.ndarray,
@@ -147,9 +201,23 @@ def record(model: torch.nn.Module, batch: int, step_s: float, losses: np.ndarray
     peak = peak_tflops(name) * 1e12
     kinds = prof["by_kind_ms"]
     attn_ms = kinds.get(K2F, 0.0) + kinds.get(K2B, 0.0)
+    heads, moe = cfg["num_heads"], cfg["moe"]
+    note = (f"device ms per step under the profiler: K2f + K2b, {cfg['depth']} launches each "
+            f"at (B {batch}, H {heads}, N {n_pad}, dh {cfg['emb_dim'] // heads}) "
+            f"{cfg['dtype']}, n_real {n_real}")
+    decomp = {"attn_fwd_ms": kinds.get(K2F, 0.0), "attn_bwd_ms": kinds.get(K2B, 0.0),
+              "attn_ms": attn_ms}
+    kernel_ms = attn_ms
+    if moe:
+        decomp.update(gmm_ms=kinds.get(K4A, 0.0), tgmm_ms=kinds.get(K4B, 0.0))
+        kernel_ms += decomp["gmm_ms"] + decomp["tgmm_ms"]
+        m_rows = batch * n_real * moe["top_k"]
+        note += (f"; K4a gmm (forward, remat re-forward, dlhs) and K4b tgmm at {m_rows} "
+                 f"sorted rows over {moe['n_experts']} experts")
+    decomp["rest_ms"] = prof["device_ms_per_step"] - kernel_ms
+    decomp["note"] = note + "; rest = the other kernels"
     return {
-        "metric": "AST-Base train-step throughput (K1 mel + SpecAugment + Mixup + ViT-Base "
-                  "bf16 fwd/bwd, remat attn_res, + Adam), 5-s clips",
+        "metric": METRICS["ast_moe" if moe else "ast"],
         "value": batch / step_s,
         "unit": "clips/s",
         "batch": batch,
@@ -160,26 +228,19 @@ def record(model: torch.nn.Module, batch: int, step_s: float, losses: np.ndarray
         "n_chips": 1,
         "peak_mem_gib": peak_mem_gib,
         "losses": losses.tolist(),
-        "flop_convention": FLOP_CONVENTION,
-        "decomp": {
-            "attn_fwd_ms": kinds.get(K2F, 0.0),
-            "attn_bwd_ms": kinds.get(K2B, 0.0),
-            "attn_ms": attn_ms,
-            "rest_ms": prof["device_ms_per_step"] - attn_ms,
-            "note": f"device ms per step under the profiler: K2f + K2b, {cfg['depth']} "
-                    f"launches each at (B {batch}, H {cfg['num_heads']}, N {n_pad}, dh 64) "
-                    f"bf16, n_real {n_real}; rest = the other kernels",
-        },
+        "flop_convention": FLOP_CONVENTION + (MOE_FLOP_CONVENTION if moe else ""),
+        "decomp": decomp,
         "profile": prof,
     }
 
 
-def measure(batch: int = 64, steps: int = 10, warmup: int = 2, seed: int = 0) -> dict:
+def measure(batch: int = 64, steps: int = 10, warmup: int = 2, seed: int = 0,
+            model_name: str = "ast") -> dict:
     """Run the bench and return its JSON record (see the module docstring)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the bench needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     dev = torch.device("cuda", 0)
-    step, state, ms, wave, labels = build(batch, seed, dev)
+    step, state, ms, wave, labels = build(batch, seed, dev, model_name)
     torch.cuda.reset_peak_memory_stats(dev)
     state, ms, losses, step_s = timed_steps(step, state, ms, wave, labels, warmup, steps)
     peak_mem = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -189,12 +250,13 @@ def measure(batch: int = 64, steps: int = 10, warmup: int = 2, seed: int = 0) ->
 
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(METRICS), default="ast")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    rec = measure(args.batch, args.steps, args.warmup, args.seed)
+    rec = measure(args.batch, args.steps, args.warmup, args.seed, args.model)
     print(json.dumps(rec))
     return rec
 

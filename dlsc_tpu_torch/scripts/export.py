@@ -1,15 +1,17 @@
-"""Export the AST serving artifact of the port.
+"""Export the AST or AST-MoE serving artifact of the port.
 
     python -m dlsc_tpu_torch.scripts.export model=ast +out=exports/ast_torch \
         [+seed=0] [+params_npz=params.npz] [+batch=8] [+clip_samples=220500] \
         [+dtype=bfloat16]
+    python -m dlsc_tpu_torch.scripts.export model=ast_moe +out=exports/ast_moe_torch
 
 Composes the same configs with the same override grammar as
 ``scripts/export.py`` and writes ``dlsc_tpu_torch.serving.export_model``'s
 artifact. Weights come from ``+params_npz`` (a JAX ``params`` tree saved with
 ``np.savez``, keys joined by ``/``, e.g. ``blocks_0/attn/qkv/kernel``) or,
 without it, from a seeded init (``seed``; a smoke artifact).
-Only ``model=ast`` is ported (ROADMAP §1 M7 for the other families).
+``model=ast`` and ``model=ast_moe`` are ported (ROADMAP §1 M7 for the other
+families).
 """
 
 from __future__ import annotations
@@ -23,10 +25,12 @@ import torch
 from dlsc_tpu_torch.config import compose
 from dlsc_tpu_torch.data.pipeline import pipeline_from_dataset_config
 from dlsc_tpu_torch.models.ast import ASTModel
+from dlsc_tpu_torch.models.ast_moe import ASTMoE
 from dlsc_tpu_torch.models.convert import params_from_jax
 from dlsc_tpu_torch.serving import export_model
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
+MODELS = {"ast.ASTModel": ASTModel, "ast_moe.ASTMoE": ASTMoE}   # by _target_ suffix
 
 
 def parse_cli(argv: list[str]) -> tuple[str, str, list[str]]:
@@ -65,9 +69,10 @@ def main(argv: list[str] | None = None) -> Path:
     if not out:
         raise SystemExit("pass +out=<artifact dir>")
     target = str(cfg.select("model._target_", default=""))
-    if not target.endswith("ast.ASTModel"):
-        raise SystemExit(f"model {target!r} is not ported yet; only model=ast "
-                         "(ROADMAP §1 M7 for the other families)")
+    make_model = next((m for suffix, m in MODELS.items() if target.endswith(suffix)), None)
+    if make_model is None:
+        raise SystemExit(f"model {target!r} is not ported yet; only model=ast and "
+                         "model=ast_moe (ROADMAP §1 M7 for the other families)")
     model_kw = cfg.model.to_dict()
     model_kw.pop("_target_")
     ds = cfg.dataset.to_dict()
@@ -75,8 +80,8 @@ def main(argv: list[str] | None = None) -> Path:
     pipe = pipeline_from_dataset_config(ds)
 
     seed = int(cfg.select("seed", default=0))
-    model = ASTModel(**model_kw, dtype=str(cfg.select("dtype", default="bfloat16")),
-                     generator=torch.Generator().manual_seed(seed))
+    model = make_model(**model_kw, dtype=str(cfg.select("dtype", default="bfloat16")),
+                       generator=torch.Generator().manual_seed(seed))
     params_npz = cfg.select("params_npz", default=None)
     if params_npz:
         with np.load(str(params_npz)) as npz:

@@ -5,7 +5,9 @@ per-class accuracy stream through one (C, C) confusion matrix ([true,
 pred]) kept on the device with the loss sum and the sample and batch
 counts, so a step never waits on the host. AUROC needs whole score
 distributions: ``macro_auroc`` takes (probs, labels) collected on the host
-(numpy, copied from the JAX package).
+(numpy, copied from the JAX package). Auxiliary per-batch scalars (the MoE
+stats, ``models/moe.py`` ``MOE_METRICS``) stream as sums when the state is
+created with their names (``extras``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,12 +24,32 @@ class MetricState:
     loss_sum: torch.Tensor  # f32, sum of per-batch mean loss x valid samples
     count: torch.Tensor     # int64, samples
     batches: torch.Tensor   # int64
+    extra_sums: dict[str, torch.Tensor] | None = None  # f32 sums of per-batch scalars
 
     @classmethod
-    def create(cls, num_classes: int, device: torch.device | str | None = None) -> "MetricState":
+    def create(cls, num_classes: int, device: torch.device | str | None = None,
+               extras: tuple[str, ...] = ()) -> "MetricState":
         z = torch.zeros((), dtype=torch.int64, device=device)
+        sums = {k: torch.zeros((), dtype=torch.float32, device=device) for k in extras}
         return cls(torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device),
-                   torch.zeros((), dtype=torch.float32, device=device), z, z.clone())
+                   torch.zeros((), dtype=torch.float32, device=device), z, z.clone(),
+                   sums or None)
+
+    def add_extras(self, values: dict[str, torch.Tensor]) -> "MetricState":
+        """Add this batch's auxiliary scalars to the sums of the names this
+        state was created with; other names are ignored."""
+        if self.extra_sums is None or not values:
+            return self
+        sums = {k: v + values[k].detach().float() if k in values else v
+                for k, v in self.extra_sums.items()}
+        return dataclasses.replace(self, extra_sums=sums)
+
+    def extra_means(self) -> dict[str, torch.Tensor]:
+        """Per-batch means of the auxiliary scalars."""
+        if self.extra_sums is None:
+            return {}
+        b = self.batches.clamp_min(1)
+        return {k: v / b for k, v in self.extra_sums.items()}
 
     @torch.no_grad()
     def update(self, logits: torch.Tensor, hard_labels: torch.Tensor, loss: torch.Tensor,
@@ -43,7 +65,7 @@ class MetricState:
         n_valid = valid.sum().to(self.count.device)
         return MetricState(self.confmat + upd.view(C, C),
                            self.loss_sum + loss.detach().float() * n_valid,
-                           self.count + n_valid, self.batches + 1)
+                           self.count + n_valid, self.batches + 1, self.extra_sums)
 
 
 def accuracy(ms: MetricState) -> torch.Tensor:

@@ -12,7 +12,11 @@ between them shows:
   rematerialised (``attn_res`` keeps the attention output and lse, so
   attention itself is not recomputed).
 
-LN, GELU and softmax FLOPs are in neither. ``peak_tflops`` is the card's
+MoE blocks (AST-MoE) count, in place of the dense MLP, top_k × the two
+expert products per real token plus the router (2·D·E per token): the
+dropless dispatch runs the experts on the real tokens' rows only, so their
+FLOPs are at n_real in both numbers. LN, GELU, softmax, the routing sort
+and the gathers are in neither. ``peak_tflops`` is the card's
 dense bf16 tensor-core peak, by ``torch.cuda.get_device_name``; an unknown
 card raises rather than borrowing another card's peak.
 """
@@ -48,23 +52,31 @@ class StepFlops:
 
 def vit_step_flops(*, n_real: int, n_pad: int, emb_dim: int, depth: int,
                    mlp_ratio: float = 4.0, patch_pixels: int = 16 * 16,
-                   num_classes: int = 50, remat_refwd: bool = True) -> StepFlops:
+                   num_classes: int = 50, remat_refwd: bool = True,
+                   moe_top_k: int = 0, n_experts: int = 0) -> StepFlops:
     """Per-sample matmul/conv FLOPs: patch embed ``(n-1)·patch_pixels·D·2``;
-    per block qkv + proj + fc1 + fc2 ``(4 + 2·mlp_ratio)·D²·2`` per token and
-    attention ``4·n²·D``; the head ``D·num_classes·2``."""
+    per block qkv + proj ``4·D²·2`` per token, the MLP ``2·mlp_ratio·D²·2``
+    per token (MoE, ``moe_top_k`` > 0: ``moe_top_k`` times that plus the
+    router's ``2·D·n_experts``, at n_real) and attention ``4·n²·D``; the
+    head ``D·num_classes·2``."""
     D = float(emb_dim)
-    mm_per_tok = (4.0 + 2.0 * mlp_ratio) * D * D * 2.0
+    mlp_per_tok = 2.0 * mlp_ratio * D * D * 2.0
+    if moe_top_k:
+        mlp_per_tok = moe_top_k * mlp_per_tok + 2.0 * D * n_experts
+    attn_mm_per_tok = 4.0 * D * D * 2.0
 
     def fwd(n: int) -> tuple[float, float]:
         patch = (n - 1) * patch_pixels * D * 2.0
-        return (patch + depth * mm_per_tok * n + D * num_classes * 2.0,
-                depth * 4.0 * float(n) * float(n) * D)
+        mlp_rows = n_real if moe_top_k else n
+        return (patch + depth * (attn_mm_per_tok * n + mlp_per_tok * mlp_rows)
+                + D * num_classes * 2.0, depth * 4.0 * float(n) * float(n) * D)
 
     p_real, a_real = fwd(n_real)
     p_pad, a_pad = fwd(n_pad)
     hardware = 3.0 * p_pad + 3.5 * a_pad
     if remat_refwd:
-        hardware += depth * mm_per_tok * n_pad
+        hardware += depth * (attn_mm_per_tok * n_pad
+                             + mlp_per_tok * (n_real if moe_top_k else n_pad))
     return StepFlops(useful=3.0 * p_real + 3.5 * a_real, hardware=hardware,
                      fwd_useful=p_real + a_real)
 
@@ -72,9 +84,11 @@ def vit_step_flops(*, n_real: int, n_pad: int, emb_dim: int, depth: int,
 def ast_step_flops(model, n_real: int, n_pad: int) -> StepFlops:
     """``vit_step_flops`` with the dims of an ``ASTViT`` (its ``config``)."""
     c = model.config
+    moe = c.get("moe") or {}
     return vit_step_flops(n_real=n_real, n_pad=n_pad, emb_dim=c["emb_dim"],
                           depth=c["depth"], patch_pixels=c["patch_size"] ** 2,
-                          num_classes=c["num_classes"], remat_refwd=bool(c["remat"]))
+                          num_classes=c["num_classes"], remat_refwd=bool(c["remat"]),
+                          moe_top_k=moe.get("top_k", 0), n_experts=moe.get("n_experts", 0))
 
 
 def ast_token_counts(model, n_samples: int, hop: int = 160) -> tuple[int, int]:
