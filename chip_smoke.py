@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base and AST-MoE serving and training on one GPU.
+"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small and AST-Mini serving and training on one GPU.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases, each printing its own lines; any failure raises (exit code != 0):
 
 0. start-up: require CUDA, print the card's name and power limit, turn TF32
-   off for matmuls and cuDNN, build the four kernel sources from csrc/ (one
+   off for matmuls and cuDNN, build the five kernel sources from csrc/ (one
    nvcc each, all at once);
 1. kernel K1 (mel power) against its plain version, both mel configs at the
    serving batch 8, and the AST config at the training batch 64;
@@ -46,7 +46,33 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     bench's profiled record;
 11. AST-MoE card parity of one train step at batch 4, dropout 0.1 with one
     seed: f32 kernels vs f32 plain ops, bf16 kernels (remat ``attn_res``)
-    vs f32 plain ops, each pair on the same routes.
+    vs f32 plain ops, each pair on the same routes;
+12. kernels K3f and K3b (fused residual add + LayerNorm) against their plain
+    versions at the three widths of the models' training batch 64 (AST-Small
+    49 152 x 384, AST-Base 106 496 x 768, AST-Mini 106 496 x 192) in bf16,
+    and in f32 at AST-Small's, beside the unfused site they replace (the
+    add, then LayerNorm in f32, and its autograd backward);
+13. kernels K2f and K2b at the shapes that only the JAX package's library
+    attention kernels K5 (generic splash) and K6 (flash) reached, now
+    served by K2: the longest sequence the models admit (AST-Base on a 10-s
+    clip, (8, 12, 3328, 64), n_real 3301) in bf16 and f32, and n_real == N
+    at (8, 6, 768, 64) (no key masked), beside SDPA;
+14. AST-Small serving: exported by ``scripts/export.py model=ast_small
+    +model.ln_fused=true +model.attn_impl=flash``, loaded on the card, one
+    batch of 8 (per device batch K1 1, K2f 12, K3f 12, no backward
+    kernel), held against the same weights in f32 with plain attention and
+    the plain add + LN, and timed at batch 8 and 64;
+15. AST-Small training: ``scripts/bench.py --model ast_small --ln-fused``,
+    2 warm-up and 10 timed steps at batch 64 (per step K1 1, K2f 12, K2b 12,
+    K3f 24 with the remat re-forward, K3b 12), every parameter changed, the
+    bench's profiled record; then one AST-Base ``--ln-fused`` run of as many
+    steps, timed beside phase 5's;
+16. AST-Small card parity of one train step with ``ln_fused`` at batch 4,
+    dropout 0.1 with one seed: f32 through K2 and K3 vs f32 plain ops, and
+    bf16 through the kernels (remat ``attn_res``) vs the f32 plain step;
+17. AST-Mini with ``ln_fused``: one served batch of 8 (K2 at 3 heads, K3 at
+    width 192) held against plain f32 ops, then 2 train steps at batch 64
+    with every parameter changed.
 
 Routes: a near-tie between two router gates flips a token's expert under a
 perturbation as small as bf16 rounding, and a flipped route moves a whole
@@ -57,7 +83,7 @@ free run would flip, and what that does to the outputs.
 
 The last two lines are a JSON object with each kernel's launches, error,
 times and bound, and ``{"ok": true, "device": {...}}``. Needs no network
-and one card.
+and one card; ``model=ast_small``'s export goes through the CLI, so pyyaml.
 """
 
 from __future__ import annotations
@@ -80,11 +106,14 @@ from dlsc_tpu_torch import _kernels
 from dlsc_tpu_torch.data import wav as W
 from dlsc_tpu_torch.data.pipeline import DevicePipeline, PipelineConfig
 from dlsc_tpu_torch.models.ast import ASTModel
+from dlsc_tpu_torch.models.ast_mini import ASTMiniViT
 from dlsc_tpu_torch.models.ast_moe import ASTMoE
+from dlsc_tpu_torch.models.ast_small import ASTViTSmall
 from dlsc_tpu_torch.models.moe import MOE_METRICS
 from dlsc_tpu_torch.models.vit import ASTViT
 from dlsc_tpu_torch.ops import attn_fast, mel_kernel
 from dlsc_tpu_torch.ops import gmm as gmm_ops
+from dlsc_tpu_torch.ops import ln_fused
 from dlsc_tpu_torch.ops import mel as M
 from dlsc_tpu_torch.scripts import bench
 from dlsc_tpu_torch.server import ModelServer
@@ -112,6 +141,16 @@ MOE_N_PAD, MOE_N_REAL = 768, 689  # AST-MoE tokens at 5 s (8 x 86 patches + CLS)
 MOE_ROWS = TRAIN_BATCH * MOE_N_REAL * AST_MOE["top_k"]   # 88 192 sorted rows at batch 64
 # one expert with more than half the rows, an empty one, no multiple of 128
 SKEWED_SIZES = (45_001, 0, 12_345, 9_999, 7_777, 6_543, 4_321, 2_206)
+AST_SMALL = bench.AST_SMALL   # configs/model/ast_small.yaml, written out
+AST_MINI = bench.AST_MINI     # configs/model/ast_mini.yaml, written out
+MINI_DEPTH = 6
+MINI_N_PAD = N_PAD            # AST-Mini has AST-Base's patch grid: 1645 tokens, 1664
+# K3 at the training batch 64: (name, rows, width)
+LN_SHAPES = (("AST-Small", TRAIN_BATCH * MOE_N_PAD, 384),
+             ("AST-Base", TRAIN_BATCH * N_PAD, 768),
+             ("AST-Mini", TRAIN_BATCH * MINI_N_PAD, 192))
+LN_FWD_OPS, LN_BWD_OPS = 8, 12   # f32 operations per element (see phase_ln)
+LONG_N_PAD, LONG_N_REAL = 3328, 3301   # AST-Base on a 10-s clip: 12 x 275 patches + CLS
 
 # The card's peaks (NVIDIA H100 SXM data sheet, 700 W): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over the
@@ -147,6 +186,9 @@ STEP_BF16_GRAD = 5e-2   # activations (2^-8 relative per op) forward and back
 GMM_F32_ERR = 1e-5      # K4 f32, normalised by max |out|: summation order only
 GMM_BF16_ERR = 1e-2     # K4 bf16: the output rounded to bf16 (2^-9 relative),
                         # f32 sums on both sides
+LN_F32_ERR = 1e-5       # K3 f32, normalised by the max |value|: summation order
+LN_BF16_ERR = 1e-2      # K3 bf16: y and dx stored in bf16 (2^-9 relative), the
+                        # same f32 arithmetic on both sides; r exact in both
 
 
 def card_line() -> str:
@@ -167,6 +209,28 @@ def cuda_times(fn, iters: int = 10, warmup: int = 2) -> list[float]:
         end.record()
     torch.cuda.synchronize()
     return [start.elapsed_time(end) for start, end in events]
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, its replays timed by CUDA events. A replay launches the
+    kernels without the Python around them, so a call whose kernels are
+    shorter than its Python (where CUDA events around each call time the
+    host) is timed by its kernels. ``torch.profiler``'s kernel records were
+    tried for this and dropped kernels in windows this short."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up off the capturing stream, as capture asks
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = float(np.median(cuda_times(graph.replay, iters=5, warmup=1))) / reps
+    del graph
+    return ms
 
 
 def paired_ms(kernel_fn, plain_fn) -> tuple[float, float]:
@@ -198,12 +262,19 @@ def _reset_launches() -> None:
     mel_kernel.reset_launches()
     attn_fast.reset_launches()
     gmm_ops.reset_launches()
+    ln_fused.reset_launches()
 
 
 def _launch_counts() -> dict:
     """Every kernel's launches since the last ``_reset_launches``."""
     return dict(k1=mel_kernel.launches, k2f=attn_fast.launches, k2b=attn_fast.bwd_launches,
-                gmm=gmm_ops.launches, tgmm=gmm_ops.tgmm_launches)
+                gmm=gmm_ops.launches, tgmm=gmm_ops.tgmm_launches, k3f=ln_fused.launches,
+                k3b=ln_fused.bwd_launches)
+
+
+def _counts(k1=0, k2f=0, k2b=0, gmm=0, tgmm=0, k3f=0, k3b=0) -> dict:
+    """The launch counts a path must show, every kernel named."""
+    return dict(k1=k1, k2f=k2f, k2b=k2b, gmm=gmm, tgmm=tgmm, k3f=k3f, k3b=k3b)
 
 
 class RouteLog:
@@ -493,8 +564,7 @@ def phase_slice(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
           f"{t_burst:.3f} s after {t_load:.3f} s of load + warm-up; {batches} device "
           f"batches of {SERVE_BATCH}; launches K1 {k1} K2 {k2} K2b {k2b}", flush=True)
     require(batches >= 1 + -(-len(bodies) // SERVE_BATCH), f"only {batches} device batches")
-    require(k1 == batches and k2 == DEPTH * batches and k2b == 0
-            and counts["gmm"] == counts["tgmm"] == 0,
+    require(counts == _counts(k1=batches, k2f=DEPTH * batches),
             f"launch counts {counts} for {batches} device batches")
     direct = server.serve(np.pad(clips[:1] / np.abs(clips[0]).max(),
                                  ((0, SERVE_BATCH - 1), (0, 0))))[0]
@@ -546,8 +616,9 @@ def phase_slice(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
     return counts
 
 
-def phase_train(dev: torch.device, seed: int, card: str) -> dict:
-    """The training slice at the bench's configuration, batch 64."""
+def phase_train(dev: torch.device, seed: int, card: str) -> tuple[dict, float]:
+    """The training slice at the bench's configuration, batch 64: (launch
+    counts, ms per step)."""
     step, state, ms, wave, labels = bench.build(TRAIN_BATCH, seed, dev)
     before = [p.detach().clone() for p in state.model.parameters()]
     torch.cuda.reset_peak_memory_stats(dev)
@@ -576,9 +647,9 @@ def phase_train(dev: torch.device, seed: int, card: str) -> dict:
           f"device time per step  [{card}]", flush=True)
     print(json.dumps(rec), flush=True)
     require(not unchanged, f"{len(unchanged)} of {len(params)} parameters did not change")
-    require((k1, k2f, k2b, counts["gmm"], counts["tgmm"]) == (n, DEPTH * n, DEPTH * n, 0, 0),
+    require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n),
             f"launch counts {counts} over {n} steps")
-    return counts
+    return counts, rec["step_ms"]
 
 
 def phase_parity(dev: torch.device, seed: int) -> None:
@@ -615,6 +686,7 @@ def phase_parity(dev: torch.device, seed: int) -> None:
     b16 = one_step(torch.bfloat16, True, None)
     require(k32[3] == (DEPTH, DEPTH) and p32[3] == (0, 0) and b16[3] == (DEPTH, DEPTH),
             f"parity launches {k32[3]} {p32[3]} {b16[3]}")
+    require(ln_fused.launches == ln_fused.bwd_launches == 0, "K3 ran without ln_fused")
 
     _compare_steps(k32, p32, "f32 kernels vs f32 plain attention (AST-Base", STEP_F32_LOSS,
                    STEP_F32_GRAD)
@@ -830,7 +902,7 @@ def phase_moe_slice(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
     require(probs.shape == (SERVE_BATCH, AST_MOE["num_classes"]) and np.isfinite(probs).all()
             and np.abs(probs.sum(-1) - 1.0).max() <= PROB_SUM_ERR,
             "AST-MoE probabilities not finite, misshaped or not summing to 1")
-    require(counts == dict(k1=1, k2f=DEPTH, k2b=0, gmm=2 * DEPTH, tgmm=0),
+    require(counts == _counts(k1=1, k2f=DEPTH, gmm=2 * DEPTH),
             f"AST-MoE serving launch counts {counts} for one device batch")
 
     # --- the batch against plain ops in f32, on the same routes ---------------
@@ -914,8 +986,8 @@ def phase_moe_train(dev: torch.device, seed: int, card: str) -> dict:
     print(json.dumps(rec), flush=True)
     require(not unchanged, f"parameters that did not change: {unchanged[:8]}")
     require(not experts, f"experts whose weights did not change: {experts[:8]}")
-    require(counts == dict(k1=n, k2f=DEPTH * n, k2b=DEPTH * n, gmm=6 * DEPTH * n,
-                           tgmm=2 * DEPTH * n),
+    require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n, gmm=6 * DEPTH * n,
+                              tgmm=2 * DEPTH * n),
             f"AST-MoE launch counts {counts} over {n} steps")
     return counts
 
@@ -954,9 +1026,9 @@ def phase_moe_parity(dev: torch.device, seed: int) -> None:
     p32 = one_step(torch.float32, False, True, r32.replay(DEPTH))
     b16 = one_step(torch.bfloat16, True, False, r16.record)
     p16 = one_step(torch.float32, False, True, r16.replay(DEPTH))
-    zero = dict(k1=1, k2f=0, k2b=0, gmm=0, tgmm=0)
-    require(k32[3] == dict(k1=1, k2f=DEPTH, k2b=DEPTH, gmm=4 * DEPTH, tgmm=2 * DEPTH)
-            and b16[3] == dict(k1=1, k2f=DEPTH, k2b=DEPTH, gmm=6 * DEPTH, tgmm=2 * DEPTH)
+    zero = _counts(k1=1)
+    require(k32[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, gmm=4 * DEPTH, tgmm=2 * DEPTH)
+            and b16[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, gmm=6 * DEPTH, tgmm=2 * DEPTH)
             and p32[3] == zero and p16[3] == zero,
             f"AST-MoE parity launches {k32[3]} {p32[3]} {b16[3]} {p16[3]}")
     flips = r16.flips(r32, MOE_N_REAL)
@@ -968,6 +1040,397 @@ def phase_moe_parity(dev: torch.device, seed: int) -> None:
                    "(AST-MoE, dropout 0.1", STEP_BF16_LOSS, STEP_BF16_GRAD)
     _compare_steps(b16, p32, "bf16 kernels vs f32 plain ops on the f32 run's own routes "
                    "(AST-MoE, dropout 0.1", STEP_BF16_LOSS, STEP_BF16_GRAD, required=False)
+
+
+# --- phase 12: kernel K3 ----------------------------------------------------------
+
+def _unfused_add_ln(x, delta, gamma, beta):
+    """The block's site that K3 replaces: the residual add, then the port's
+    LayerNorm (cast to f32, ``F.layer_norm``, cast back)."""
+    r = x + delta
+    return r, F.layer_norm(r.float(), (x.shape[-1],), gamma, beta, ln_fused.EPS).to(x.dtype)
+
+
+def _ln_bytes(rows: int, d: int, elem: int) -> int:
+    """What K3f and K3b each must move: four (rows, d) tensors of ``elem``
+    bytes (forward x, delta in, r, y out; backward r, dr, dy in, dx out),
+    the two f32 row statistics, and gamma, beta (or dgamma, dbeta)."""
+    return 4 * rows * d * elem + 2 * rows * 4 + 2 * d * 4
+
+
+def phase_ln(dev: torch.device, gen: torch.Generator) -> tuple[dict, dict]:
+    """K3f and K3b against their plain versions at the training batch's
+    three widths in bf16 and at AST-Small's in f32, each beside the unfused
+    site (forward, and autograd's backward: its forward and backward less
+    its forward). Times are device times (``graph_ms``): a K3 call is
+    shorter than its Python.
+    Bounds by bytes; operations counted as 8 f32 operations per element
+    forward (add, two sums, centre, square, scale, gamma, beta) and 12
+    backward."""
+    g = torch.Generator(dev).manual_seed(int(torch.randint(2**31, (1,), generator=gen)))
+    cases = [(shape, torch.bfloat16) for shape in LN_SHAPES] + [(LN_SHAPES[0], torch.float32)]
+    fwd, bwd = {}, {}
+    for (name, rows, d), dtype in cases:
+        x, delta, dr, dy = (torch.randn(rows, d, generator=g, device=dev).to(dtype)
+                            for _ in range(4))
+        gamma = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+        beta = 0.1 * torch.randn(d, generator=g, device=dev)
+        tol = LN_F32_ERR if dtype == torch.float32 else LN_BF16_ERR
+        got = ln_fused.fused_add_ln_forward(x, delta, gamma, beta)
+        want = ln_fused.add_ln_reference(x, delta, gamma, beta)
+        r_exact = torch.equal(got[0], want[0])
+        f_errs = [norm_err(a, b) for a, b in zip(got[1:], want[1:])]   # y, mu, rsig
+        f_abs = (got[1].float() - want[1].float()).abs().max().item()
+        r, _, mu, rsig = got
+        bgot = ln_fused.fused_add_ln_backward(r, mu, rsig, gamma, dr, dy)
+        bwant = ln_fused.add_ln_backward_reference(r, mu, rsig, gamma, dr, dy)
+        b_errs = [norm_err(a, b) for a, b in zip(bgot, bwant)]         # dx, dgamma, dbeta
+        b_abs = max((a.float() - b.float()).abs().max().item() for a, b in zip(bgot, bwant))
+        finite = all(torch.isfinite(t).all().item() for t in (*got, *bgot))
+        del got, want, bgot, bwant
+        leaves = [t.detach().requires_grad_() for t in (x, delta, gamma, beta)]
+        fns = dict(
+            f=lambda: ln_fused.fused_add_ln_forward(x, delta, gamma, beta),
+            f_plain=lambda: ln_fused.add_ln_reference(x, delta, gamma, beta),
+            f_unf=lambda: _unfused_add_ln(x, delta, gamma, beta),
+            b=lambda: ln_fused.fused_add_ln_backward(r, mu, rsig, gamma, dr, dy),
+            b_plain=lambda: ln_fused.add_ln_backward_reference(r, mu, rsig, gamma, dr, dy),
+            fb_unf=lambda: torch.autograd.grad(_unfused_add_ln(*leaves), leaves, (dr, dy)))
+        # device time of each (graph replays); CUDA events per call for the kernels beside it
+        t = {k: graph_ms(fn) for k, fn in fns.items()}
+        t["b_unf"] = t.pop("fb_unf") - t["f_unf"]   # autograd's backward of the unfused site
+        f_call, b_call = (float(np.median(cuda_times(fns[k]))) for k in ("f", "b"))
+        del leaves
+        nbytes = _ln_bytes(rows, d, x.element_size())
+        bf = bound(LN_FWD_OPS * rows * d, F32_FLOPS, nbytes)
+        bb = bound(LN_BWD_OPS * rows * d, F32_FLOPS, nbytes)
+        dt = str(dtype).removeprefix("torch.")
+        key = f"{name} ({rows}, {d}) {dt}"
+        print(f"K3 add_ln at {key}: r exact {r_exact}; forward y {f_errs[0]:.3e} mu "
+              f"{f_errs[1]:.3e} rsig {f_errs[2]:.3e}, backward dx {b_errs[0]:.3e} dgamma "
+              f"{b_errs[1]:.3e} dbeta {b_errs[2]:.3e} normalised (<= {tol}); device ms "
+              f"(graph replays): K3f {t['f']:.4f} (plain {t['f_plain']:.4f}, unfused site "
+              f"{t['f_unf']:.4f}), K3b {t['b']:.4f} (plain {t['b_plain']:.4f}, unfused autograd "
+              f"{t['b_unf']:.4f}); per call (CUDA events) K3f {f_call:.4f}, K3b {b_call:.4f}; "
+              f"bound {bf['bound_ms']:.4f} ms ({bf['bound_by']}, {nbytes / 1e6:.1f} MB): K3f at "
+              f"{bf['bound_ms'] / t['f']:.1%}, K3b at {bb['bound_ms'] / t['b']:.1%} of it",
+              flush=True)
+        require(r_exact and finite and max(f_errs) <= tol and max(b_errs) <= tol,
+                f"K3 disagrees with its plain version at {key}")
+        fwd[key] = dict(max_abs_err=f_abs, ms=t["f"], call_ms=f_call, plain_ms=t["f_plain"],
+                        unfused_ms=t["f_unf"], **bf)
+        bwd[key] = dict(max_abs_err=b_abs, ms=t["b"], call_ms=b_call, plain_ms=t["b_plain"],
+                        unfused_ms=t["b_unf"], **bb)
+        del x, delta, dr, dy, r, mu, rsig
+
+    def entry(results):
+        main = results[f"{LN_SHAPES[0][0]} ({LN_SHAPES[0][1]}, {LN_SHAPES[0][2]}) bfloat16"]
+        return dict(max_abs_err=max(v["max_abs_err"] for v in results.values()),
+                    ms=main["ms"], call_ms=main["call_ms"], plain_ms=main["plain_ms"],
+                    bound_ms=main["bound_ms"],
+                    bound_by=main["bound_by"], library_ms=None, unfused_ms=main["unfused_ms"],
+                    by_shape=results)
+
+    return entry(fwd), entry(bwd)
+
+
+# --- phase 13: K2 at the shapes of K5 and K6 ------------------------------------------
+
+def _attn_case(dev: torch.device, g: torch.Generator, B: int, H: int, N: int, n_real: int,
+               dtype: torch.dtype) -> dict:
+    """K2f and K2b on one shape against their plain versions (one batch row
+    at a time), timed beside SDPA (boolean key mask when n_real < N)."""
+    q, k, v, do = (torch.randn(B, H, N, 64, generator=g, device=dev) for _ in range(4))
+    q = q * 64**-0.5
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    rows = slice(0, n_real)
+    out, lse = attn_fast.fast_mha_forward(q, k, v, n_real)
+    ref, ref_lse = _per_batch(lambda q, k, v: attn_fast.mha_forward_reference(
+        q.float(), k.float(), v.float(), n_real), q, k, v)
+    e_out = (out.float() - ref)[:, :, rows].abs().max().item()
+    e_lse = (lse - ref_lse)[:, :, rows].abs().max().item()
+    del ref, ref_lse
+    got = attn_fast.fast_mha_backward(q, k, v, out, lse, do, n_real)
+    want = _per_batch(lambda *t: attn_fast.mha_backward_reference(*t, n_real),
+                      q, k, v, out, lse, do)
+    errs = [norm_err(a[:, :, rows], b[:, :, rows]) for a, b in zip(got, want)]
+    b_abs = max((a - b)[:, :, rows].float().abs().max().item() for a, b in zip(got, want))
+    zero_tails = all((a[:, :, n_real:] == 0).all().item() for a in got[1:])
+    finite = all(torch.isfinite(t).all().item() for t in (out, *got))
+    del got, want
+    mask = None if n_real == N else _key_mask(N, n_real, dev)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+
+    o = sdpa(qr, kr, vr)
+    calls = dict(f=lambda: attn_fast.fast_mha_forward(q, k, v, n_real),
+                 b=lambda: attn_fast.fast_mha_backward(q, k, v, out, lse, do, n_real),
+                 lib_f=lambda: sdpa(q, k, v),
+                 lib_b=lambda: torch.autograd.grad(o, (qr, kr, vr), do, retain_graph=True))
+    f_ms, b_ms, lib_f, lib_b = (float(np.median(cuda_times(fn))) for fn in calls.values())
+    # device time (graph replays); SDPA's masked backward refuses capture (the
+    # autograd engine makes the legacy stream wait on the capturing one), so
+    # it keeps its CUDA-event time
+    dev_ms = {k: graph_ms(calls[k], reps=5) for k in ("f", "b", "lib_f")}
+    del o, qr, kr, vr
+    peak = BF16_TENSOR_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    elem = q.element_size()
+    bf = bound(4 * B * H * N * n_real * 64, peak, _attn_bytes(B, H, N, 64, 4, elem))
+    bb = bound(10 * B * H * N * n_real * 64, peak, _attn_bytes(B, H, N, 64, 8, elem))
+    f_tol, b_tol = ((ATTN_F32_ERR, BWD_F32_ERR) if dtype == torch.float32
+                    else (ATTN_BF16_ERR, BWD_BF16_ERR))
+    dt = str(dtype).removeprefix("torch.")
+    print(f"K2 at ({B}, {H}, {N}, 64) n_real {n_real} {dt}: attn_fwd out {e_out:.3e} lse "
+          f"{e_lse:.3e} (<= {f_tol}), {f_ms:.3f} ms (SDPA {lib_f:.3f}, bound "
+          f"{bf['bound_ms']:.3f}); attn_bwd dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+          f"normalised (<= {b_tol}), dK/dV rows >= n_real exactly 0: {zero_tails}, "
+          f"{b_ms:.3f} ms (SDPA backward {lib_b:.3f}, bound {bb['bound_ms']:.3f}); CUDA events "
+          f"per call; device ms (graph replays) "
+          f"{dict((k, round(v, 4)) for k, v in dev_ms.items())}",
+          flush=True)
+    require(e_out <= f_tol and e_lse <= f_tol and max(errs) <= b_tol and zero_tails and finite,
+            f"K2 disagrees at ({B}, {H}, {N}, 64) n_real {n_real} {dt}")
+    return dict(fwd=dict(ms=f_ms, device_ms=dev_ms["f"], max_abs_err=max(e_out, e_lse),
+                         library_ms=lib_f, library_device_ms=dev_ms["lib_f"], **bf),
+                bwd=dict(ms=b_ms, device_ms=dev_ms["b"], max_abs_err=b_abs, norm_err=max(errs),
+                         library_ms=lib_b, **bb))
+
+
+def phase_attn_k5_k6(dev: torch.device, gen: torch.Generator) -> dict:
+    """K2 at the shapes that only K5 and K6 reached on the TPU: the longest
+    sequence the 10-s positional table admits (AST-Base, n_pad 3328) and
+    n_real == N (no masked key, no boundary tile)."""
+    g = torch.Generator(dev).manual_seed(int(torch.randint(2**31, (1,), generator=gen)))
+    cases = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = f"({SERVE_BATCH}, {HEADS}, {LONG_N_PAD}, 64) n_real {LONG_N_REAL} {str(dtype)[6:]}"
+        cases[key] = _attn_case(dev, g, SERVE_BATCH, HEADS, LONG_N_PAD, LONG_N_REAL, dtype)
+        torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        key = f"({SERVE_BATCH}, {MOE_HEADS}, {MOE_N_PAD}, 64) n_real {MOE_N_PAD} {str(dtype)[6:]}"
+        cases[key] = _attn_case(dev, g, SERVE_BATCH, MOE_HEADS, MOE_N_PAD, MOE_N_PAD, dtype)
+    return cases
+
+
+# --- phases 14-17: AST-Small and AST-Mini ----------------------------------------------
+
+def _plain_dense_ops() -> dict:
+    return dict(attention=attn_fast.mha_forward_reference, add_ln=ln_fused.add_ln_reference)
+
+
+def _hold_served(served, pipe, clips: np.ndarray, dev: torch.device, what: str) -> None:
+    """One fixed batch: the served model's weights in f32 through the
+    kernels, and the served model itself, against the weights in f32 with
+    plain attention and the plain add + LN on the plain features."""
+    wave = torch.from_numpy(clips).to(dev)
+    feats = pipe.eval_batch(wave)
+    feats_plain = M.ast_normalize(M.log_mel_spectrogram(wave))
+    ref32 = ASTViT(**{**served.config, "dtype": "float32"})
+    ref32.load_state_dict(served.state_dict())
+    ref32.to(dev)
+    with torch.inference_mode():
+        want = ref32(feats_plain, **_plain_dense_ops())
+        got32 = ref32(feats)
+        got16 = served(feats)
+    e32 = (got32 - want).abs().max().item()
+    e16 = (got16 - want).abs().max().item()
+    require(torch.isfinite(got16).all().item() and got16.shape == want.shape,
+            f"{what} served outputs not finite or misshaped")
+    print(f"{what} pre-softmax (sigmoid) outputs vs plain attention and plain add + LN in f32, "
+          f"batch {clips.shape[0]}: kernels f32 {e32:.3e} (<= {SLICE_F32_ERR}), served bf16 "
+          f"{e16:.3e} (<= {SLICE_BF16_ERR})", flush=True)
+    require(e32 <= SLICE_F32_ERR, f"{what} f32 through the kernels disagrees with plain ops")
+    require(e16 <= SLICE_BF16_ERR, f"{what} bf16 served outputs disagree with plain ops")
+
+
+def phase_small_slice(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
+    """AST-Small serving with ``ln_fused`` and K6's selector, exported by the
+    CLI; one batch of 8, the comparison with plain ops, throughput."""
+    from dlsc_tpu_torch.scripts import export
+
+    art = export.main(["model=ast_small", f"+out={tmp / 'ast_small'}", "+model.ln_fused=true",
+                       "+model.attn_impl=flash", f"+seed={seed}", f"+batch={SERVE_BATCH}"])
+    serve = load_exported(art, device="cuda")
+    kw = serve.manifest["model_kwargs"]
+    require((kw["emb_dim"], kw["depth"], kw["patch_stride"], kw["ln_fused"], kw["attn_impl"])
+            == (384, DEPTH, AST_SMALL["patch_stride"], True, "flash"),
+            f"AST-Small artifact's model {kw}")
+    rng = np.random.default_rng(seed + 5)
+    clips = (rng.standard_normal((SERVE_BATCH, CLIP)) * 0.1).astype(np.float32)
+    serve(clips)   # warm-up: cuBLAS handles, allocator
+
+    # --- the main path: only these launches are counted ---------------------
+    _reset_launches()
+    probs = serve(clips)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    # --------------------------------------------------------------------------
+    print(f"AST-Small (ln_fused, attn_impl flash) served one batch of {SERVE_BATCH}: launches "
+          f"{counts}", flush=True)
+    require(probs.shape == (SERVE_BATCH, AST_SMALL["num_classes"]) and np.isfinite(probs).all()
+            and np.abs(probs.sum(-1) - 1.0).max() <= PROB_SUM_ERR,
+            "AST-Small probabilities not finite, misshaped or not summing to 1")
+    require(counts == _counts(k1=1, k2f=DEPTH, k3f=DEPTH),
+            f"AST-Small serving launch counts {counts} for one device batch")
+    _hold_served(serve.model, serve.pipe, clips, dev, "AST-Small")
+
+    infer = make_infer(serve.model, serve.pipe)
+    for b in (SERVE_BATCH, 64):
+        wave = (torch.randn(b, CLIP, generator=torch.Generator().manual_seed(seed)) * 0.1).to(dev)
+        ms = float(np.median(cuda_times(lambda: infer(wave), iters=10)))
+        prof = bench.profile_calls(lambda: infer(wave), n=3, top=8)
+        print(f"AST-Small serving throughput, batch {b} (device-resident waves, CUDA events, "
+              f"median of 10): {ms:.3f} ms/batch, {b / ms * 1e3:.1f} clips/s; profiled: "
+              f"{prof['device_ms_per_call']:.1f} ms of kernels ({prof['kernels_per_call']:.0f} "
+              f"launches) in {prof['wall_ms_per_call']:.1f} ms, busy share "
+              f"{prof['busy_share']:.3f}, kinds "
+              f"{dict((k, round(v, 2)) for k, v in prof['by_kind_ms'].items())}  [{card}]",
+              flush=True)
+    return counts
+
+
+def _train_run(dev: torch.device, seed: int, model_name: str, warmup: int, steps: int):
+    """``scripts/bench.py --model <model_name> --ln-fused``'s steps, counted
+    from 0: (record, launch counts, losses, parameters that did not change)."""
+    step, state, ms, wave, labels = bench.build(TRAIN_BATCH, seed, dev, model_name,
+                                                ln_fused=True)
+    before = {k: p.detach().clone() for k, p in state.model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # --- the main path: only these launches are counted ---------------------
+    _reset_launches()
+    state, ms, losses, step_s = bench.timed_steps(step, state, ms, wave, labels, warmup, steps)
+    counts = _launch_counts()
+    # --------------------------------------------------------------------------
+    peak_mem = torch.cuda.max_memory_allocated(dev) / 2**30
+    unchanged = [k for k, p in state.model.named_parameters() if torch.equal(before[k], p)]
+    del before
+    return step, state, ms, wave, labels, step_s, peak_mem, counts, losses, unchanged
+
+
+def phase_small_train(dev: torch.device, seed: int, card: str, base_step_ms: float) -> dict:
+    """AST-Small training at ``bench.py --model ast_small --ln-fused``'s
+    configuration, batch 64; then AST-Base ``--ln-fused``, timed beside
+    phase 5's default run."""
+    n = WARMUP_STEPS + TIMED_STEPS
+    step, state, ms, wave, labels, step_s, peak_mem, counts, losses, unchanged = _train_run(
+        dev, seed, "ast_small", WARMUP_STEPS, TIMED_STEPS)
+    prof = bench.profile_steps(step, state, ms, wave, labels)
+    rec = bench.record(state.model, TRAIN_BATCH, step_s, losses, peak_mem, prof)
+    dec = rec["decomp"]
+    print(f"train: AST-Small bf16 ln_fused remat attn_res dropout 0.1, batch {TRAIN_BATCH}, "
+          f"{WARMUP_STEPS} warm-up + {TIMED_STEPS} timed steps: {rec['step_ms']:.3f} ms/step, "
+          f"{rec['value']:.2f} clips/s, MFU {rec['mfu']:.4f} (hw_util {rec['hw_util']:.4f}), "
+          f"peak memory {rec['peak_mem_gib']:.2f} GiB; losses {losses[0]:.4f} .. "
+          f"{losses[-1]:.4f}; launches per step { {k: v / n for k, v in counts.items()} }; "
+          f"profiled: busy share {prof['busy_share']:.3f}, K2f {dec['attn_fwd_ms']:.1f} + K2b "
+          f"{dec['attn_bwd_ms']:.1f} + K3f {dec['ln_fwd_ms']:.1f} + K3b {dec['ln_bwd_ms']:.1f} "
+          f"ms of {prof['device_ms_per_step']:.1f} ms device time per step  [{card}]",
+          flush=True)
+    print(json.dumps(rec), flush=True)
+    require(not unchanged, f"AST-Small parameters that did not change: {unchanged[:8]}")
+    require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n, k3f=2 * DEPTH * n,
+                              k3b=DEPTH * n),
+            f"AST-Small launch counts {counts} over {n} steps")
+    del step, state, ms, wave, labels
+    torch.cuda.empty_cache()
+
+    *_, b_step_s, b_peak, b_counts, b_losses, b_unchanged = _train_run(
+        dev, seed, "ast", WARMUP_STEPS, TIMED_STEPS)
+    print(f"train: AST-Base bf16 with ln_fused, batch {TRAIN_BATCH}, {WARMUP_STEPS} warm-up + "
+          f"{TIMED_STEPS} timed steps: {b_step_s * 1e3:.3f} ms/step ({TRAIN_BATCH / b_step_s:.2f} "
+          f"clips/s; phase 5's default run, unfused: {base_step_ms:.3f} ms/step), peak memory "
+          f"{b_peak:.2f} GiB; launches per step { {k: v / n for k, v in b_counts.items()} }  "
+          f"[{card}]", flush=True)
+    require(not b_unchanged and np.isfinite(b_losses).all(), "AST-Base ln_fused run")
+    require(b_counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n, k3f=2 * DEPTH * n,
+                                k3b=DEPTH * n),
+            f"AST-Base ln_fused launch counts {b_counts} over {n} steps")
+    return counts
+
+
+def phase_small_parity(dev: torch.device, seed: int) -> None:
+    """One AST-Small train step with ``ln_fused`` at full width and batch 4,
+    dropout 0.1 with one seed, SGD with momentum (see ``phase_parity``): f32
+    through K2 and K3 vs f32 plain ops, and bf16 through the kernels (remat
+    attn_res) vs that f32 plain step."""
+    pipe = bench.bench_pipeline()
+    rng = np.random.default_rng(seed + 6)
+    wave = torch.from_numpy((rng.standard_normal((PARITY_BATCH, CLIP)) * 0.3)
+                            .astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, AST_SMALL["num_classes"], PARITY_BATCH)).to(dev)
+    draws = pipe.draw(PARITY_BATCH, CLIP, rng)
+    dropout_seed = int(rng.integers(2**62))
+
+    def one_step(dtype, remat, plain):
+        model = ASTViTSmall(**AST_SMALL, dtype=dtype, remat=remat, ln_fused=True, device=dev,
+                            generator=torch.Generator().manual_seed(seed))
+        state = TrainState.create(model, sgd(lr=5e-4, momentum=0.9), None, 25,
+                                  gradient_clip_val=1.0)
+        step = make_train_step(pipe, CrossEntropyLoss(), **(_plain_dense_ops() if plain else {}))
+        _reset_launches()
+        _, _, loss = step(state, MetricState.create(AST_SMALL["num_classes"], dev), wave,
+                          labels, draws, dropout_seed)
+        torch.cuda.synchronize()
+        names, params = zip(*model.named_parameters())
+        return (loss.item(), [state.optimizer.state[p]["momentum_buffer"] for p in params],
+                [p.detach() for p in params], _launch_counts(), names)
+
+    k32 = one_step(torch.float32, False, False)
+    p32 = one_step(torch.float32, False, True)
+    b16 = one_step(torch.bfloat16, True, False)
+    require(k32[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, k3f=DEPTH, k3b=DEPTH)
+            and p32[3] == _counts(k1=1)
+            and b16[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, k3f=2 * DEPTH, k3b=DEPTH),
+            f"AST-Small parity launches {k32[3]} {p32[3]} {b16[3]}")
+    _compare_steps(k32, p32, "f32 K2 + K3 vs f32 plain attention and add + LN (AST-Small "
+                   "ln_fused, dropout 0.1", STEP_F32_LOSS, STEP_F32_GRAD)
+    _compare_steps(b16, p32, "bf16 kernels (remat attn_res) vs f32 plain ops (AST-Small "
+                   "ln_fused, dropout 0.1", STEP_BF16_LOSS, STEP_BF16_GRAD)
+
+
+def phase_mini(dev: torch.device, seed: int, tmp: Path, card: str) -> tuple[dict, dict]:
+    """AST-Mini with ``ln_fused``: one served batch of 8 (K2 at 3 heads, K3 at
+    width 192) against plain ops, then 2 train steps at batch 64."""
+    model = ASTMiniViT(**AST_MINI, ln_fused=True, generator=torch.Generator().manual_seed(seed))
+    pipe = DevicePipeline(PipelineConfig(mode="ast", num_classes=AST_MINI["num_classes"]))
+    art = export_model(model, pipe, tmp / "ast_mini", batch=SERVE_BATCH, clip_samples=CLIP)
+    del model
+    serve = load_exported(art, device="cuda")
+    rng = np.random.default_rng(seed + 7)
+    clips = (rng.standard_normal((SERVE_BATCH, CLIP)) * 0.1).astype(np.float32)
+    serve(clips)   # warm-up
+
+    # --- the main path (serving): only these launches are counted ------------
+    _reset_launches()
+    probs = serve(clips)
+    torch.cuda.synchronize()
+    serve_counts = _launch_counts()
+    # --------------------------------------------------------------------------
+    print(f"AST-Mini (ln_fused) served one batch of {SERVE_BATCH}: launches {serve_counts}",
+          flush=True)
+    require(probs.shape == (SERVE_BATCH, AST_MINI["num_classes"]) and np.isfinite(probs).all()
+            and np.abs(probs.sum(-1) - 1.0).max() <= PROB_SUM_ERR,
+            "AST-Mini probabilities not finite, misshaped or not summing to 1")
+    require(serve_counts == _counts(k1=1, k2f=MINI_DEPTH, k3f=MINI_DEPTH),
+            f"AST-Mini serving launch counts {serve_counts}")
+    _hold_served(serve.model, serve.pipe, clips, dev, "AST-Mini")
+    del serve
+    torch.cuda.empty_cache()
+
+    steps = 2
+    *_, step_s, peak_mem, counts, losses, unchanged = _train_run(dev, seed, "ast_mini", 0, steps)
+    print(f"train: AST-Mini bf16 ln_fused dropout 0.1 no remat, batch {TRAIN_BATCH}, {steps} "
+          f"steps: {step_s * 1e3:.3f} ms/step (no warm-up), peak memory {peak_mem:.2f} GiB; "
+          f"losses {[round(float(x), 4) for x in losses]}; launches {counts}  [{card}]",
+          flush=True)
+    require(not unchanged, f"AST-Mini parameters that did not change: {unchanged[:8]}")
+    require(counts == _counts(k1=steps, k2f=MINI_DEPTH * steps, k2b=MINI_DEPTH * steps,
+                              k3f=MINI_DEPTH * steps, k3b=MINI_DEPTH * steps),
+            f"AST-Mini launch counts {counts} over {steps} steps")
+    return serve_counts, counts
 
 
 def main() -> None:
@@ -985,7 +1448,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False   # the patch conv would run in TF32
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    names = ("mel_power", "attn_fwd", "attn_bwd", "gmm")
+    names = ("mel_power", "attn_fwd", "attn_bwd", "gmm", "ln_fused")
     _kernels.build(*names)   # one nvcc per source, all started together
     for name in names:
         _kernels.load(name)
@@ -1002,7 +1465,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_slice(dev, args.seed, Path(tmp), card)
     torch.cuda.empty_cache()
-    train = phase_train(dev, args.seed, card)
+    train, base_step_ms = phase_train(dev, args.seed, card)
     torch.cuda.empty_cache()
     phase_parity(dev, args.seed)
     torch.cuda.empty_cache()
@@ -1016,32 +1479,61 @@ def main() -> None:
     moe_train = phase_moe_train(dev, args.seed, card)
     torch.cuda.empty_cache()
     phase_moe_parity(dev, args.seed)
+    torch.cuda.empty_cache()
+    k3f, k3b = phase_ln(dev, gen)
+    torch.cuda.empty_cache()
+    k5_k6 = phase_attn_k5_k6(dev, gen)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        small_serve = phase_small_slice(dev, args.seed, Path(tmp), card)
+    torch.cuda.empty_cache()
+    small_train = phase_small_train(dev, args.seed, card, base_step_ms)
+    torch.cuda.empty_cache()
+    phase_small_parity(dev, args.seed)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mini_serve, mini_train = phase_mini(dev, args.seed, Path(tmp), card)
 
-    # launches: the training runs' (AST-Base + AST-MoE); launches_serving: the
-    # serving runs'; launches_by_path: each main path's run, counted from 0
-    paths = dict(ast_train=train, ast_serve=serve, ast_moe_train=moe_train,
-                 ast_moe_serve=moe_serve)
+    # launches: the training runs'; launches_serving: the serving runs';
+    # launches_by_path: each main path's run, counted from 0 (ast_mini: its
+    # served batch and its 2 train steps)
+    train_runs = dict(ast_train=train, ast_moe_train=moe_train, ast_small_train=small_train,
+                      ast_mini_train=mini_train)
+    serve_runs = dict(ast_serve=serve, ast_moe_serve=moe_serve, ast_small_serve=small_serve,
+                      ast_mini_serve=mini_serve)
 
     def launches(key):
-        by_path = {p: c[key] for p, c in paths.items()}
-        return dict(launches=by_path["ast_train"] + by_path["ast_moe_train"],
-                    launches_serving=by_path["ast_serve"] + by_path["ast_moe_serve"],
+        by_path = {p: c[key] for p, c in {**train_runs, **serve_runs}.items()}
+        by_path["ast_mini"] = by_path.pop("ast_mini_train") + by_path.pop("ast_mini_serve")
+        return dict(launches=sum(c[key] for c in train_runs.values()),
+                    launches_serving=sum(c[key] for c in serve_runs.values()),
                     launches_by_path=by_path)
+
+    def k5_k6_shapes(part):
+        return {shape: c[part] for shape, c in k5_k6.items()}
 
     kernels = [
         dict(name="mel_power", route="cuda", source="dlsc_tpu_torch/csrc/mel_power.cu",
              replaces="dlsc_tpu/ops/mel_pallas.py:77", **launches("k1"), **k1),
         dict(name="attn_fwd", route="cuda", source="dlsc_tpu_torch/csrc/attn_fwd.cu",
-             replaces="dlsc_tpu/ops/attn_fast.py:125", **launches("k2f"), **k2f,
-             ms_ast_moe=k2_moe["fwd_ms"], max_abs_err_ast_moe=k2_moe["fwd_err"]),
+             replaces="dlsc_tpu/ops/attn_fast.py:125, dlsc_tpu/models/vit.py:349, "
+                      "dlsc_tpu/models/vit.py:518", **launches("k2f"), **k2f,
+             ms_ast_moe=k2_moe["fwd_ms"], max_abs_err_ast_moe=k2_moe["fwd_err"],
+             k5_k6_shapes=k5_k6_shapes("fwd")),
         dict(name="attn_bwd", route="cuda", source="dlsc_tpu_torch/csrc/attn_bwd.cu",
-             replaces="dlsc_tpu/ops/attn_fast.py:205", **launches("k2b"), **k2b,
-             ms_ast_moe=k2_moe["bwd_ms"], max_abs_err_ast_moe=k2_moe["bwd_err"]),
+             replaces="dlsc_tpu/ops/attn_fast.py:205, dlsc_tpu/models/vit.py:349, "
+                      "dlsc_tpu/models/vit.py:518", **launches("k2b"), **k2b,
+             ms_ast_moe=k2_moe["bwd_ms"], max_abs_err_ast_moe=k2_moe["bwd_err"],
+             k5_k6_shapes=k5_k6_shapes("bwd")),
         dict(name="gmm", route="cuda", source="dlsc_tpu_torch/csrc/gmm.cu",
              replaces="dlsc_tpu/models/moe.py:537", **launches("gmm"), **k4a),
         dict(name="tgmm", route="cuda", source="dlsc_tpu_torch/csrc/gmm.cu",
              replaces="jax/experimental/pallas/ops/tpu/megablox/gmm.py:573",
              **launches("tgmm"), **k4b),
+        dict(name="add_ln_fwd", route="cuda", source="dlsc_tpu_torch/csrc/ln_fused.cu",
+             replaces="dlsc_tpu/ops/ln_fused.py:53", **launches("k3f"), **k3f),
+        dict(name="add_ln_bwd", route="cuda", source="dlsc_tpu_torch/csrc/ln_fused.cu",
+             replaces="dlsc_tpu/ops/ln_fused.py:93", **launches("k3b"), **k3b),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -36,12 +36,15 @@ def ASTModel(
     remat: bool = True,               # ViT-Base at ~1650 tokens: remat blocks
     remat_policy: str = "attn_res",   # keep attention out + lse: the backward
                                       # does not rerun the forward kernel
+    attn_impl: str = "splash",
+    ln_fused: bool = False,
     device: torch.device | str | None = None,
     generator: torch.Generator | None = None,
 ) -> ASTViT:
     """AST over a deit ViT trunk, with the arguments ``configs/model/ast.yaml``
     passes plus ``dtype``, the remat settings (the JAX defaults,
-    ``dlsc_tpu/models/ast.py:56-60``), ``device`` and the init ``generator``."""
+    ``dlsc_tpu/models/ast.py:56-60``), ``attn_impl``, ``ln_fused`` (see
+    ``models/vit.py``), ``device`` and the init ``generator``."""
     var = _DEIT_VARIANTS.get(pretrained_model)
     if var is None and (emb_dim is None or depth is None or num_heads is None):
         raise ValueError(
@@ -62,6 +65,8 @@ def ASTModel(
         dtype=dtype,
         remat=remat,
         remat_policy=remat_policy,
+        attn_impl=attn_impl,
+        ln_fused=ln_fused,
         device=device,
         generator=generator,
     )

@@ -7,8 +7,10 @@ dropless ragged dispatch on kernel K4. ``configs/model/ast_moe.yaml`` passes
 its arguments. Only ``router='token'`` with ``dispatch='ragged'`` is ported:
 any other pair raises, and ``router='expert'`` with ``dispatch='ragged'``
 raises ``ValueError`` as ``MoeSpec`` does (the JAX ``ASTMoE`` rewrites it to
-``einsum``, ``ast_moe.py:78``). The JAX package's TPU and mesh options
-(``attn_impl``, ``attn_dropout``, ``expert_sharding``) are not taken.
+``einsum``, ``ast_moe.py:78``). ``attn_impl`` and ``attn_dropout`` are
+taken as ``ASTViT`` takes them ('splash' and 'flash' both run K2; 'dense'
+and attention dropout raise), and ``ln_fused`` puts kernel K3 in every
+block; the mesh option ``expert_sharding`` waits for multi-GPU (M12).
 """
 
 from __future__ import annotations
@@ -38,14 +40,17 @@ def ASTMoE(
     dispatch: str = "ragged",
     group_size: int = 256,
     dtype: torch.dtype | str = torch.bfloat16,
+    attn_impl: str = "splash",
+    attn_dropout: float = 0.0,
     remat: bool = True,
     remat_policy: str = "attn_res",
+    ln_fused: bool = False,
     device: torch.device | str | None = None,
     generator: torch.Generator | None = None,
 ) -> ASTViT:
     """``ASTViT`` with an MoE spec in every block, with the JAX ``ASTMoE``'s
-    defaults (dropout 0.1, remat ``attn_res``, bf16) plus ``device`` and the
-    init ``generator``."""
+    defaults (dropout 0.1, remat ``attn_res``, bf16) plus ``ln_fused``,
+    ``device`` and the init ``generator``."""
     return ASTViT(
         num_classes=num_classes,
         emb_dim=emb_dim,
@@ -63,6 +68,9 @@ def ASTMoE(
         moe=MoeSpec(n_experts=n_experts, top_k=top_k, capacity_factor=capacity_factor,
                     aux_weight=aux_weight, router_z_weight=router_z_weight, router=router,
                     dispatch=dispatch, group_size=group_size),
+        ln_fused=ln_fused,
+        attn_impl=attn_impl,
+        attn_dropout=attn_dropout,
         device=device,
         generator=generator,
     )

@@ -43,6 +43,28 @@ that each block seeds from ``dropout_seed`` and its index at the point of
 use, so the re-forward of a rematerialised block draws the same masks.
 The other JAX policies (``dots``, ``attn_out``, ``attn_res_qkv``,
 ``attn_res_fc1``, ``attn_res_moe``) are not ported yet (ROADMAP §1 M3, M8).
+
+``ln_fused`` (an argument, where the JAX package reads ``DLSC_LN_FUSED=1``,
+``vit.py:648-659``) replaces each block's attention residual add and norm2,
+dense and MoE blocks alike, by the fused op ``ops.ln_fused.add_ln``
+(kernels K3f and K3b on the card, the plain versions on the CPU); the
+parameters stay ``norm2.weight`` / ``norm2.bias``. In bf16 the fused path
+takes norm2's statistics from the unrounded f32 sum, so it differs from the
+unfused one by the rounding of the residual. The op is not kept by remat
+``attn_res``: a rematerialised block runs K3f again.
+``forward(..., add_ln=...)`` takes another function with its contract,
+e.g. ``add_ln_reference`` for a plain run.
+
+``attn_impl`` is the JAX package's choice of TPU attention kernel:
+``'splash'`` (the splash library kernel, or its shape-specialised fast
+path) and ``'flash'`` (the flash library kernel with segment ids). Both
+compute the same masked attention on every row that reaches an output, so
+both run ``dlsc_tpu_torch::mha`` here; the flash path's 512-token pad grain
+(``vit.py:529-530``) is a TPU block-size constraint that the port does not
+carry over, and its pad rows (which attend pad keys there) are values that
+nothing reads. ``'dense'`` (the einsum branch, the only one with
+attention-weight dropout, ``vit.py:132-140``) and ``attn_dropout > 0`` raise
+``NotImplementedError`` (ROADMAP §1 M7).
 """
 
 from __future__ import annotations
@@ -62,14 +84,19 @@ from dlsc_tpu_torch.models.moe import (MOE_METRICS, GroupedMatmulFn, MoeMlp, Moe
                                        TopkFn, as_moe_spec, dropout, topk_routes)
 from dlsc_tpu_torch.ops.attn_fast import fast_mha_lse
 from dlsc_tpu_torch.ops.gmm import grouped_matmul as gmm_op
+from dlsc_tpu_torch.ops.ln_fused import add_ln as add_ln_op
 
 PAD_GRAIN = 128  # token padding grain of the attention kernel's layout
 LN_EPS = 1e-6
 
 AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int],
                        tuple[torch.Tensor, torch.Tensor]]
+# (x, delta, gamma, beta) -> (r, y, mu, rsig), as ops.ln_fused.add_ln
+AddLnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
+                   tuple[torch.Tensor, ...]]
 
 REMAT_POLICIES = ("full", "attn_res")
+ATTN_IMPLS = ("splash", "flash")   # the JAX package's TPU kernels, both on dlsc_tpu_torch::mha
 
 
 def _remat_context_fn(policy: str) -> Callable:
@@ -80,6 +107,15 @@ def _remat_context_fn(policy: str) -> Callable:
         return functools.partial(create_selective_checkpoint_contexts,
                                  [torch.ops.dlsc_tpu_torch.mha.default])
     raise ValueError(f"remat_policy {policy!r} is not ported; known: {REMAT_POLICIES}")
+
+
+def _check_attention(attn_impl: str, attn_dropout: float) -> None:
+    if attn_impl == "dense" or attn_dropout > 0:
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r}, attn_dropout={attn_dropout}: the dense attention "
+            "branch with attention-weight dropout is not ported yet (ROADMAP §1 M7)")
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; known: {ATTN_IMPLS} and 'dense'")
 
 
 def _as_dtype(dtype: torch.dtype | str) -> torch.dtype:
@@ -129,13 +165,15 @@ class Mlp(nn.Module):
 
 class Block(nn.Module):
     """Pre-LN block; the MLP is ``Mlp``, or ``MoeMlp`` (``self.moe``) when
-    ``moe`` is given. ``forward`` returns (x, aux, stats), aux and stats
-    None for a dense block; ``seed`` (None: no dropout) seeds the block's
-    dropout generator."""
+    ``moe`` is given; with ``ln_fused`` the attention residual add and
+    norm2 are one ``add_ln`` call. ``forward`` returns (x, aux, stats), aux
+    and stats None for a dense block; ``seed`` (None: no dropout) seeds the
+    block's dropout generator."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dropout: float = 0.0, moe: MoeSpec | None = None):
+                 dropout: float = 0.0, moe: MoeSpec | None = None, ln_fused: bool = False):
         super().__init__()
+        self.ln_fused = ln_fused
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = Attention(dim, num_heads)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
@@ -146,10 +184,14 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, n_real: int, attention: AttentionFn,
                 grouped_matmul: GroupedMatmulFn = gmm_op, topk: TopkFn = topk_routes,
-                seed: int | None = None):
+                seed: int | None = None, add_ln: AddLnFn = add_ln_op):
         gen = None if seed is None else torch.Generator(x.device).manual_seed(seed)
-        x = x + self.attn(_layer_norm(x, self.norm1), n_real, attention)
-        y = _layer_norm(x, self.norm2)
+        a = self.attn(_layer_norm(x, self.norm1), n_real, attention)
+        if self.ln_fused:
+            x, y, _, _ = add_ln(x, a, self.norm2.weight, self.norm2.bias)
+        else:
+            x = x + a
+            y = _layer_norm(x, self.norm2)
         if not hasattr(self, "moe"):
             return x + self.mlp(y, gen), None, None
         out, aux, stats = self.moe(y, n_real, grouped_matmul, topk, gen)
@@ -174,7 +216,8 @@ class ASTViT(nn.Module):
     as a dict), enough to rebuild the module for an exported artifact.
     ``remat`` and ``remat_policy`` act only in train mode with autograd on,
     ``dropout`` only in train mode. ``dropout`` defaults to 0, AST-Base's
-    (the JAX ``ASTViT`` field defaults to 0.1; ``ASTModel`` and ``ASTMoE`` set it).
+    (the JAX ``ASTViT`` field defaults to 0.1; the model factories set it).
+    ``ln_fused`` and ``attn_impl``: see the module docstring.
     """
 
     def __init__(self, num_classes: int = 50, emb_dim: int = 384, depth: int = 12,
@@ -183,6 +226,8 @@ class ASTViT(nn.Module):
                  dtype: torch.dtype | str = torch.float32,
                  remat: bool = False, remat_policy: str = "full",
                  dropout: float = 0.0, moe: MoeSpec | dict | None = None,
+                 ln_fused: bool = False, attn_impl: str = "splash",
+                 attn_dropout: float = 0.0,
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -194,6 +239,7 @@ class ASTViT(nn.Module):
                 f"({patch_size - overlap}); the positional-embedding grid "
                 "assumes it")
         _remat_context_fn(remat_policy)  # validates the policy
+        _check_attention(attn_impl, attn_dropout)
         dtype = _as_dtype(dtype)
         moe = as_moe_spec(moe)
         self.config = dict(
@@ -202,7 +248,8 @@ class ASTViT(nn.Module):
             overlap=overlap, sample_rate=sample_rate, f_dim=f_dim,
             dtype=str(dtype).removeprefix("torch."), remat=remat,
             remat_policy=remat_policy, dropout=dropout,
-            moe=None if moe is None else dataclasses.asdict(moe))
+            moe=None if moe is None else dataclasses.asdict(moe), ln_fused=ln_fused,
+            attn_impl=attn_impl, attn_dropout=attn_dropout)
         self.dtype = dtype
         self.dropout = dropout
         self.remat = remat
@@ -217,7 +264,8 @@ class ASTViT(nn.Module):
             self.cls_token = nn.Parameter(torch.empty(1, 1, emb_dim))
             self.pos_embed = nn.Parameter(torch.empty(1, 1 + num_patches, emb_dim))
             self.blocks = nn.ModuleList(
-                Block(emb_dim, num_heads, dropout=dropout, moe=moe) for _ in range(depth))
+                Block(emb_dim, num_heads, dropout=dropout, moe=moe, ln_fused=ln_fused)
+                for _ in range(depth))
             self.norm = nn.LayerNorm(emb_dim, eps=LN_EPS)
             self.head = nn.Linear(emb_dim, num_classes)
         self.to_empty(device="cpu")
@@ -275,13 +323,15 @@ class ASTViT(nn.Module):
 
     def forward(self, x: torch.Tensor, attention: AttentionFn = fast_mha_lse,
                 grouped_matmul: GroupedMatmulFn = gmm_op, topk: TopkFn = topk_routes,
-                dropout_seed: int | None = None, return_aux: bool = False):
+                dropout_seed: int | None = None, return_aux: bool = False,
+                add_ln: AddLnFn = add_ln_op):
         """Sigmoid outputs (B, num_classes); with ``return_aux``, (outputs,
         aux, stats): the MoE blocks' summed aux loss (0.0 without MoE) and
         their mean ``MOE_METRICS`` stats ({} without MoE). ``attention``,
-        ``grouped_matmul`` and ``topk`` replace the ops (plain versions for
-        a reference run); ``dropout_seed`` seeds this call's dropout in
-        train mode (drawn from torch's default generator when None)."""
+        ``grouped_matmul``, ``topk`` and ``add_ln`` (read with ``ln_fused``)
+        replace the ops (plain versions for a reference run);
+        ``dropout_seed`` seeds this call's dropout in train mode (drawn from
+        torch's default generator when None)."""
         x, n_real = self.embed(x)
         remat = self.remat and self.training and torch.is_grad_enabled()
         context_fn = _remat_context_fn(self.remat_policy)
@@ -292,7 +342,7 @@ class ASTViT(nn.Module):
         aux, stats = 0.0, []
         for i, blk in enumerate(self.blocks):
             args = (x, n_real, attention, grouped_matmul, topk,
-                    None if seed is None else seed + i)
+                    None if seed is None else seed + i, add_ln)
             if remat:
                 x, a, s = checkpoint(blk, *args, use_reentrant=False, context_fn=context_fn)
             else:

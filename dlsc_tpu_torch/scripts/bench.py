@@ -1,7 +1,7 @@
-"""AST-Base (default) or AST-MoE train-step throughput on one GPU.
+"""Train-step throughput of one of the port's AST models on one GPU.
 
-    python -m dlsc_tpu_torch.scripts.bench [--model ast|ast_moe] [--batch 64] [--steps 10] \
-        [--warmup 2] [--seed 0]
+    python -m dlsc_tpu_torch.scripts.bench [--model ast|ast_moe|ast_small|ast_mini] \
+        [--ln-fused] [--batch 64] [--steps 10] [--warmup 2] [--seed 0]
 
 The configuration of the root ``bench.py`` (``bench.py:49-73``): AST-Base
 (``configs/model/ast.yaml``) in bf16 with remat ``attn_res``, seeded random
@@ -13,7 +13,13 @@ kernels K1, K2f and K2b. ``--model ast_moe`` runs AST-MoE
 (``configs/model/ast_moe.yaml``, ``ASTMoE``'s defaults: bf16, remat
 ``attn_res``, dropout 0.1; 8 experts, top-2, dropless ragged dispatch) with
 the same pipeline and optimizer, since the two configs' dataset overrides
-are the same; its experts run on kernels K4a and K4b.
+are the same; its experts run on kernels K4a and K4b. ``--model ast_small``
+(``configs/model/ast_small.yaml``: patch 16, stride 16; ``ASTViTSmall``'s
+defaults: bf16, remat ``attn_res``, dropout 0.1) and ``--model ast_mini``
+(``configs/model/ast_mini.yaml``: stride 10; ``ASTMiniViT``'s defaults:
+bf16, no remat, dropout 0.1) run the same way, their dataset overrides
+being the same too. ``--ln-fused`` builds the model with ``ln_fused``: each
+block's attention residual add and norm2 run on kernels K3f and K3b.
 
 Prints one JSON line: ``metric``, ``value`` (clips/s), ``unit``, ``batch``,
 ``step_ms`` (host clock over ``--steps`` steps ending in a synchronize,
@@ -22,11 +28,12 @@ the card's bf16 peak), ``device``, ``n_chips``, the peak device memory,
 ``profile`` (two more steps under ``torch.profiler``: device ms per step by
 kind of kernel, the top kernels, the busy share) and ``decomp``, read from
 that profile: the attention kernels K2f and K2b per step (depth launches
-each), for AST-MoE the grouped-matmul kernels K4a and K4b, and the rest of
-the step. The FLOP convention is the useful count of ``utils/mfu.py``:
+each), for AST-MoE the grouped-matmul kernels K4a and K4b, with
+``--ln-fused`` the add + LayerNorm kernels K3f and K3b, and the rest of the
+step. The FLOP convention is the useful count of ``utils/mfu.py``:
 4·n²·D forward and 10·n²·D backward at n_real for attention; an MoE block
 counts top_k × its two expert products per real token plus the router.
-A fixed batch runs or raises: no back-off.
+K3 adds no matmul FLOPs. A fixed batch runs or raises: no back-off.
 """
 
 from __future__ import annotations
@@ -40,7 +47,9 @@ import torch
 
 from dlsc_tpu_torch.data.pipeline import DevicePipeline, PipelineConfig
 from dlsc_tpu_torch.models.ast import ASTModel
+from dlsc_tpu_torch.models.ast_mini import ASTMiniViT
 from dlsc_tpu_torch.models.ast_moe import ASTMoE
+from dlsc_tpu_torch.models.ast_small import ASTViTSmall
 from dlsc_tpu_torch.models.moe import MOE_METRICS
 from dlsc_tpu_torch.train.losses import CrossEntropyLoss
 from dlsc_tpu_torch.train.metrics import MetricState
@@ -56,6 +65,9 @@ AST_BASE = dict(num_classes=50, sample_rate=44_100, patch_size=16, patch_stride=
 AST_MOE = dict(num_classes=50, sample_rate=44_100, patch_size=16, patch_stride=16, overlap=0,
                n_experts=8, top_k=2, capacity_factor=1.25, aux_weight=0.01,
                router_z_weight=0.001, router="token", dispatch="ragged", group_size=256)
+# configs/model/ast_small.yaml and ast_mini.yaml, written out
+AST_SMALL = dict(num_classes=50, sample_rate=44_100, patch_size=16, patch_stride=16, overlap=0)
+AST_MINI = dict(num_classes=50, sample_rate=44_100, patch_size=16, patch_stride=10, overlap=6)
 CLIP = 220_500
 FLOP_CONVENTION = ("useful FLOPs (utils/mfu.py): parameter matmuls x3, attention "
                    "4·n²·D forward + 10·n²·D backward, at n_real tokens")
@@ -67,14 +79,23 @@ METRICS = {
     "ast_moe": "AST-MoE train-step throughput (K1 mel + SpecAugment + Mixup + AST-Small "
                "trunk with 8-expert top-2 MoE MLPs, dropless ragged dispatch on K4a/K4b, bf16 "
                "fwd/bwd, dropout 0.1, remat attn_res, + Adam), 5-s clips",
+    "ast_small": "AST-Small train-step throughput (K1 mel + SpecAugment + Mixup + ViT 384/12/6 "
+                 "patch 16 stride 16, bf16 fwd/bwd, dropout 0.1, remat attn_res, + Adam), "
+                 "5-s clips",
+    "ast_mini": "AST-Mini train-step throughput (K1 mel + SpecAugment + Mixup + ViT 192/6/3 "
+                "patch 16 stride 10, bf16 fwd/bwd, dropout 0.1, no remat, + Adam), 5-s clips",
 }
+LN_FUSED_NOTE = "; K3 fused residual add + LayerNorm in every block"
 K2F, K2B = "K2f attention forward", "K2b attention backward"
+K3F, K3B = "K3f add+LN forward", "K3b add+LN backward"
 K4A, K4B = "K4a gmm", "K4b tgmm"
 
 # Device-kernel name fragments → the layer they belong to, first match wins.
 _KERNEL_KINDS = (
     (K2F, ("attn_fwd",)),
     (K2B, ("attn_bwd",)),
+    (K3F, ("add_ln_fwd",)),
+    (K3B, ("add_ln_bwd",)),
     (K4B, ("tgmm",)),
     (K4A, ("gmm",)),
     ("K1 mel", ("mel_power",)),
@@ -95,17 +116,26 @@ def bench_pipeline() -> DevicePipeline:
                                          mixup_alpha=0.5))
 
 
-def build(batch: int, seed: int, device: torch.device, model_name: str = "ast"):
-    """(train_step, state, metric state, waves, labels) of the bench on
-    ``device`` for ``model_name`` (``ast`` or ``ast_moe``)."""
-    gen = torch.Generator().manual_seed(seed)
+def build_model(model_name: str, seed: int, device: torch.device, ln_fused: bool = False):
+    """The bench's ``model_name`` (a key of ``METRICS``) with seeded weights."""
+    kw = dict(ln_fused=ln_fused, generator=torch.Generator().manual_seed(seed), device=device)
     if model_name == "ast":
-        model = ASTModel(**AST_BASE, dtype=torch.bfloat16, remat=True, remat_policy="attn_res",
-                         generator=gen, device=device)
-    elif model_name == "ast_moe":
-        model = ASTMoE(**AST_MOE, generator=gen, device=device)
-    else:
-        raise ValueError(f"unknown bench model {model_name!r}; known: {sorted(METRICS)}")
+        return ASTModel(**AST_BASE, dtype=torch.bfloat16, remat=True, remat_policy="attn_res",
+                        **kw)
+    if model_name == "ast_moe":
+        return ASTMoE(**AST_MOE, **kw)
+    if model_name == "ast_small":
+        return ASTViTSmall(**AST_SMALL, **kw)
+    if model_name == "ast_mini":
+        return ASTMiniViT(**AST_MINI, **kw)
+    raise ValueError(f"unknown bench model {model_name!r}; known: {sorted(METRICS)}")
+
+
+def build(batch: int, seed: int, device: torch.device, model_name: str = "ast",
+          ln_fused: bool = False):
+    """(train_step, state, metric state, waves, labels) of the bench on
+    ``device`` for ``model_name`` (a key of ``METRICS``)."""
+    model = build_model(model_name, seed, device, ln_fused)
     extras = MOE_METRICS if model.config["moe"] else ()
     state = TrainState.create(model, adam(lr=5e-4, weight_decay=1e-6),
                               cosine_annealing(T_max=100), steps_per_epoch=25,
@@ -116,6 +146,13 @@ def build(batch: int, seed: int, device: torch.device, model_name: str = "ast"):
     step = make_train_step(bench_pipeline(), CrossEntropyLoss())
     return (step, state, MetricState.create(AST_BASE["num_classes"], device, extras),
             wave.to(device), labels.to(device))
+
+
+def _metric_key(cfg: dict) -> str:
+    """The ``METRICS`` key of a bench model, from its configuration."""
+    if cfg["moe"]:
+        return "ast_moe"
+    return {768: "ast", 384: "ast_small", 192: "ast_mini"}[cfg["emb_dim"]]
 
 
 def timed_steps(step, state, ms, wave, labels, warmup: int, steps: int):
@@ -201,7 +238,7 @@ def record(model: torch.nn.Module, batch: int, step_s: float, losses: np.ndarray
     peak = peak_tflops(name) * 1e12
     kinds = prof["by_kind_ms"]
     attn_ms = kinds.get(K2F, 0.0) + kinds.get(K2B, 0.0)
-    heads, moe = cfg["num_heads"], cfg["moe"]
+    heads, moe, ln_fused = cfg["num_heads"], cfg["moe"], cfg["ln_fused"]
     note = (f"device ms per step under the profiler: K2f + K2b, {cfg['depth']} launches each "
             f"at (B {batch}, H {heads}, N {n_pad}, dh {cfg['emb_dim'] // heads}) "
             f"{cfg['dtype']}, n_real {n_real}")
@@ -214,10 +251,15 @@ def record(model: torch.nn.Module, batch: int, step_s: float, losses: np.ndarray
         m_rows = batch * n_real * moe["top_k"]
         note += (f"; K4a gmm (forward, remat re-forward, dlhs) and K4b tgmm at {m_rows} "
                  f"sorted rows over {moe['n_experts']} experts")
+    if ln_fused:
+        decomp.update(ln_fwd_ms=kinds.get(K3F, 0.0), ln_bwd_ms=kinds.get(K3B, 0.0))
+        kernel_ms += decomp["ln_fwd_ms"] + decomp["ln_bwd_ms"]
+        note += (f"; K3f (forward{', remat re-forward' if cfg['remat'] else ''}) and K3b at "
+                 f"({batch * n_pad}, {cfg['emb_dim']}) {cfg['dtype']}")
     decomp["rest_ms"] = prof["device_ms_per_step"] - kernel_ms
     decomp["note"] = note + "; rest = the other kernels"
     return {
-        "metric": METRICS["ast_moe" if moe else "ast"],
+        "metric": METRICS[_metric_key(cfg)] + (LN_FUSED_NOTE if ln_fused else ""),
         "value": batch / step_s,
         "unit": "clips/s",
         "batch": batch,
@@ -234,13 +276,15 @@ def record(model: torch.nn.Module, batch: int, step_s: float, losses: np.ndarray
     }
 
 
+
+
 def measure(batch: int = 64, steps: int = 10, warmup: int = 2, seed: int = 0,
-            model_name: str = "ast") -> dict:
+            model_name: str = "ast", ln_fused: bool = False) -> dict:
     """Run the bench and return its JSON record (see the module docstring)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the bench needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     dev = torch.device("cuda", 0)
-    step, state, ms, wave, labels = build(batch, seed, dev, model_name)
+    step, state, ms, wave, labels = build(batch, seed, dev, model_name, ln_fused)
     torch.cuda.reset_peak_memory_stats(dev)
     state, ms, losses, step_s = timed_steps(step, state, ms, wave, labels, warmup, steps)
     peak_mem = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -251,12 +295,14 @@ def measure(batch: int = 64, steps: int = 10, warmup: int = 2, seed: int = 0,
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=sorted(METRICS), default="ast")
+    ap.add_argument("--ln-fused", action="store_true",
+                    help="fused residual add + LayerNorm (kernel K3) in every block")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    rec = measure(args.batch, args.steps, args.warmup, args.seed, args.model)
+    rec = measure(args.batch, args.steps, args.warmup, args.seed, args.model, args.ln_fused)
     print(json.dumps(rec))
     return rec
 

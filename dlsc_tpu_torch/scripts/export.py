@@ -1,17 +1,22 @@
-"""Export the AST or AST-MoE serving artifact of the port.
+"""Export the serving artifact of one of the port's AST models.
 
     python -m dlsc_tpu_torch.scripts.export model=ast +out=exports/ast_torch \
         [+seed=0] [+params_npz=params.npz] [+batch=8] [+clip_samples=220500] \
         [+dtype=bfloat16]
     python -m dlsc_tpu_torch.scripts.export model=ast_moe +out=exports/ast_moe_torch
+    python -m dlsc_tpu_torch.scripts.export model=ast_small +out=exports/ast_small_torch \
+        [+model.ln_fused=true] [+model.attn_impl=flash]
+    python -m dlsc_tpu_torch.scripts.export model=ast_mini +out=exports/ast_mini_torch
 
 Composes the same configs with the same override grammar as
 ``scripts/export.py`` and writes ``dlsc_tpu_torch.serving.export_model``'s
 artifact. Weights come from ``+params_npz`` (a JAX ``params`` tree saved with
 ``np.savez``, keys joined by ``/``, e.g. ``blocks_0/attn/qkv/kernel``) or,
 without it, from a seeded init (``seed``; a smoke artifact).
-``model=ast`` and ``model=ast_moe`` are ported (ROADMAP §1 M7 for the other
-families).
+``model=ast``, ``ast_moe``, ``ast_small`` and ``ast_mini`` are ported
+(ROADMAP §1 M7 for the other families). Any model argument goes through the
+override grammar, e.g. ``+model.ln_fused=true`` (kernel K3 in every block)
+or ``+model.attn_impl=flash``.
 """
 
 from __future__ import annotations
@@ -25,12 +30,15 @@ import torch
 from dlsc_tpu_torch.config import compose
 from dlsc_tpu_torch.data.pipeline import pipeline_from_dataset_config
 from dlsc_tpu_torch.models.ast import ASTModel
+from dlsc_tpu_torch.models.ast_mini import ASTMiniViT
 from dlsc_tpu_torch.models.ast_moe import ASTMoE
+from dlsc_tpu_torch.models.ast_small import ASTViTSmall
 from dlsc_tpu_torch.models.convert import params_from_jax
 from dlsc_tpu_torch.serving import export_model
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
-MODELS = {"ast.ASTModel": ASTModel, "ast_moe.ASTMoE": ASTMoE}   # by _target_ suffix
+MODELS = {"ast.ASTModel": ASTModel, "ast_moe.ASTMoE": ASTMoE,   # by _target_ suffix
+          "ast_small.ASTViTSmall": ASTViTSmall, "ast_mini.ASTMiniViT": ASTMiniViT}
 
 
 def parse_cli(argv: list[str]) -> tuple[str, str, list[str]]:
@@ -71,8 +79,8 @@ def main(argv: list[str] | None = None) -> Path:
     target = str(cfg.select("model._target_", default=""))
     make_model = next((m for suffix, m in MODELS.items() if target.endswith(suffix)), None)
     if make_model is None:
-        raise SystemExit(f"model {target!r} is not ported yet; only model=ast and "
-                         "model=ast_moe (ROADMAP §1 M7 for the other families)")
+        raise SystemExit(f"model {target!r} is not ported yet; only model=ast, ast_moe, "
+                         "ast_small and ast_mini (ROADMAP §1 M7 for the other families)")
     model_kw = cfg.model.to_dict()
     model_kw.pop("_target_")
     ds = cfg.dataset.to_dict()

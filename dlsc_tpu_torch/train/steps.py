@@ -6,7 +6,7 @@ and ``make_eval_step``. One call of the train step runs: waveform batch →
 outside the autograd graph, the JAX step's ``stop_gradient``) → forward in
 train mode (kernel K2f in each block, remat as the model is configured) →
 soft-label loss plus the MoE blocks' aux loss → backward (kernel K2b; K4
-in MoE blocks) → global-norm clip → optimizer update at this step's LR →
+in MoE blocks; K3 with ``ln_fused``) → global-norm clip → optimizer update at this step's LR →
 metric update with the pre-update outputs and the MoE stats (the metric
 state's extras, when it was created with ``MOE_METRICS``).
 
@@ -32,9 +32,9 @@ def make_train_step(pipeline: DevicePipeline, criterion: Callable, **ops) -> Cal
     """``train_step(state, ms, wave, labels, draws=None, dropout_seed=None)
     -> (state, ms, loss)``; ``state`` is updated in place and returned.
     ``ops`` that are not None replace the model's (``ASTViT.forward``'s
-    ``attention``, ``grouped_matmul``, ``topk``: e.g. the plain
-    ``mha_forward_reference`` and ``gmm_reference`` under autograd, or a
-    router choice replayed from another run)."""
+    ``attention``, ``grouped_matmul``, ``topk``, ``add_ln``: e.g. the plain
+    ``mha_forward_reference``, ``gmm_reference`` and ``add_ln_reference``
+    under autograd, or a router choice replayed from another run)."""
     ops = {k: v for k, v in ops.items() if v is not None}
 
     def train_step(state: TrainState, ms: MetricState, wave: torch.Tensor,

@@ -14,7 +14,11 @@ version rounds P and dS where the kernel does); the small AST model in f32
 through the kernels vs plain ops 1e-4 on its sigmoid outputs, and one f32
 train step 1e-4 on the loss (relative) and on each parameter's gradient
 (normalised); K4a/K4b f32 1e-5 normalised (summation order only), bf16
-1e-2 (bf16 output rounding, f32 sums on both sides).
+1e-2 (bf16 output rounding, f32 sums on both sides); K3f/K3b: r exact
+in both types (both round one f32 sum), y, dx, dgamma and dbeta 1e-5
+normalised in f32 (summation order only) and 1e-2 in bf16 (the outputs
+stored in bf16); the small AST-Small train step with ``ln_fused`` through
+K2 and K3 vs plain ops 1e-4, as the AST step.
 """
 
 import numpy as np
@@ -26,6 +30,7 @@ from dlsc_tpu_torch.models.ast import ASTModel
 from dlsc_tpu_torch.models.vit import ASTViT
 from dlsc_tpu_torch.ops import attn_fast as A
 from dlsc_tpu_torch.ops import gmm as G
+from dlsc_tpu_torch.ops import ln_fused as LN
 from dlsc_tpu_torch.ops import mel as M
 from dlsc_tpu_torch.ops import mel_kernel as MK
 from dlsc_tpu_torch.train.losses import CrossEntropyLoss
@@ -68,7 +73,8 @@ def test_mel_kernel_matches_plain(hop, win, n, cuda_device):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("n,n_real", [(256, 256), (256, 200), (200, 131), (1664, 1645)])
+@pytest.mark.parametrize("n,n_real", [(256, 256), (256, 200), (200, 131), (1664, 1645),
+                                      (768, 768)])
 def test_attention_kernel_matches_reference(dtype, tol, n, n_real, cuda_device):
     """Any N and n_real, including a ragged last query block and kv tile."""
     rng = np.random.default_rng(n + n_real)
@@ -113,7 +119,8 @@ def test_small_ast_through_kernels_matches_plain(cuda_device):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("n,n_real", [(256, 256), (256, 200), (200, 131), (1664, 1645)])
+@pytest.mark.parametrize("n,n_real", [(256, 256), (256, 200), (200, 131), (1664, 1645),
+                                      (768, 768)])
 def test_attention_backward_kernel_matches_reference(dtype, tol, n, n_real, cuda_device):
     """K2b from K2f's residuals, any N and n_real: dQ, dK, dV over rows <
     n_real against the plain version on the same inputs; dK/dV rows >=
@@ -287,6 +294,104 @@ def test_small_ast_moe_train_step_through_kernels_matches_plain(cuda_device):
                         [state.optimizer.state[p]["momentum_buffer"] for p in model.parameters()]))
     (l_k, gmm_k, tgmm_k, g_k), (l_p, gmm_p, tgmm_p, g_p) = results
     assert (gmm_k, tgmm_k, gmm_p, tgmm_p) == (8, 4, 0, 0)
+    assert abs(l_k - l_p) <= 1e-4 * abs(l_p)
+    for a, b in zip(g_k, g_p):
+        if b.abs().max() > 0:
+            assert _norm_err(a, b) <= 1e-4
+        else:
+            assert (a == 0).all()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("d", [192, 384, 768, 1024, 8])
+@pytest.mark.parametrize("rows", [5003, 3])
+def test_add_ln_kernels_match_plain(dtype, tol, d, rows, cuda_device):
+    """K3f and K3b against their plain versions on the same inputs: r
+    exact, y/mu/rsig and dx/dgamma/dbeta within the bar, one launch each.
+    5003 rows: a ragged last block, and more rows than the backward's grid
+    has warps (each warp walks several)."""
+    rng = np.random.default_rng(d + rows)
+    x, delta, dr, dy = (torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32))
+                        .to(cuda_device, dtype) for _ in range(4))
+    gamma = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(
+        cuda_device)
+    beta = torch.from_numpy((0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda_device)
+    LN.reset_launches()
+    got = LN.fused_add_ln_forward(x, delta, gamma, beta)
+    torch.cuda.synchronize()
+    want = LN.add_ln_reference(x, delta, gamma, beta)
+    assert torch.equal(got[0], want[0])
+    for name, g, w in zip(("y", "mu", "rsig"), got[1:], want[1:]):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _norm_err(g.float(), w.float()) <= tol, name
+    r, _, mu, rsig = want
+    got = LN.fused_add_ln_backward(r, mu, rsig, gamma, dr, dy)
+    torch.cuda.synchronize()
+    want = LN.add_ln_backward_reference(r, mu, rsig, gamma, dr, dy)
+    for name, g, w in zip(("dx", "dgamma", "dbeta"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        assert _norm_err(g.float(), w.float()) <= tol, name
+    assert (LN.launches, LN.bwd_launches) == (1, 1)
+
+
+def test_add_ln_op_gradient_matches_autograd_of_plain(cuda_device):
+    g = torch.Generator().manual_seed(2)
+    x, delta, wr, wy = (torch.randn(4, 300, 384, generator=g).to(cuda_device) for _ in range(4))
+    gamma, beta = (torch.randn(384, generator=g).to(cuda_device) for _ in range(2))
+    grads = []
+    for fn in (LN.add_ln, LN.add_ln_reference):
+        t = [a.clone().requires_grad_() for a in (x, delta, gamma, beta)]
+        r, y, _, _ = fn(*t)
+        grads.append(torch.autograd.grad((r * wr).sum() + (y * wy).sum(), t))
+    for a, b in zip(*grads):
+        assert _norm_err(a, b) <= 1e-5
+
+
+def test_add_ln_kernel_rejects_unsupported(cuda_device):
+    w = torch.ones(100, device=cuda_device)
+    x = torch.zeros(8, 100, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        LN.fused_add_ln_forward(x, x, w, w)
+    w = torch.ones(64, device=cuda_device)
+    x = torch.zeros(8 * 64 + 1, device=cuda_device)[1:].view(8, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        LN.fused_add_ln_forward(x, x, w, w)
+    x = torch.zeros(8, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16/float32"):
+        LN.fused_add_ln_forward(x, x, w, w)
+
+
+def test_small_ast_small_ln_fused_train_step_matches_plain(cuda_device):
+    """One f32 AST-Small step with ``ln_fused`` (dropout 0.1, one seed,
+    remat ``attn_res``) through K1, K2 and K3 vs the same step with plain
+    attention and the plain add + LN: loss 1e-4 relative, gradients 1e-4
+    normalised; K3f twice per block (forward and re-forward), K3b once."""
+    from dlsc_tpu_torch.models.ast_small import ASTViTSmall
+
+    pipe = DevicePipeline(PipelineConfig(mode="ast", num_classes=7, time_mask=192,
+                                         freq_mask=48, enable_mixup=True))
+    rng = np.random.default_rng(2)
+    wave = torch.from_numpy((rng.standard_normal((4, 44_100)) * 0.3).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 7, 4))
+    draws = pipe.draw(4, 44_100, rng)
+    results = []
+    for plain in (False, True):
+        model = ASTViTSmall(num_classes=7, emb_dim=128, depth=2, num_heads=2, patch_stride=16,
+                            overlap=0, dtype=torch.float32, ln_fused=True, device=cuda_device,
+                            generator=torch.Generator().manual_seed(0))
+        state = TrainState.create(model, sgd(lr=0.1, momentum=0.9), None, 1)
+        ops = (dict(attention=A.mha_forward_reference, add_ln=LN.add_ln_reference)
+               if plain else {})
+        step = make_train_step(pipe, CrossEntropyLoss(), **ops)
+        LN.reset_launches()
+        state, _, loss = step(state, MetricState.create(7, cuda_device), wave.to(cuda_device),
+                              labels.to(cuda_device), draws, 99)
+        torch.cuda.synchronize()
+        results.append((loss.item(), (LN.launches, LN.bwd_launches),
+                        [state.optimizer.state[p]["momentum_buffer"] for p in model.parameters()]))
+    (l_k, n_k, g_k), (l_p, n_p, g_p) = results
+    assert n_k == (4, 2) and n_p == (0, 0)
     assert abs(l_k - l_p) <= 1e-4 * abs(l_p)
     for a, b in zip(g_k, g_p):
         if b.abs().max() > 0:

@@ -194,7 +194,9 @@ def test_port_imports_no_jax():
         "assert {'dlsc_tpu_torch.config', 'dlsc_tpu_torch.train.steps',\n"
         "        'dlsc_tpu_torch.scripts.bench', 'dlsc_tpu_torch.ops.augment',\n"
         "        'dlsc_tpu_torch.ops.gmm', 'dlsc_tpu_torch.models.moe',\n"
-        "        'dlsc_tpu_torch.models.ast_moe'} <= set(names)\n"
+        "        'dlsc_tpu_torch.models.ast_moe', 'dlsc_tpu_torch.ops.ln_fused',\n"
+        "        'dlsc_tpu_torch.models.ast_small',\n"
+        "        'dlsc_tpu_torch.models.ast_mini'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'dlsc_tpu'))\n"
         "assert not bad, bad\n"
