@@ -13,9 +13,12 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 2. kernel K2f (attention forward) against its plain version, f32 and bf16,
    beside ``F.scaled_dot_product_attention`` with the same key mask, then
    bf16 at the training batch 64;
-3. kernel K2b (attention backward) against its plain version at AST-Base
-   shapes, f32 and bf16 at batch 8, beside the SDPA backward, then bf16 at
-   the training batch 64;
+3. kernel K2b (attention backward): its SASS must hold HGMMA (wgmma) and no
+   HMMA, its bf16 kernels spill nothing (``-Xptxas -v``, printed); against
+   its plain version at AST-Base shapes, f32 and bf16 at batch 8, bf16 also
+   by graph replay beside the SDPA backward and the bound, two bf16 calls
+   bit-identical; then bf16 at the training batch 64 of AST-Base and of
+   AST-Mini (3 heads), one batch row of the plain version at a time;
 4. the serving slice: AST-Base (bf16, seeded random weights) exported,
    loaded on the card and served over HTTP to a burst of concurrent
    requests; the launch counters must show that every device batch went
@@ -30,7 +33,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    through the kernels vs f32 with plain attention, and bf16 through the
    kernels (remat ``attn_res``) vs that f32 plain step;
 7. kernels K2f and K2b at AST-MoE's training shape (64, 6, 768, 64),
-   n_real 689, bf16, against their plain versions one batch row at a time;
+   n_real 689, bf16, against their plain versions one batch row at a time,
+   K2b also by graph replay and two calls bit-identical;
 8. kernels K4a (gmm) and K4b (tgmm) against their plain versions at
    AST-MoE's batch-64 shapes (88 192 sorted rows): the two expert products,
    their transposed-rhs dlhs and both tgmm, bf16 with the group sizes of a
@@ -56,7 +60,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     attention kernels K5 (generic splash) and K6 (flash) reached, now
     served by K2: the longest sequence the models admit (AST-Base on a 10-s
     clip, (8, 12, 3328, 64), n_real 3301) in bf16 and f32, and n_real == N
-    at (8, 6, 768, 64) (no key masked), beside SDPA;
+    at (8, 6, 768, 64) (no key masked), beside SDPA; K2b's reruns
+    bit-identical;
 14. AST-Small serving: exported by ``scripts/export.py model=ast_small
     +model.ln_fused=true +model.attn_impl=flash``, loaded on the card, one
     batch of 8 (per device batch K1 1, K2f 12, K3f 12, no backward
@@ -92,6 +97,7 @@ import argparse
 import concurrent.futures
 import http.client
 import json
+import re
 import subprocess
 import tempfile
 import threading
@@ -143,7 +149,7 @@ MOE_ROWS = TRAIN_BATCH * MOE_N_REAL * AST_MOE["top_k"]   # 88 192 sorted rows at
 SKEWED_SIZES = (45_001, 0, 12_345, 9_999, 7_777, 6_543, 4_321, 2_206)
 AST_SMALL = bench.AST_SMALL   # configs/model/ast_small.yaml, written out
 AST_MINI = bench.AST_MINI     # configs/model/ast_mini.yaml, written out
-MINI_DEPTH = 6
+MINI_DEPTH, MINI_HEADS = 6, 3   # ASTMiniViT's 192 wide, 6 blocks, 3 heads
 MINI_N_PAD = N_PAD            # AST-Mini has AST-Base's patch grid: 1645 tokens, 1664
 # K3 at the training batch 64: (name, rows, width)
 LN_SHAPES = (("AST-Small", TRAIN_BATCH * MOE_N_PAD, 384),
@@ -439,10 +445,80 @@ def phase_attn(dev: torch.device, gen: torch.Generator) -> dict:
     return dict(max_abs_err=max(e_out, e_out64), ms=ms, plain_ms=plain, library_ms=lib, **bd)
 
 
+def _k2b_build() -> dict:
+    """What K2b compiled to: HGMMA (wgmma) and HMMA (mma.sync) instructions in
+    its SASS (``cuobjdump -sass``), and each kernel's registers and spill
+    bytes (``-Xptxas -v``, one of ``attn_bwd``'s build flags). The bf16
+    kernels must run on wgmma and spill nothing."""
+    sass = _kernels.sass("attn_bwd")
+    hgmma, hmma = sass.count("HGMMA"), len(re.findall(r"\bHMMA\b", sass))
+    regs, spills, kernel = {}, {}, None
+    for line in _kernels.build_log("attn_bwd").splitlines():
+        m = re.search(r"entry function '.*(attn_bwd_(?:dq|dkv)_(?:bf16|f32)_kernel)", line)
+        if m:
+            kernel = m.group(1)
+        elif kernel and (m := re.search(r"(\d+) bytes spill stores", line)):
+            spills[kernel] = int(m.group(1))
+        elif kernel and (m := re.search(r"Used (\d+) registers", line)):
+            regs[kernel] = int(m.group(1))
+    print(f"K2b attn_bwd build: SASS HGMMA {hgmma}, HMMA {hmma}; registers {regs}, spill "
+          f"store bytes {spills}", flush=True)
+    require(hgmma > 0 and hmma == 0, f"K2b SASS: HGMMA {hgmma}, HMMA {hmma}")
+    bf16 = [k for k in regs if "bf16" in k]
+    require(len(bf16) == 2 and all(spills.get(k) == 0 for k in bf16),
+            f"K2b bf16 kernels' registers {regs}, spills {spills}")
+    return dict(hgmma=hgmma, registers=regs, spill_store_bytes=spills)
+
+
+def _k2b_split_ms(fn) -> dict:
+    """Device ms per call of each bf16 K2b kernel (dQ, dK/dV), from
+    ``torch.profiler``'s kernel records over 10 calls of ``fn``."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        m = re.search(r"attn_bwd_(dq|dkv)_bf16_kernel", e.key)
+        if m:
+            split[m.group(1)] = e.device_time_total / e.count / 1e3
+    require(set(split) == {"dq", "dkv"}, f"K2b profile: kernels {split}")
+    return split
+
+
+def _hold_bwd_per_batch(dev: torch.device, gen: torch.Generator, heads: int, n: int,
+                        n_real: int, what: str) -> tuple[float, float]:
+    """bf16 K2b at (TRAIN_BATCH, heads, n, 64) in one launch against its plain
+    version one batch row at a time: (max abs error, CUDA-event ms)."""
+    q, k, v, do = _train_attn_inputs(dev, gen, 4, heads, n)
+    rows = slice(0, n_real)
+    out, lse = attn_fast.fast_mha_forward(q, k, v, n_real)
+    got = attn_fast.fast_mha_backward(q, k, v, out, lse, do, n_real)
+    want = _per_batch(lambda *t: attn_fast.mha_backward_reference(*t, n_real),
+                      q, k, v, out, lse, do)
+    errs = [norm_err(g[:, :, rows], w[:, :, rows]) for g, w in zip(got, want)]
+    abs_err = max((g - w)[:, :, rows].float().abs().max().item() for g, w in zip(got, want))
+    zero_tails = all((g[:, :, n_real:] == 0).all().item() for g in got[1:])
+    finite = all(torch.isfinite(g).all().item() for g in got)
+    del got, want
+    ms = float(np.median(cuda_times(
+        lambda: attn_fast.fast_mha_backward(q, k, v, out, lse, do, n_real))))
+    print(f"K2b attn_bwd bf16 at {what} (B {TRAIN_BATCH}, H {heads}, N {n}, n_real {n_real}): "
+          f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} normalised (<= {BWD_BF16_ERR}), "
+          f"max_abs {abs_err:.3e}, dK/dV rows >= n_real exactly 0: {zero_tails}  median kernel "
+          f"{ms:.3f} ms", flush=True)
+    require(max(errs) <= BWD_BF16_ERR and zero_tails and finite, f"K2b bf16 disagrees at {what}")
+    return abs_err, ms
+
+
 def phase_attn_bwd(dev: torch.device, gen: torch.Generator) -> dict:
-    """K2b at AST-Base shapes from K2f's residuals: f32 and bf16 at batch 8,
-    timed against the plain version, then bf16 at the training slice's batch
-    64, held against the plain version one batch row at a time."""
+    """K2b at AST-Base shapes from K2f's residuals: what it compiled to
+    (``_k2b_build``); f32 and bf16 at batch 8, timed against the plain
+    version, bf16 also by graph replay beside SDPA's backward and the bound,
+    and two bf16 calls required bit-identical; then bf16 at the training
+    batch 64 of AST-Base and of AST-Mini (3 heads), held against the plain
+    version one batch row at a time."""
+    build = _k2b_build()
     B, H, N, dh, n_real = SERVE_BATCH, HEADS, N_PAD, 64, N_REAL
     q, k, v, do = (torch.randn(B, H, N, dh, generator=gen) for _ in range(4))
     q = q * dh**-0.5
@@ -478,31 +554,37 @@ def phase_attn_bwd(dev: torch.device, gen: torch.Generator) -> dict:
         F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask, scale=1.0),
         (qr, kr, vr), dod))))
     bd = bound(10 * B * H * N * n_real * dh, BF16_TENSOR_FLOPS, _attn_bytes(B, H, N, dh, 8, 2))
-    print(f"K2b attn_bwd bf16: SDPA backward alone {lib_bwd:.3f} ms, SDPA forward + backward "
-          f"{lib_fb:.3f} ms; bound {bd['bound_ms']:.3f} ms ({bd['bound_by']})", flush=True)
+    # the kernels alone: 20 calls replayed from a CUDA graph (the wrapper's
+    # Python, which CUDA events around one call include, is left out)
+    dev_ms = graph_ms(lambda: attn_fast.fast_mha_backward(qd, kd, vd, out, lse, dod, n_real))
+    split = _k2b_split_ms(lambda: attn_fast.fast_mha_backward(qd, kd, vd, out, lse, dod, n_real))
+    first = attn_fast.fast_mha_backward(qd, kd, vd, out, lse, dod, n_real)
+    second = attn_fast.fast_mha_backward(qd, kd, vd, out, lse, dod, n_real)
+    deterministic = all(torch.equal(a, b) for a, b in zip(first, second))
+    del first, second
+    share, ratio = bd["bound_ms"] / dev_ms, dev_ms / lib_bwd
+    # each kernel's rate over its own products: dQ 3 (S, dP, dQ), dK/dV 4
+    rates = {k: n * 2 * B * H * N * n_real * dh / (split[k] * 1e-3) / BF16_TENSOR_FLOPS
+             for k, n in (("dq", 3), ("dkv", 4))}
+    print(f"K2b attn_bwd bf16: {dev_ms:.4f} ms by graph replay ({ms:.3f} by CUDA events), "
+          f"{share:.3f} of the bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
+          f"10·B·H·N·n_real·dh), "
+          f"{ratio:.3f}x SDPA's backward alone {lib_bwd:.3f} ms (SDPA forward + backward "
+          f"{lib_fb:.3f} ms); two calls bit-identical: {deterministic}; profiler: dQ kernel "
+          f"{split['dq']:.4f} ms ({rates['dq']:.3f} of the bf16 peak over its 3 products), dK/dV "
+          f"kernel {split['dkv']:.4f} ms ({rates['dkv']:.3f} over its 4)", flush=True)
+    require(deterministic, "two bf16 K2b calls on the same inputs differ")
     del q, k, v, do, qd, kd, vd, dod, out, lse, qr, kr, vr, o
 
-    # the training slice's shape: bf16 at batch 64 in one launch
-    qt, kt, vt, dot = _train_attn_inputs(dev, gen, 4)
-    out, lse = attn_fast.fast_mha_forward(qt, kt, vt, n_real)
-    got = attn_fast.fast_mha_backward(qt, kt, vt, out, lse, dot, n_real)
-    want = _per_batch(lambda *t: attn_fast.mha_backward_reference(*t, n_real),
-                      qt, kt, vt, out, lse, dot)
-    errs = [norm_err(g[:, :, rows], w[:, :, rows]) for g, w in zip(got, want)]
-    abs64 = max((g - w)[:, :, rows].float().abs().max().item() for g, w in zip(got, want))
-    zero_tails = all((g[:, :, n_real:] == 0).all().item() for g in got[1:])
-    finite = all(torch.isfinite(g).all().item() for g in got)
-    del got, want
-    ms64 = float(np.median(cuda_times(
-        lambda: attn_fast.fast_mha_backward(qt, kt, vt, out, lse, dot, n_real))))
-    print(f"K2b attn_bwd bf16 at the train batch (B {TRAIN_BATCH}): dq {errs[0]:.3e} dk "
-          f"{errs[1]:.3e} dv {errs[2]:.3e} normalised (<= {BWD_BF16_ERR}), max_abs "
-          f"{abs64:.3e}, dK/dV rows >= n_real exactly 0: {zero_tails}  median kernel "
-          f"{ms64:.3f} ms", flush=True)
-    require(max(errs) <= BWD_BF16_ERR and zero_tails and finite,
-            f"K2b bf16 disagrees at batch {TRAIN_BATCH}")
-    return dict(max_abs_err=max(abs_err, abs64), ms=ms, plain_ms=plain, library_ms=lib_bwd,
-                **bd)
+    # the training slices' shapes: bf16 at batch 64 in one launch
+    abs64, ms64 = _hold_bwd_per_batch(dev, gen, HEADS, N_PAD, N_REAL, "AST-Base's train batch")
+    torch.cuda.empty_cache()
+    abs_mini, ms_mini = _hold_bwd_per_batch(dev, gen, MINI_HEADS, MINI_N_PAD, N_REAL,
+                                            "AST-Mini's train batch")
+    return dict(max_abs_err=max(abs_err, abs64, abs_mini), ms=ms, plain_ms=plain,
+                library_ms=lib_bwd, **bd, graph_ms=dev_ms, bound_share=share,
+                library_ratio=ratio, deterministic=deterministic, kernel_ms=split, ms_batch64=ms64,
+                ms_ast_mini_batch64=ms_mini, **build)
 
 
 def _post(port: int, path: str, body: bytes) -> tuple[int, dict]:
@@ -743,15 +825,23 @@ def phase_attn_ast_moe(dev: torch.device, gen: torch.Generator) -> dict:
     fwd_ms = float(np.median(cuda_times(lambda: attn_fast.fast_mha_forward(q, k, v, n_real))))
     bwd_ms = float(np.median(cuda_times(
         lambda: attn_fast.fast_mha_backward(q, k, v, out, lse, do, n_real))))
+    bwd_graph_ms = graph_ms(lambda: attn_fast.fast_mha_backward(q, k, v, out, lse, do, n_real),
+                            reps=5)
+    first = attn_fast.fast_mha_backward(q, k, v, out, lse, do, n_real)
+    second = attn_fast.fast_mha_backward(q, k, v, out, lse, do, n_real)
+    deterministic = all(torch.equal(a, b) for a, b in zip(first, second))
+    del first, second
     print(f"K2 at AST-MoE's train shape (B {TRAIN_BATCH}, H {H}, N {N}, dh 64, n_real {n_real}) "
           f"bf16: attn_fwd out {e_out:.3e} lse {e_lse:.3e} (<= {ATTN_BF16_ERR}), median "
           f"{fwd_ms:.3f} ms; attn_bwd dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
           f"normalised (<= {BWD_BF16_ERR}), max_abs {abs_err:.3e}, dK/dV rows >= n_real exactly "
-          f"0: {zero_tails}, median {bwd_ms:.3f} ms", flush=True)
+          f"0: {zero_tails}, median {bwd_ms:.3f} ms ({bwd_graph_ms:.4f} by graph replay), two "
+          f"calls bit-identical: {deterministic}", flush=True)
     require(e_out <= ATTN_BF16_ERR and e_lse <= ATTN_BF16_ERR, "K2f disagrees at AST-MoE's shape")
-    require(max(errs) <= BWD_BF16_ERR and zero_tails and finite,
+    require(max(errs) <= BWD_BF16_ERR and zero_tails and finite and deterministic,
             "K2b disagrees at AST-MoE's shape")
-    return dict(fwd_ms=fwd_ms, fwd_err=max(e_out, e_lse), bwd_ms=bwd_ms, bwd_err=abs_err)
+    return dict(fwd_ms=fwd_ms, fwd_err=max(e_out, e_lse), bwd_ms=bwd_ms,
+                bwd_graph_ms=bwd_graph_ms, bwd_err=abs_err)
 
 
 def _router_group_sizes(dev: torch.device, seed: int) -> torch.Tensor:
@@ -1157,7 +1247,9 @@ def _attn_case(dev: torch.device, g: torch.Generator, B: int, H: int, N: int, n_
     b_abs = max((a - b)[:, :, rows].float().abs().max().item() for a, b in zip(got, want))
     zero_tails = all((a[:, :, n_real:] == 0).all().item() for a in got[1:])
     finite = all(torch.isfinite(t).all().item() for t in (out, *got))
-    del got, want
+    again = attn_fast.fast_mha_backward(q, k, v, out, lse, do, n_real)
+    deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, want, again
     mask = None if n_real == N else _key_mask(N, n_real, dev)
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
 
@@ -1186,12 +1278,12 @@ def _attn_case(dev: torch.device, g: torch.Generator, B: int, H: int, N: int, n_
           f"{e_lse:.3e} (<= {f_tol}), {f_ms:.3f} ms (SDPA {lib_f:.3f}, bound "
           f"{bf['bound_ms']:.3f}); attn_bwd dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
           f"normalised (<= {b_tol}), dK/dV rows >= n_real exactly 0: {zero_tails}, "
-          f"{b_ms:.3f} ms (SDPA backward {lib_b:.3f}, bound {bb['bound_ms']:.3f}); CUDA events "
-          f"per call; device ms (graph replays) "
+          f"{b_ms:.3f} ms (SDPA backward {lib_b:.3f}, bound {bb['bound_ms']:.3f}), two calls "
+          f"bit-identical: {deterministic}; CUDA events per call; device ms (graph replays) "
           f"{dict((k, round(v, 4)) for k, v in dev_ms.items())}",
           flush=True)
-    require(e_out <= f_tol and e_lse <= f_tol and max(errs) <= b_tol and zero_tails and finite,
-            f"K2 disagrees at ({B}, {H}, {N}, 64) n_real {n_real} {dt}")
+    require(e_out <= f_tol and e_lse <= f_tol and max(errs) <= b_tol and zero_tails and finite
+            and deterministic, f"K2 disagrees at ({B}, {H}, {N}, 64) n_real {n_real} {dt}")
     return dict(fwd=dict(ms=f_ms, device_ms=dev_ms["f"], max_abs_err=max(e_out, e_lse),
                          library_ms=lib_f, library_device_ms=dev_ms["lib_f"], **bf),
                 bwd=dict(ms=b_ms, device_ms=dev_ms["b"], max_abs_err=b_abs, norm_err=max(errs),
@@ -1523,8 +1615,8 @@ def main() -> None:
         dict(name="attn_bwd", route="cuda", source="dlsc_tpu_torch/csrc/attn_bwd.cu",
              replaces="dlsc_tpu/ops/attn_fast.py:205, dlsc_tpu/models/vit.py:349, "
                       "dlsc_tpu/models/vit.py:518", **launches("k2b"), **k2b,
-             ms_ast_moe=k2_moe["bwd_ms"], max_abs_err_ast_moe=k2_moe["bwd_err"],
-             k5_k6_shapes=k5_k6_shapes("bwd")),
+             ms_ast_moe=k2_moe["bwd_ms"], graph_ms_ast_moe=k2_moe["bwd_graph_ms"],
+             max_abs_err_ast_moe=k2_moe["bwd_err"], k5_k6_shapes=k5_k6_shapes("bwd")),
         dict(name="gmm", route="cuda", source="dlsc_tpu_torch/csrc/gmm.cu",
              replaces="dlsc_tpu/models/moe.py:537", **launches("gmm"), **k4a),
         dict(name="tgmm", route="cuda", source="dlsc_tpu_torch/csrc/gmm.cu",

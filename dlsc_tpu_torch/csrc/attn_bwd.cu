@@ -13,285 +13,388 @@
 //
 // What bounds it here: at AST-Base (N 1664, dh 64) the five products are
 // 10 N^2 dh = 1.8 GFLOP per head against about 1.5 MB of operands, so the
-// kernels are bound by the tensor cores and the exponentials. The TPU kernel
+// tensor cores (and the exponentials beside them) bound it. The TPU kernel
 // carries the dK/dV sums in VMEM across a sequential grid over query blocks;
 // H100 blocks run in parallel and in no order, so the work is split into two
-// deterministic kernels with no atomics:
-//  - dQ: one block (4 warps) per (batch x head, 64 query rows). Its prologue
-//    computes D for its rows (and stores it for the next kernel); then it
-//    streams 64-key tiles, recomputes S and dP, and accumulates dQ += dS k;
-//  - dK/dV: one block per (batch x head, 64 keys). Each warp keeps its 16
-//    keys' k and v as mma.sync A fragments, streams all query tiles,
-//    recomputes S^T and dP^T, and accumulates dV += P^T dO and dK += dS^T q
-//    in registers; stored once.
-// Products are bf16 mma.sync.m16n8k16 with f32 accumulators. P and dS are
-// rounded to bf16 before their products, where the TPU kernel rounds them.
-// Operand tiles needed as B fragments along the tile's row axis are kept
-// transposed in shared memory, so every fragment is one 32-bit load.
-// n_real is the static boundary: key tiles entirely at or past it are never
-// loaded (their dK/dV blocks write zeros and exit) and only the straddling
-// tile is masked. A float32 path (scalar FMA, one thread per row) serves the
-// tight-tolerance parity checks. wgmma, TMA and warp specialisation are
-// later work.
+// kernels that own their outputs, with no atomics: two calls on the same
+// inputs give the same bits. The split recomputes S and dP in both
+// (14 N^2 dh operations instead of 10); that is the price of determinism.
+//
+// bf16 design (hopper.cuh): each CTA is 2 consumer warpgroups of 64 rows and
+// one producer warp. The producer's one thread loads the CTA's fixed tiles,
+// then streams 64-row tiles through a ring of STAGES slots by TMA
+// (128-byte-swizzled, 3-D tensor maps (B*H, N, 64) so that rows past N read
+// as zeros, never as the next head's), each slot a "full" mbarrier (bytes
+// arrived) and an "empty" one (both warpgroups done with it). Consumers run
+// bf16 wgmma m64n64k16 with f32 accumulators:
+//  - dQ: a CTA owns (batch x head, 128 queries). Its prologue computes D for
+//    its rows and stores it for the next kernel. Per 64-key tile:
+//    S = Q K^T and dP = dO V^T (A and B from shared memory, both K-major),
+//    dS in registers, then dQ += dS K with dS as the register A operand and
+//    K read MN-major through the transpose bit (no transposed copy). Key
+//    tiles past n_real are never loaded; only the straddling one is masked.
+//  - dK/dV: a CTA owns (batch x head, 128 keys), K and V loaded once; Q and
+//    dO stream in 64-query tiles by TMA, and with each tile the producer
+//    warp's 32 lanes copy its 64 lse and D values into the slot with plain
+//    loads (row b*N of the (B*H, N) f32 arrays need not start 16-byte
+//    aligned, as a tensor map's rows must) and arrive on its "full"
+//    barrier. S^T = K Q^T and dP^T = V dO^T from shared memory; P^T and
+//    dS^T in registers; dV += P^T dO and dK += dS^T Q with the register A
+//    operand and dO / Q read MN-major. Query columns >= N take lse = +inf
+//    (P = 0). Stored once, rows >= n_real forced to 0; a CTA whose keys are
+//    all >= n_real writes zeros and loads nothing.
+// A CTA's fixed 64-row box that lies wholly past N is not loaded: its rows
+// compute on whatever the slot holds, row by row, and are never stored.
+// P and dS are rounded to bf16 before their products, where the TPU kernel
+// rounds them. The tile sizes, grids and shared-memory bytes are those of
+// `_bwd_plan` in ops/attn_fast.py, which the wrapper checks before launch.
+// A float32 path (scalar FMA, one thread per row) serves the tight-tolerance
+// parity checks.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int DH = 64;
-constexpr int BT = 64;          // rows (queries or keys) per tile, bf16 path
-constexpr int STR = DH + 8;     // row stride (bf16) of a row-major tile in shared memory
-constexpr int TSTR = BT + 8;    // row stride (bf16) of a transposed tile
+// bf16 path: the numbers of `_bwd_plan` (ops/attn_fast.py)
+constexpr int TILE = 64;       // rows of one TMA box, of one warpgroup's slice, of a streamed tile
+constexpr int BLOCK = 128;     // rows (queries or keys) a CTA owns: 2 consumer warpgroups
+constexpr int STAGES = 3;      // slots in the ring of streamed tiles
+constexpr int CONSUMERS = 256; // threads of the 2 consumer warpgroups; then 1 producer warp
+constexpr int THREADS = CONSUMERS + 32;
+constexpr int TILE_BYTES = TILE * DH * 2;
+constexpr int BARRIER_BYTES = (1 + 2 * STAGES) * 8;
+constexpr int DQ_SMEM = 1024 + 2 * BLOCK * DH * 2 + STAGES * 2 * TILE_BYTES + BLOCK * 4 +
+                        BARRIER_BYTES;
+constexpr int DKV_SMEM = 1024 + 2 * BLOCK * DH * 2 + STAGES * (2 * TILE_BYTES + 2 * TILE * 4) +
+                         BARRIER_BYTES;
+constexpr float LOG2E = 1.4426950408889634f;
+// f32 path
 constexpr int BR32 = 64;        // rows per block, f32 path (one thread each)
 constexpr int BKV32 = 32;       // keys per tile, f32 dQ kernel
 constexpr int BQ32 = 16;        // queries per tile, f32 dK/dV kernel
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// The 1024-byte aligned start of dynamic shared memory (128-byte swizzle atoms).
+__device__ __forceinline__ uint8_t* align1024(uint8_t* raw) {
+  return raw + ((1024u - (hopper::smem_u32(raw) & 1023u)) & 1023u);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float dot2(uint32_t a, uint32_t b) {
-  const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&a));
-  const float2 y = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&b));
-  return x.x * y.x + x.y * y.y;
-}
-
-// Rows [r0, r0 + BT) of X (N x 64) into shared memory: row-major into `row`
-// and/or transposed into `tr`, whichever is non-null. Rows >= N read as 0.
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ X, int r0, int N,
-                                          __nv_bfloat16* row, __nv_bfloat16* tr) {
-  for (int c = threadIdx.x; c < BT * DH / 8; c += blockDim.x) {
-    const int r = c / (DH / 8), col = (c % (DH / 8)) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (r0 + r < N) x = *reinterpret_cast<const uint4*>(X + (size_t)(r0 + r) * DH + col);
-    if (row) *reinterpret_cast<uint4*>(row + r * STR + col) = x;
-    if (tr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) tr[(col + i) * TSTR + r] = e[i];
-    }
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), v = __bfloat1622float2(y[i]);
+    s = fmaf(u.x, v.x, fmaf(u.y, v.y, s));
   }
+  return s;
 }
 
-// The A fragments (16 rows x 64, four k-steps of 16) of rows ra, rb of X.
-__device__ __forceinline__ void load_a(const __nv_bfloat16* __restrict__ X, int ra, int rb,
-                                       int N, int t, uint32_t a[4][4]) {
+// Rows ra, rb (tile-local rows of this thread, see hopper.cuh) of a 64 x 64
+// f32 accumulator into X (N x 64) at row r0 + ra / r0 + rb, rows >= N skipped.
+__device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ X, int ra, int rb, int N,
+                                          int t, const float (&acc)[32]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    a[ks][0] = ra < N ? ld32(X + (size_t)ra * DH + c) : 0u;
-    a[ks][1] = rb < N ? ld32(X + (size_t)rb * DH + c) : 0u;
-    a[ks][2] = ra < N ? ld32(X + (size_t)ra * DH + c + 8) : 0u;
-    a[ks][3] = rb < N ? ld32(X + (size_t)rb * DH + c + 8) : 0u;
-  }
-}
-
-// acc (16 x 64) = A (16 x 64, fragments) . B^T, B's 64 rows row-major in shared memory.
-__device__ __forceinline__ void mma_rows(float acc[8][4], const uint32_t a[4][4],
-                                         const __nv_bfloat16* B, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const __nv_bfloat16* br = B + (nt * 8 + g) * STR + ks * 16 + 2 * t;
-      const uint32_t b[2] = {ld32(br), ld32(br + 8)};
-      mma_bf16_16816(acc[nt], a[ks], b);
-    }
-  }
-}
-
-// acc (16 x 64) += X (16 x 64, the f32 accumulators of an earlier product,
-// rounded to bf16) . B, with B (64 x 64) stored transposed in shared memory.
-__device__ __forceinline__ void mma_acc_t(float acc[8][4], const float x[8][4],
-                                          const __nv_bfloat16* Bt, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16* br = Bt + (nt * 8 + g) * TSTR + kk * 16 + 2 * t;
-      const uint32_t b[2] = {ld32(br), ld32(br + 8)};
-      mma_bf16_16816(acc[nt], a, b);
-    }
-  }
-}
-
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ X, int ra, int rb,
-                                           int N, int t, const float acc[8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int c = nt * 8 + 2 * t;
+  for (int j = 0; j < 8; ++j) {
+    const int c = j * 8 + 2 * t;
     if (ra < N)
-      *reinterpret_cast<uint32_t*>(X + (size_t)ra * DH + c) = pack_bf16(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<uint32_t*>(X + (size_t)ra * DH + c) =
+          hopper::pack_bf16(acc[4 * j], acc[4 * j + 1]);
     if (rb < N)
-      *reinterpret_cast<uint32_t*>(X + (size_t)rb * DH + c) = pack_bf16(acc[nt][2], acc[nt][3]);
+      *reinterpret_cast<uint32_t*>(X + (size_t)rb * DH + c) =
+          hopper::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
-__global__ void __launch_bounds__(128)
-attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ out,
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __nv_bfloat16* __restrict__ out,
                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                         float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int N,
                         int n_real) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[BT * STR];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BT * STR];
-  __shared__ __align__(16) __nv_bfloat16 Kt[DH * TSTR];
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(align1024(smem_raw));  // BLOCK x 64
+  __nv_bfloat16* dOs = Qs + BLOCK * DH;                                       // BLOCK x 64
+  __nv_bfloat16* Ks = dOs + BLOCK * DH;                         // STAGES x (TILE x 64)
+  __nv_bfloat16* Vs = Ks + STAGES * TILE * DH;                  // STAGES x (TILE x 64)
+  float* Ds = reinterpret_cast<float*>(Vs + STAGES * TILE * DH);  // BLOCK
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(Ds + BLOCK);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + STAGES;
 
-  const size_t base = (size_t)blockIdx.y * N * DH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * BT + warp * 16 + g, r1 = r0 + 8;
-
-  uint32_t qa[4][4], da[4][4];
-  load_a(q + base, r0, r1, N, t, qa);
-  load_a(dout + base, r0, r1, N, t, da);
-
-  // D = rowsum(dO * O) in f32: each thread sums the 16 columns its dO
-  // fragments hold, then the row group's four threads add up.
-  const __nv_bfloat16* O = out + base;
-  float D0 = 0.f, D1 = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    if (r0 < N) D0 += dot2(da[ks][0], ld32(O + (size_t)r0 * DH + c)) +
-                      dot2(da[ks][2], ld32(O + (size_t)r0 * DH + c + 8));
-    if (r1 < N) D1 += dot2(da[ks][1], ld32(O + (size_t)r1 * DH + c)) +
-                      dot2(da[ks][3], ld32(O + (size_t)r1 * DH + c + 8));
+  const int bh = blockIdx.y, q0 = blockIdx.x * BLOCK;
+  const int n_tiles = (n_real + TILE - 1) / TILE;  // key tiles past n_real are never loaded
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    hopper::mbar_fence_init();
   }
-  D0 += __shfl_xor_sync(0xffffffffu, D0, 1);
-  D0 += __shfl_xor_sync(0xffffffffu, D0, 2);
-  D1 += __shfl_xor_sync(0xffffffffu, D1, 1);
-  D1 += __shfl_xor_sync(0xffffffffu, D1, 2);
-  const float* L = lse + (size_t)blockIdx.y * N;
-  const float L0 = r0 < N ? L[r0] : 0.f, L1 = r1 < N ? L[r1] : 0.f;
-  if (t == 0) {
-    if (r0 < N) delta[(size_t)blockIdx.y * N + r0] = D0;
-    if (r1 < N) delta[(size_t)blockIdx.y * N + r1] = D1;
-  }
+  __syncthreads();
 
-  float acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  const int n_tiles = (n_real + BT - 1) / BT;  // tiles past n_real are skipped
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * BT;
-    __syncthreads();
-    load_tile(k + base, kv0, N, Ks, Kt);
-    load_tile(v + base, kv0, N, Vs, nullptr);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_rows(s, qa, Ks, g, t);    // S = Q K^T
-    mma_rows(dp, da, Vs, g, t);   // dP = dO V^T
-    const bool edge = kv0 + BT > n_real;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool hi = e >= 2;
-        float p = expf(s[nt][e] - (hi ? L1 : L0));
-        if (edge && kv0 + nt * 8 + 2 * t + (e & 1) >= n_real) p = 0.f;
-        s[nt][e] = p * (dp[nt][e] - (hi ? D1 : D0));  // dS
+  if (threadIdx.x >= CONSUMERS) {  // the producer warp: one thread issues every load
+    if (threadIdx.x == CONSUMERS) {
+      const int boxes = min(BLOCK / TILE, (N - q0 + TILE - 1) / TILE);  // boxes not wholly past N
+      hopper::mbar_arrive_expect_tx(bar_q, boxes * 2 * TILE_BYTES);
+      for (int h = 0; h < boxes; ++h) {
+        hopper::tma_load_3d(Qs + h * TILE * DH, &tm_q, bar_q, 0, q0 + h * TILE, bh);
+        hopper::tma_load_3d(dOs + h * TILE * DH, &tm_do, bar_q, 0, q0 + h * TILE, bh);
       }
-    mma_acc_t(acc, s, Kt, g, t);  // dQ += dS K
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
+        hopper::tma_load_3d(Ks + s * TILE * DH, &tm_k, &full[s], 0, j * TILE, bh);
+        hopper::tma_load_3d(Vs + s * TILE * DH, &tm_v, &full[s], 0, j * TILE, bh);
+      }
+    }
+    return;
   }
-  store_rows(dq + base, r0, r1, N, t, acc);
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const size_t base = (size_t)bh * N * DH;
+
+  // D = rowsum(dO * O) in f32 for this warpgroup's 64 rows, two threads a row
+  {
+    const int r = wg * TILE + tid / 2, row = q0 + r, c0 = (tid % 2) * 32;
+    float d = 0.f;
+    if (row < N) {
+      const uint4* po = reinterpret_cast<const uint4*>(out + base + (size_t)row * DH + c0);
+      const uint4* pd = reinterpret_cast<const uint4*>(dout + base + (size_t)row * DH + c0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d += dot8(pd[i], po[i]);
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (tid % 2 == 0) {
+      Ds[r] = d;
+      if (row < N) delta[(size_t)bh * N + row] = d;
+    }
+  }
+  hopper::named_barrier(1 + wg, 128);
+  const int ra = wg * TILE + warp * 16 + g, rb = ra + 8;  // this thread's rows in the CTA
+  const float DA = Ds[ra], DB = Ds[rb];
+  const float* L = lse + (size_t)bh * N;
+  const float LA = q0 + ra < N ? L[q0 + ra] * LOG2E : 0.f;
+  const float LB = q0 + rb < N ? L[q0 + rb] * LOG2E : 0.f;
+
+  const uint64_t q_desc = hopper::desc_kmajor(Qs + wg * TILE * DH);
+  const uint64_t do_desc = hopper::desc_kmajor(dOs + wg * TILE * DH);
+  float acc[32], S[32], dP[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = S[i] = dP[i] = 0.f;
+
+  hopper::mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % STAGES;
+    const __nv_bfloat16* Kt = Ks + s * TILE * DH;
+    const __nv_bfloat16* Vt = Vs + s * TILE * DH;
+    hopper::mbar_wait(&full[s], (j / STAGES) & 1);
+
+    // S = Q K^T, dP = dO V^T (64 queries x 64 keys each)
+    const uint64_t k_desc = hopper::desc_kmajor(Kt), v_desc = hopper::desc_kmajor(Vt);
+    hopper::fence_regs(S);
+    hopper::fence_regs(dP);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      hopper::wgmma_m64n64k16_ss<0, 0>(S, q_desc + 2 * k, k_desc + 2 * k, k);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      hopper::wgmma_m64n64k16_ss<0, 0>(dP, do_desc + 2 * k, v_desc + 2 * k, k);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(S);
+    hopper::fence_regs(dP);
+
+    // dS = P * (dP - D), P = exp(S - lse), keys >= n_real masked
+    const int kv0 = j * TILE;
+    const bool edge = kv0 + TILE > n_real;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool hi = (i & 2) != 0;
+      float p = exp2f(fmaf(S[i], LOG2E, -(hi ? LB : LA)));
+      if (edge && kv0 + (i / 4) * 8 + 2 * t + (i & 1) >= n_real) p = 0.f;
+      S[i] = p * (dP[i] - (hi ? DB : DA));
+    }
+    uint32_t a[4][4];
+    hopper::acc_to_a(S, a);
+
+    // dQ += dS K, K read MN-major from the same tile
+    const uint64_t kt_desc = hopper::desc_mnmajor(Kt);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) hopper::wgmma_m64n64k16_rs<1>(acc, a[k], kt_desc + 128 * k);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (tid == 0) hopper::mbar_arrive(&empty[s]);
+  }
+  store_acc(dq + base + (size_t)q0 * DH, ra, rb, N - q0, t, acc);
 }
 
-__global__ void __launch_bounds__(128)
-attn_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int N,
                          int n_real) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[BT * STR];
-  __shared__ __align__(16) __nv_bfloat16 dOs[BT * STR];
-  __shared__ __align__(16) __nv_bfloat16 Qt[DH * TSTR];
-  __shared__ __align__(16) __nv_bfloat16 dOt[DH * TSTR];
-  __shared__ float Ls[BT], Ds[BT];
-
-  const size_t base = (size_t)blockIdx.y * N * DH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int kv0 = blockIdx.x * BT;
-  const int k0 = kv0 + warp * 16 + g, k1 = k0 + 8;
-
-  float ak[8][4], av[8][4];  // dK, dV accumulators of this warp's 16 keys
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    ak[nt][0] = ak[nt][1] = ak[nt][2] = ak[nt][3] = 0.f;
-    av[nt][0] = av[nt][1] = av[nt][2] = av[nt][3] = 0.f;
-  }
-
-  if (kv0 < n_real) {  // else the whole tile is masked: store zeros, load nothing
-    uint32_t ka[4][4], va[4][4];
-    load_a(k + base, k0, k1, N, t, ka);
-    load_a(v + base, k0, k1, N, t, va);
-    const bool edge = kv0 + BT > n_real;
-    const float* L = lse + (size_t)blockIdx.y * N;
-    const float* Dl = delta + (size_t)blockIdx.y * N;
-
-    for (int q0 = 0; q0 < N; q0 += BT) {
-      __syncthreads();
-      load_tile(q + base, q0, N, Qs, Qt);
-      load_tile(dout + base, q0, N, dOs, dOt);
-      for (int r = threadIdx.x; r < BT; r += blockDim.x) {
-        // a query row past N gets P = exp(s - inf) = 0 and dO = 0
-        Ls[r] = q0 + r < N ? L[q0 + r] : INFINITY;
-        Ds[r] = q0 + r < N ? Dl[q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      float s[8][4], dp[8][4];
-      mma_rows(s, ka, Qs, g, t);    // S^T = K Q^T  (16 keys x 64 queries)
-      mma_rows(dp, va, dOs, g, t);  // dP^T = V dO^T
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * t + (e & 1);
-          float p = expf(s[nt][e] - Ls[col]);
-          if (edge && (e >= 2 ? k1 : k0) >= n_real) p = 0.f;
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - Ds[col]);  // dS^T
-        }
-      mma_acc_t(av, s, dOt, g, t);   // dV += P^T dO
-      mma_acc_t(ak, dp, Qt, g, t);   // dK += dS^T Q
+  const int bh = blockIdx.y, kv0 = blockIdx.x * BLOCK;
+  const size_t base = (size_t)bh * N * DH + (size_t)kv0 * DH;
+  if (kv0 >= n_real) {  // every key of the block is masked: zeros, nothing loaded
+    const int chunks = min(BLOCK, N - kv0) * DH / 8;
+    for (int c = threadIdx.x; c < chunks; c += THREADS) {
+      reinterpret_cast<uint4*>(dk + base)[c] = make_uint4(0, 0, 0, 0);
+      reinterpret_cast<uint4*>(dv + base)[c] = make_uint4(0, 0, 0, 0);
     }
+    return;
   }
-  // rows >= n_real are exact zeros (the accumulators never left 0 there,
-  // and the masked tile's are 0 by construction); store once
-  if (k0 >= n_real)
+
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(align1024(smem_raw));  // BLOCK x 64
+  __nv_bfloat16* Vs = Ks + BLOCK * DH;                                        // BLOCK x 64
+  __nv_bfloat16* Qs = Vs + BLOCK * DH;                 // STAGES x (TILE x 64)
+  __nv_bfloat16* dOs = Qs + STAGES * TILE * DH;        // STAGES x (TILE x 64)
+  float* Ls = reinterpret_cast<float*>(dOs + STAGES * TILE * DH);  // STAGES x TILE: lse log2(e)
+  float* Dl = Ls + STAGES * TILE;                                  // STAGES x TILE: D
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(Dl + STAGES * TILE);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int n_q = (N + TILE - 1) / TILE;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);  // the TMA's expect_tx, then each producer lane
+      hopper::mbar_init(&empty[s], 2);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warp
+    const int lane = threadIdx.x - CONSUMERS;
+    if (lane == 0) {
+      const int boxes = min(BLOCK / TILE, (N - kv0 + TILE - 1) / TILE);  // not wholly past N
+      hopper::mbar_arrive_expect_tx(bar_kv, boxes * 2 * TILE_BYTES);
+      for (int h = 0; h < boxes; ++h) {
+        hopper::tma_load_3d(Ks + h * TILE * DH, &tm_k, bar_kv, 0, kv0 + h * TILE, bh);
+        hopper::tma_load_3d(Vs + h * TILE * DH, &tm_v, bar_kv, 0, kv0 + h * TILE, bh);
+      }
+    }
+    const float* L = lse + (size_t)bh * N;
+    const float* D = delta + (size_t)bh * N;
+    for (int j = 0; j < n_q; ++j) {
+      const int s = j % STAGES;
+      hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
+        hopper::tma_load_3d(Qs + s * TILE * DH, &tm_q, &full[s], 0, j * TILE, bh);
+        hopper::tma_load_3d(dOs + s * TILE * DH, &tm_do, &full[s], 0, j * TILE, bh);
+      }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) ak[nt][0] = ak[nt][1] = av[nt][0] = av[nt][1] = 0.f;
-  if (k1 >= n_real)
+      for (int i = 0; i < 2; ++i) {  // a query past N: lse = +inf (P = 0), D = 0
+        const int c = 2 * lane + i, r = j * TILE + c;
+        Ls[s * TILE + c] = r < N ? L[r] * LOG2E : INFINITY;
+        Dl[s * TILE + c] = r < N ? D[r] : 0.f;
+      }
+      hopper::mbar_arrive(&full[s]);  // releases this lane's stores to the consumers
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const uint64_t k_desc = hopper::desc_kmajor(Ks + wg * TILE * DH);
+  const uint64_t v_desc = hopper::desc_kmajor(Vs + wg * TILE * DH);
+  float ak[32], av[32], S[32], dP[32];  // dK, dV of this warpgroup's 64 keys; S^T, dP^T
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) ak[nt][2] = ak[nt][3] = av[nt][2] = av[nt][3] = 0.f;
-  store_rows(dk + base, k0, k1, N, t, ak);
-  store_rows(dv + base, k0, k1, N, t, av);
+  for (int i = 0; i < 32; ++i) ak[i] = av[i] = S[i] = dP[i] = 0.f;
+
+  hopper::mbar_wait(bar_kv, 0);
+  for (int j = 0; j < n_q; ++j) {
+    const int s = j % STAGES;
+    const __nv_bfloat16* Qt = Qs + s * TILE * DH;
+    const __nv_bfloat16* dOt = dOs + s * TILE * DH;
+    hopper::mbar_wait(&full[s], (j / STAGES) & 1);
+
+    // S^T = K Q^T, dP^T = V dO^T (64 keys x 64 queries each)
+    const uint64_t q_desc = hopper::desc_kmajor(Qt), do_desc = hopper::desc_kmajor(dOt);
+    hopper::fence_regs(S);
+    hopper::fence_regs(dP);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      hopper::wgmma_m64n64k16_ss<0, 0>(S, k_desc + 2 * k, q_desc + 2 * k, k);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      hopper::wgmma_m64n64k16_ss<0, 0>(dP, v_desc + 2 * k, do_desc + 2 * k, k);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(S);
+    hopper::fence_regs(dP);
+
+    // P^T = exp(S^T - lse), dS^T = P^T * (dP^T - D), by query column (a
+    // query past N has lse = +inf in the slot, so P = dS = 0 there)
+    const float* Lt = Ls + s * TILE;
+    const float* Dt = Dl + s * TILE;
+#pragma unroll
+    for (int c8 = 0; c8 < 8; ++c8) {
+      const int c = c8 * 8 + 2 * t;
+      const float2 l = *reinterpret_cast<const float2*>(Lt + c);
+      const float2 d = *reinterpret_cast<const float2*>(Dt + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * c8 + e;
+        const float p = exp2f(fmaf(S[i], LOG2E, -(e & 1 ? l.y : l.x)));
+        S[i] = p;
+        dP[i] = p * (dP[i] - (e & 1 ? d.y : d.x));
+      }
+    }
+    uint32_t pa[4][4], sa[4][4];
+    hopper::acc_to_a(S, pa);
+    hopper::acc_to_a(dP, sa);
+
+    // dV += P^T dO, dK += dS^T Q: dO and Q read MN-major from the same tiles
+    const uint64_t dot_desc = hopper::desc_mnmajor(dOt), qt_desc = hopper::desc_mnmajor(Qt);
+    hopper::fence_regs(av);
+    hopper::fence_regs(ak);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) hopper::wgmma_m64n64k16_rs<1>(av, pa[k], dot_desc + 128 * k);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) hopper::wgmma_m64n64k16_rs<1>(ak, sa[k], qt_desc + 128 * k);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(av);
+    hopper::fence_regs(ak);
+    if (tid == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // rows >= n_real are exact zeros (a masked key's sums are not computed as 0)
+  const int ra = wg * TILE + warp * 16 + g, rb = ra + 8;
+  if (kv0 + ra >= n_real)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ak[4 * j] = ak[4 * j + 1] = av[4 * j] = av[4 * j + 1] = 0.f;
+  if (kv0 + rb >= n_real)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ak[4 * j + 2] = ak[4 * j + 3] = av[4 * j + 2] = av[4 * j + 3] = 0.f;
+  store_acc(dk + base, ra, rb, N - kv0, t, ak);
+  store_acc(dv + base, ra, rb, N - kv0, t, av);
 }
 
 // ---- float32 path: one thread per row, scalar FMA ----
@@ -439,6 +542,8 @@ extern "C" const char* dlsc_error_string(int err) {
 // dtype: 0 = bfloat16, 1 = float32. q, k, v, out, dout, dq, dk, dv: (BH, N, 64);
 // lse and delta (scratch for D, written here): (BH, N) f32. The dQ kernel
 // computes D; the dK/dV kernel, launched after it on the same stream, reads it.
+// bf16: the tensor maps are built here, per call (16-byte aligned, contiguous
+// operands: the wrapper checks).
 extern "C" int dlsc_attn_bwd(const void* q, const void* k, const void* v, const void* out,
                              const void* dout, const float* lse, float* delta, void* dq,
                              void* dk, void* dv, int BH, int N, int head_dim, int n_real,
@@ -448,17 +553,32 @@ extern "C" int dlsc_attn_bwd(const void* q, const void* k, const void* v, const 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     using bf = __nv_bfloat16;
-    const dim3 grid((N + BT - 1) / BT, BH);
-    attn_bwd_dq_bf16_kernel<<<grid, 128, 0, st>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-        static_cast<const bf*>(out), static_cast<const bf*>(dout), lse, delta,
-        static_cast<bf*>(dq), N, n_real);
-    cudaError_t err = cudaGetLastError();
+    CUtensorMap tm_q, tm_k, tm_v, tm_do;
+    const uint64_t dims[3] = {DH, static_cast<uint64_t>(N), static_cast<uint64_t>(BH)};
+    const uint64_t strides[2] = {DH * 2, static_cast<uint64_t>(N) * DH * 2};
+    const uint32_t box[3] = {DH, TILE, 1};
+    const void* tiles[4] = {q, k, v, dout};
+    CUtensorMap* maps[4] = {&tm_q, &tm_k, &tm_v, &tm_do};
+    cudaError_t err = cudaSuccess;
+    for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+      err = hopper::make_tensor_map(maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, tiles[i], dims,
+                                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(attn_bwd_dq_bf16_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(attn_bwd_dkv_bf16_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM);
     if (err != cudaSuccess) return err;
-    attn_bwd_dkv_bf16_kernel<<<grid, 128, 0, st>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-        static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv),
-        N, n_real);
+    const dim3 grid((N + BLOCK - 1) / BLOCK, BH);
+    attn_bwd_dq_bf16_kernel<<<grid, THREADS, DQ_SMEM, st>>>(
+        tm_q, tm_k, tm_v, tm_do, static_cast<const bf*>(out), static_cast<const bf*>(dout), lse,
+        delta, static_cast<bf*>(dq), N, n_real);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    attn_bwd_dkv_bf16_kernel<<<grid, THREADS, DKV_SMEM, st>>>(
+        tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), N,
+        n_real);
   } else if (dtype == 1) {
     const dim3 grid((N + BR32 - 1) / BR32, BH);
     attn_bwd_dq_f32_kernel<<<grid, BR32, 0, st>>>(

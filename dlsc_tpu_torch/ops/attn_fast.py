@@ -31,6 +31,12 @@ from dlsc_tpu_torch import _kernels
 
 HEAD_DIM = 64   # the kernel's head width
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# K2b bf16 (csrc/attn_bwd.cu, which uses the same numbers): rows of a TMA tile
+# and of a consumer warpgroup, rows a CTA owns (2 consumer warpgroups and a
+# producer warp), slots of the ring of streamed tiles; a block's shared memory
+# (H100: 227 KB)
+BWD_TILE, BWD_BLOCK, BWD_STAGES, BWD_THREADS = 64, 128, 3, 288
+SMEM_LIMIT = 232_448
 
 launches = 0      # forward kernel launches since the last reset (see reset_launches)
 bwd_launches = 0  # backward kernel launches (one per call: the dQ and dK/dV pair)
@@ -120,6 +126,30 @@ def fast_mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _bwd_plan(B: int, H: int, N: int, n_real: int) -> dict:
+    """The launch of K2b's bf16 kernels (``csrc/attn_bwd.cu`` computes the
+    same by the same formulas): both grids are (N / 128 rounded up, B*H) CTAs
+    of ``BWD_THREADS`` threads; the dQ kernel streams the key tiles below
+    n_real (``dq_key_tiles``), the dK/dV kernel every query tile
+    (``dkv_query_tiles``), and ``dkv_zero_ctas`` of its CTAs hold keys that
+    are all >= n_real, write zeros and load nothing. ``*_smem``: dynamic
+    shared memory in bytes (1024 of alignment slack, the CTA's fixed tiles,
+    the ring, D (dQ) or lse/D (dK/dV) rows, the mbarriers)."""
+    blocks = -(-N // BWD_BLOCK)
+    tile_bytes = BWD_TILE * HEAD_DIM * 2
+    fixed = 1024 + 2 * BWD_BLOCK * HEAD_DIM * 2 + (1 + 2 * BWD_STAGES) * 8
+    return dict(
+        threads=BWD_THREADS,
+        dq_grid=(blocks, B * H),
+        dkv_grid=(blocks, B * H),
+        dq_key_tiles=-(-n_real // BWD_TILE),
+        dkv_query_tiles=-(-N // BWD_TILE),
+        dkv_zero_ctas=(blocks - -(-n_real // BWD_BLOCK)) * B * H,
+        dq_smem=fixed + BWD_STAGES * 2 * tile_bytes + BWD_BLOCK * 4,
+        dkv_smem=fixed + BWD_STAGES * (2 * tile_bytes + 2 * BWD_TILE * 4),
+    )
+
+
 def mha_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                            n_real: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -152,7 +182,8 @@ def fast_mha_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Masked attention backward from the forward's residuals: (q, k, v, out,
     dO (B, H, N, dh), lse (B, H, N) f32) → (dq, dk, dv) in the input type.
 
-    CUDA tensors: kernel K2b (the dQ kernel, then the dK/dV kernel). CPU
+    CUDA tensors: kernel K2b (the dQ kernel, then the dK/dV kernel; bf16 by
+    wgmma on TMA-fed tiles, see ``_bwd_plan``). CPU
     tensors: ``mha_backward_reference``. ``do`` may be strided: it is made
     contiguous here.
     """
@@ -168,6 +199,10 @@ def fast_mha_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"fast_mha_backward: lse must be contiguous float32 on "
                          f"{q.device}, got {lse.dtype} on {lse.device}")
     B, H, N, dh = q.shape
+    if q.dtype == torch.bfloat16:
+        plan = _bwd_plan(B, H, N, n_real)
+        if max(plan["dq_smem"], plan["dkv_smem"]) > SMEM_LIMIT:
+            raise ValueError(f"fast_mha_backward: shared memory {plan} over {SMEM_LIMIT}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     lib = _bwd_lib()

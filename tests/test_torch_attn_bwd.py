@@ -9,6 +9,11 @@ the max |gradient|; and against torch autograd of ``mha_forward_reference``
 at 1e-5 normalised (f32 both sides, only the summation order differs). dK
 and dV rows >= n_real are exact zeros. The op ``fast_mha_lse`` passes
 ``torch.library.opcheck`` and its CPU gradients equal the plain ones.
+
+The bf16 kernel's launch plan (``_bwd_plan``: grids, tiles streamed, CTAs
+that only write zeros, shared memory within the H100's 227 KB) is checked
+at the main path's shapes and at ragged ones, and the build cache's key
+(``_kernels._paths``) at a change of a shared header; neither needs nvcc.
 """
 
 import jax
@@ -18,6 +23,7 @@ import pytest
 import torch
 
 from dlsc_tpu.ops.attn_fast import make_fast_mha
+from dlsc_tpu_torch import _kernels
 from dlsc_tpu_torch.ops import attn_fast as A
 
 H, N, DH = 2, 256, 64
@@ -127,3 +133,55 @@ def test_backward_rejects_bad_arguments():
         A.fast_mha_backward(q, k, v, out, lse[..., :128], do, N)
     with pytest.raises(ValueError, match="do"):
         A.fast_mha_backward(q, k, v, out, lse, do[:, :, :128], N)
+
+
+# (B, H, N, n_real, key tiles the dQ kernel reads, all-masked dK/dV CTAs per
+# batch x head): the five main-path shapes (AST-Base, AST-MoE / AST-Small,
+# AST-Mini, the 10-s sequence, n_real == N), then ragged ones
+@pytest.mark.parametrize("B,H,N,n_real,key_tiles,zero_ctas", [
+    (64, 12, 1664, 1645, 26, 0),
+    (64, 6, 768, 689, 11, 0),
+    (64, 3, 1664, 1645, 26, 0),
+    (8, 12, 3328, 3301, 52, 0),
+    (8, 6, 768, 768, 12, 0),
+    (2, 3, 200, 131, 3, 0),
+    (2, 3, 130, 130, 3, 0),
+    (2, 3, 256, 40, 1, 1),
+])
+def test_bwd_plan(B, H, N, n_real, key_tiles, zero_ctas):
+    plan = A._bwd_plan(B, H, N, n_real)
+    blocks = -(-N // 128)
+    assert plan["dq_grid"] == plan["dkv_grid"] == (blocks, B * H)
+    assert plan["threads"] == 288   # 2 consumer warpgroups and a producer warp
+    assert plan["dq_key_tiles"] == key_tiles
+    assert (plan["dq_key_tiles"] - 1) * 64 < n_real <= plan["dq_key_tiles"] * 64
+    assert plan["dkv_query_tiles"] == -(-N // 64)
+    assert plan["dkv_zero_ctas"] == zero_ctas * B * H
+    # the zero-only CTAs are exactly those whose first key is >= n_real
+    assert plan["dkv_zero_ctas"] == sum(kv0 >= n_real for kv0 in range(0, N, 128)) * B * H
+    for key in ("dq_smem", "dkv_smem"):
+        assert 48 * 1024 < plan[key] <= A.SMEM_LIMIT == 227 * 1024
+    # a ring of at least two 64-row tiles of both streamed operands
+    assert plan["dq_smem"] >= 1024 + 2 * 128 * 128 + 2 * 2 * 64 * 128
+    assert plan["dkv_smem"] >= 1024 + 2 * 128 * 128 + 2 * 2 * 64 * 128
+
+
+def test_build_key_covers_headers(tmp_path, monkeypatch):
+    """A library's path hashes its source, every csrc/*.cuh and its flags:
+    an edited header gives a new path (so it is rebuilt), an unrelated file
+    does not."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_bytes(b"// one\n")
+    monkeypatch.setattr(_kernels, "_CSRC", tmp_path)
+    src, first = _kernels._paths("k")
+    assert src == tmp_path / "k.cu" and first.name.startswith("libk-")
+    assert _kernels._paths("k")[1] == first
+    (tmp_path / "notes.txt").write_text("not a header")
+    assert _kernels._paths("k")[1] == first
+    (tmp_path / "h.cuh").write_bytes(b"// two\n")
+    second = _kernels._paths("k")[1]
+    assert second != first
+    (tmp_path / "g.cuh").write_bytes(b"")
+    assert _kernels._paths("k")[1] not in (first, second)
+    monkeypatch.setitem(_kernels.EXTRA_FLAGS, "k", ("-lineinfo",))
+    assert _kernels._paths("k")[1] not in (first, second)

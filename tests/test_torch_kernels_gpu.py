@@ -10,10 +10,10 @@ Tolerances: K1 normalised error < 1e-4 (tests/test_mel_pallas.py's bar;
 f32 FMA sums reach ~1e-6); K2f f32 1e-4 (summation order only), K2f bf16
 2e-2 (P rounded to bf16 before P·V, out stored in bf16); K2b f32 1e-4 and
 bf16 2e-2 normalised by the max |gradient| (the same reasons; the plain
-version rounds P and dS where the kernel does); the small AST model in f32
-through the kernels vs plain ops 1e-4 on its sigmoid outputs, and one f32
-train step 1e-4 on the loss (relative) and on each parameter's gradient
-(normalised); K4a/K4b f32 1e-5 normalised (summation order only), bf16
+version rounds P and dS where the kernel does), and two bf16 K2b calls
+bit-identical; the small AST model in f32 through the kernels vs plain ops
+1e-4 on its sigmoid outputs, and one f32 train step 1e-4 on the loss
+(relative) and on each parameter's gradient (normalised); K4a/K4b f32 1e-5 normalised (summation order only), bf16
 1e-2 (bf16 output rounding, f32 sums on both sides); K3f/K3b: r exact
 in both types (both round one f32 sum), y, dx, dgamma and dbeta 1e-5
 normalised in f32 (summation order only) and 1e-2 in bf16 (the outputs
@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from dlsc_tpu_torch import _kernels
 from dlsc_tpu_torch.data.pipeline import DevicePipeline, PipelineConfig
 from dlsc_tpu_torch.models.ast import ASTModel
 from dlsc_tpu_torch.models.vit import ASTViT
@@ -120,7 +121,7 @@ def test_small_ast_through_kernels_matches_plain(cuda_device):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("n,n_real", [(256, 256), (256, 200), (200, 131), (1664, 1645),
-                                      (768, 768)])
+                                      (768, 768), (768, 689), (256, 40), (130, 130)])
 def test_attention_backward_kernel_matches_reference(dtype, tol, n, n_real, cuda_device):
     """K2b from K2f's residuals, any N and n_real: dQ, dK, dV over rows <
     n_real against the plain version on the same inputs; dK/dV rows >=
@@ -142,6 +143,31 @@ def test_attention_backward_kernel_matches_reference(dtype, tol, n, n_real, cuda
         assert _norm_err(g[:, :, :n_real].float(), w[:, :, :n_real].float()) <= tol, name
     for g in got[1:]:
         assert (g[:, :, n_real:] == 0).all()
+
+
+@pytest.mark.parametrize("n,n_real", [(1664, 1645), (130, 130)])
+def test_attention_backward_kernel_is_deterministic(n, n_real, cuda_device):
+    """Two bf16 K2b calls on the same inputs give the same bits in dQ, dK
+    and dV: each output is owned by one CTA and summed in a fixed order,
+    with no atomics."""
+    g = torch.Generator(cuda_device).manual_seed(n)
+    q, k, v, do = (torch.randn(2, 3, n, 64, generator=g, device=cuda_device) for _ in range(4))
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q * 0.125, k, v, do))
+    out, lse = A.fast_mha_forward(q, k, v, n_real)
+    first = A.fast_mha_backward(q, k, v, out, lse, do, n_real)
+    second = A.fast_mha_backward(q, k, v, out, lse, do, n_real)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_attention_backward_bf16_runs_on_wgmma(cuda_device):
+    """The bf16 backward's SASS holds Hopper's warpgroup products (HGMMA)
+    and no mma.sync (HMMA) left from the earlier design; needs cuobjdump
+    (the CUDA toolkit's bin/, else Triton's backends/nvidia/bin/)."""
+    sass = _kernels.sass("attn_bwd")
+    assert "HGMMA" in sass
+    assert " HMMA" not in sass
 
 
 def test_fast_mha_gradient_matches_autograd_of_plain(cuda_device):
