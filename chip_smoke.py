@@ -10,9 +10,12 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    nvcc each, all at once);
 1. kernel K1 (mel power) against its plain version, both mel configs at the
    serving batch 8, and the AST config at the training batch 64;
-2. kernel K2f (attention forward) against its plain version, f32 and bf16,
-   beside ``F.scaled_dot_product_attention`` with the same key mask, then
-   bf16 at the training batch 64;
+2. kernel K2f (attention forward): its bf16 kernel's own SASS must hold
+   HGMMA (wgmma) and no HMMA, and it spills nothing (``-Xptxas -v``,
+   printed with its registers); against its plain version, f32 and bf16 at
+   batch 8, bf16 also by graph replay beside ``F.scaled_dot_product_attention``
+   with the same key mask, with its TFLOP/s and share of the bound, two bf16
+   calls bit-identical; then bf16 at the training batch 64;
 3. kernel K2b (attention backward): its SASS must hold HGMMA (wgmma) and no
    HMMA, its bf16 kernels spill nothing (``-Xptxas -v``, printed); against
    its plain version at AST-Base shapes, f32 and bf16 at batch 8, bf16 also
@@ -34,12 +37,15 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    kernels (remat ``attn_res``) vs that f32 plain step;
 7. kernels K2f and K2b at AST-MoE's training shape (64, 6, 768, 64),
    n_real 689, bf16, against their plain versions one batch row at a time,
-   K2b also by graph replay and two calls bit-identical;
-8. kernels K4a (gmm) and K4b (tgmm) against their plain versions at
-   AST-MoE's batch-64 shapes (88 192 sorted rows): the two expert products,
-   their transposed-rhs dlhs and both tgmm, bf16 with the group sizes of a
-   real router draw and with a skewed set, f32 at one shape, beside
-   ``torch._grouped_mm``;
+   both also by graph replay and two calls of each bit-identical;
+8. kernels K4a (gmm) and K4b (tgmm): K4a's bf16 kernels (both rhs layouts)
+   must hold HGMMA and no HMMA in their own SASS and spill nothing (K4b's
+   tgmm, in the same library, is printed as mma.sync); against their plain
+   versions at AST-MoE's batch-64 shapes (88 192 sorted rows): the two
+   expert products, their transposed-rhs dlhs and both tgmm, bf16 with the
+   group sizes of a real router draw and with a skewed set, each also by
+   graph replay beside ``torch._grouped_mm``'s and two calls bit-identical,
+   f32 at one shape;
 9. AST-MoE serving: exported with seeded weights, loaded on the card, one
    batch of 8 clips (per device batch K1 1, K2f 12, gmm 24, K2b and tgmm
    0), held against the same weights in f32 with plain attention and plain
@@ -60,8 +66,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     attention kernels K5 (generic splash) and K6 (flash) reached, now
     served by K2: the longest sequence the models admit (AST-Base on a 10-s
     clip, (8, 12, 3328, 64), n_real 3301) in bf16 and f32, and n_real == N
-    at (8, 6, 768, 64) (no key masked), beside SDPA; K2b's reruns
-    bit-identical;
+    at (8, 6, 768, 64) (no key masked), beside SDPA; K2f's and K2b's
+    reruns bit-identical;
 14. AST-Small serving: exported by ``scripts/export.py model=ast_small
     +model.ln_fused=true +model.attn_impl=flash``, loaded on the card, one
     batch of 8 (per device batch K1 1, K2f 12, K3f 12, no backward
@@ -391,7 +397,21 @@ def _per_batch(fn, *tensors: torch.Tensor) -> tuple:
     return tuple(torch.cat(o) for o in zip(*outs))
 
 
+def _reruns_equal(fn) -> bool:
+    """Two calls of ``fn`` give the same bits in every output."""
+    first, second = fn(), fn()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def phase_attn(dev: torch.device, gen: torch.Generator) -> dict:
+    """K2f at AST-Base shapes: what it compiled to (``_build_report``); f32
+    and bf16 at batch 8 against the plain version, bf16 also by graph replay
+    beside SDPA's, with its rate and share of the bound, two bf16 calls
+    required bit-identical; then bf16 at the training batch 64, held against
+    the plain version one batch row at a time."""
+    build = _build_report("attn_fwd")
     B, H, N, dh, n_real = SERVE_BATCH, HEADS, N_PAD, 64, N_REAL
     q, k, v = (torch.randn(B, H, N, dh, generator=gen) for _ in range(3))
     q = q * dh**-0.5
@@ -414,20 +434,38 @@ def phase_attn(dev: torch.device, gen: torch.Generator) -> dict:
     ref, ref_lse = attn_fast.mha_forward_reference(qb.float(), kb.float(), vb.float(), n_real)
     e_out = (out.float() - ref)[:, :, rows].abs().max().item()
     e_lse = (lse - ref_lse)[:, :, rows].abs().max().item()
+    finite = torch.isfinite(out).all().item() and torch.isfinite(lse).all().item()
     ms, plain = paired_ms(lambda: attn_fast.fast_mha_forward(qb, kb, vb, n_real),
                           lambda: attn_fast.mha_forward_reference(qb, kb, vb, n_real))
     print(f"K2 attn_fwd bf16 (same shape, f32 plain version on the same bf16 inputs): "
           f"out {e_out:.3e} lse {e_lse:.3e} (<= {ATTN_BF16_ERR})  median kernel {ms:.3f} ms  "
           f"plain {plain:.3f} ms", flush=True)
-    require(e_out <= ATTN_BF16_ERR and e_lse <= ATTN_BF16_ERR, "K2 bf16 disagrees")
+    require(e_out <= ATTN_BF16_ERR and e_lse <= ATTN_BF16_ERR and finite, "K2 bf16 disagrees")
 
-    # yardstick, never on the port's path: SDPA with the same boolean key mask
+    # yardstick, never on the port's path: SDPA with the same boolean key mask;
+    # the kernel and SDPA alone by graph replay, in turns
     mask = _key_mask(N, n_real, dev)
-    lib = float(np.median(cuda_times(lambda: F.scaled_dot_product_attention(
-        qb, kb, vb, attn_mask=mask, scale=1.0))))
-    bd = bound(4 * B * H * N * n_real * dh, BF16_TENSOR_FLOPS, _attn_bytes(B, H, N, dh, 4, 2))
-    print(f"K2 attn_fwd bf16: F.scaled_dot_product_attention (boolean key mask) {lib:.3f} ms; "
-          f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']})", flush=True)
+
+    def kernel():
+        return attn_fast.fast_mha_forward(qb, kb, vb, n_real)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, scale=1.0)
+
+    lib = float(np.median(cuda_times(sdpa)))
+    g0, lib_g0, lib_g1, g1 = (graph_ms(f) for f in (kernel, sdpa, sdpa, kernel))
+    dev_ms, lib_dev_ms = (g0 + g1) / 2, (lib_g0 + lib_g1) / 2
+    deterministic = _reruns_equal(kernel)
+    flops = 4 * B * H * N * n_real * dh
+    bd = bound(flops, BF16_TENSOR_FLOPS, _attn_bytes(B, H, N, dh, 4, 2))
+    share, ratio = bd["bound_ms"] / dev_ms, dev_ms / lib_dev_ms
+    print(f"K2 attn_fwd bf16: {dev_ms:.4f} ms by graph replay ({g0:.4f}, {g1:.4f}; {ms:.3f} by "
+          f"CUDA events), {flops / dev_ms / 1e9:.1f} TFLOP/s over 4·B·H·N·n_real·dh, "
+          f"{share:.3f} of the bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}); "
+          f"F.scaled_dot_product_attention (boolean key mask) {lib_dev_ms:.4f} ms by graph replay "
+          f"({lib:.3f} by CUDA events), kernel / SDPA {ratio:.3f}; two calls bit-identical: "
+          f"{deterministic}", flush=True)
+    require(deterministic, "two bf16 K2f calls on the same inputs differ")
     del qb, kb, vb, out, lse, ref, ref_lse
 
     # the training slice's shape: bf16 at batch 64 in one launch
@@ -437,37 +475,72 @@ def phase_attn(dev: torch.device, gen: torch.Generator) -> dict:
         q.float(), k.float(), v.float(), n_real), qt, kt, vt)
     e_out64 = (out.float() - ref)[:, :, rows].abs().max().item()
     e_lse64 = (lse - ref_lse)[:, :, rows].abs().max().item()
+    finite64 = torch.isfinite(out).all().item() and torch.isfinite(lse).all().item()
+    del out, lse, ref, ref_lse
     ms64 = float(np.median(cuda_times(lambda: attn_fast.fast_mha_forward(qt, kt, vt, n_real))))
+    det64 = _reruns_equal(lambda: attn_fast.fast_mha_forward(qt, kt, vt, n_real))
     print(f"K2 attn_fwd bf16 at the train batch (B {TRAIN_BATCH}): out {e_out64:.3e} lse "
-          f"{e_lse64:.3e} (<= {ATTN_BF16_ERR})  median kernel {ms64:.3f} ms", flush=True)
-    require(e_out64 <= ATTN_BF16_ERR and e_lse64 <= ATTN_BF16_ERR,
+          f"{e_lse64:.3e} (<= {ATTN_BF16_ERR})  median kernel {ms64:.3f} ms "
+          f"({4 * TRAIN_BATCH * H * N * n_real * dh / ms64 / 1e9:.1f} TFLOP/s); two calls "
+          f"bit-identical: {det64}", flush=True)
+    require(e_out64 <= ATTN_BF16_ERR and e_lse64 <= ATTN_BF16_ERR and finite64 and det64,
             f"K2 bf16 disagrees at batch {TRAIN_BATCH}")
-    return dict(max_abs_err=max(e_out, e_out64), ms=ms, plain_ms=plain, library_ms=lib, **bd)
+    return dict(max_abs_err=max(e_out, e_out64), ms=ms, plain_ms=plain, library_ms=lib, **bd,
+                graph_ms=dev_ms, library_graph_ms=lib_dev_ms, bound_share=share,
+                library_ratio=ratio, deterministic=deterministic and det64, ms_batch64=ms64,
+                **build)
 
 
-def _k2b_build() -> dict:
-    """What K2b compiled to: HGMMA (wgmma) and HMMA (mma.sync) instructions in
-    its SASS (``cuobjdump -sass``), and each kernel's registers and spill
-    bytes (``-Xptxas -v``, one of ``attn_bwd``'s build flags). The bf16
-    kernels must run on wgmma and spill nothing."""
-    sass = _kernels.sass("attn_bwd")
-    hgmma, hmma = sass.count("HGMMA"), len(re.findall(r"\bHMMA\b", sass))
+# each library's kernels (their names in the mangled symbols), and those that
+# must run on wgmma
+KERNEL_NAMES = {
+    "attn_fwd": ("attn_fwd_bf16_kernel", "attn_fwd_f32_kernel"),
+    "attn_bwd": ("attn_bwd_dq_bf16_kernel", "attn_bwd_dkv_bf16_kernel",
+                 "attn_bwd_dq_f32_kernel", "attn_bwd_dkv_f32_kernel"),
+    "gmm": ("gmm_bf16_wgmma_kernel", "tgmm_bf16_kernel", "gmm_f32_kernel", "tgmm_f32_kernel"),
+}
+WGMMA_KERNELS = {"attn_fwd": ("attn_fwd_bf16_kernel",),
+                 "attn_bwd": ("attn_bwd_dq_bf16_kernel", "attn_bwd_dkv_bf16_kernel"),
+                 "gmm": ("gmm_bf16_wgmma_kernel",)}
+
+
+def _kernel_name(mangled: str, lib: str) -> str:
+    """The kernel of ``lib`` that a mangled symbol names, with its bool
+    template argument (``<0>`` / ``<1>``) where it has one."""
+    for k in KERNEL_NAMES[lib]:
+        i = mangled.find(f"{len(k)}{k}")
+        if i >= 0:
+            m = re.match(r"ILb([01])E", mangled[i + len(str(len(k))) + len(k):])
+            return k + (f"<{m.group(1)}>" if m else "")
+    raise RuntimeError(f"chip_smoke: {mangled} is none of {KERNEL_NAMES[lib]}")
+
+
+def _build_report(lib: str) -> dict:
+    """What ``csrc/<lib>.cu`` compiled to, kernel by kernel: HGMMA (wgmma) and
+    HMMA (mma.sync) instructions in its own SASS function (``cuobjdump
+    -sass``), registers and spill-store bytes (``-Xptxas -v``, one of the
+    library's build flags). The kernels of ``WGMMA_KERNELS`` must hold
+    HGMMA and no HMMA and spill nothing."""
+    sass = {_kernel_name(f, lib): text for f, text in _kernels.sass_functions(lib).items()}
+    counts = {k: dict(hgmma=t.count("HGMMA"), hmma=len(re.findall(r"\bHMMA\b", t)))
+              for k, t in sass.items()}
     regs, spills, kernel = {}, {}, None
-    for line in _kernels.build_log("attn_bwd").splitlines():
-        m = re.search(r"entry function '.*(attn_bwd_(?:dq|dkv)_(?:bf16|f32)_kernel)", line)
-        if m:
-            kernel = m.group(1)
+    log = _kernels.build_log(lib)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            kernel = _kernel_name(m.group(1), lib)
         elif kernel and (m := re.search(r"(\d+) bytes spill stores", line)):
             spills[kernel] = int(m.group(1))
         elif kernel and (m := re.search(r"Used (\d+) registers", line)):
             regs[kernel] = int(m.group(1))
-    print(f"K2b attn_bwd build: SASS HGMMA {hgmma}, HMMA {hmma}; registers {regs}, spill "
-          f"store bytes {spills}", flush=True)
-    require(hgmma > 0 and hmma == 0, f"K2b SASS: HGMMA {hgmma}, HMMA {hmma}")
-    bf16 = [k for k in regs if "bf16" in k]
-    require(len(bf16) == 2 and all(spills.get(k) == 0 for k in bf16),
-            f"K2b bf16 kernels' registers {regs}, spills {spills}")
-    return dict(hgmma=hgmma, registers=regs, spill_store_bytes=spills)
+    serialized = [line.strip() for line in log.splitlines() if "serialized" in line]
+    print(f"{lib} build: SASS {counts}; registers {regs}; spill store bytes {spills}"
+          + (f"; ptxas: {serialized}" if serialized else ""), flush=True)
+    wgmma = [k for k in counts if k.split("<")[0] in WGMMA_KERNELS[lib]]
+    require(len(wgmma) >= len(WGMMA_KERNELS[lib]) and all(
+        counts[k]["hgmma"] > 0 and counts[k]["hmma"] == 0 and spills.get(k) == 0
+        for k in wgmma), f"{lib}: wgmma kernels {wgmma}: SASS {counts}, spills {spills}")
+    return dict(sass=counts, registers=regs, spill_store_bytes=spills)
 
 
 def _k2b_split_ms(fn) -> dict:
@@ -513,12 +586,12 @@ def _hold_bwd_per_batch(dev: torch.device, gen: torch.Generator, heads: int, n: 
 
 def phase_attn_bwd(dev: torch.device, gen: torch.Generator) -> dict:
     """K2b at AST-Base shapes from K2f's residuals: what it compiled to
-    (``_k2b_build``); f32 and bf16 at batch 8, timed against the plain
+    (``_build_report``); f32 and bf16 at batch 8, timed against the plain
     version, bf16 also by graph replay beside SDPA's backward and the bound,
     and two bf16 calls required bit-identical; then bf16 at the training
     batch 64 of AST-Base and of AST-Mini (3 heads), held against the plain
     version one batch row at a time."""
-    build = _k2b_build()
+    build = _build_report("attn_bwd")
     B, H, N, dh, n_real = SERVE_BATCH, HEADS, N_PAD, 64, N_REAL
     q, k, v, do = (torch.randn(B, H, N, dh, generator=gen) for _ in range(4))
     q = q * dh**-0.5
@@ -823,6 +896,8 @@ def phase_attn_ast_moe(dev: torch.device, gen: torch.Generator) -> dict:
     finite = all(torch.isfinite(g).all().item() for g in (out, *got))
     del got, want
     fwd_ms = float(np.median(cuda_times(lambda: attn_fast.fast_mha_forward(q, k, v, n_real))))
+    fwd_graph_ms = graph_ms(lambda: attn_fast.fast_mha_forward(q, k, v, n_real), reps=5)
+    fwd_det = _reruns_equal(lambda: attn_fast.fast_mha_forward(q, k, v, n_real))
     bwd_ms = float(np.median(cuda_times(
         lambda: attn_fast.fast_mha_backward(q, k, v, out, lse, do, n_real))))
     bwd_graph_ms = graph_ms(lambda: attn_fast.fast_mha_backward(q, k, v, out, lse, do, n_real),
@@ -833,14 +908,17 @@ def phase_attn_ast_moe(dev: torch.device, gen: torch.Generator) -> dict:
     del first, second
     print(f"K2 at AST-MoE's train shape (B {TRAIN_BATCH}, H {H}, N {N}, dh 64, n_real {n_real}) "
           f"bf16: attn_fwd out {e_out:.3e} lse {e_lse:.3e} (<= {ATTN_BF16_ERR}), median "
-          f"{fwd_ms:.3f} ms; attn_bwd dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+          f"{fwd_ms:.3f} ms ({fwd_graph_ms:.4f} by graph replay), two calls bit-identical: "
+          f"{fwd_det}; attn_bwd dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
           f"normalised (<= {BWD_BF16_ERR}), max_abs {abs_err:.3e}, dK/dV rows >= n_real exactly "
           f"0: {zero_tails}, median {bwd_ms:.3f} ms ({bwd_graph_ms:.4f} by graph replay), two "
           f"calls bit-identical: {deterministic}", flush=True)
-    require(e_out <= ATTN_BF16_ERR and e_lse <= ATTN_BF16_ERR, "K2f disagrees at AST-MoE's shape")
+    require(e_out <= ATTN_BF16_ERR and e_lse <= ATTN_BF16_ERR and fwd_det,
+            "K2f disagrees at AST-MoE's shape")
     require(max(errs) <= BWD_BF16_ERR and zero_tails and finite and deterministic,
             "K2b disagrees at AST-MoE's shape")
-    return dict(fwd_ms=fwd_ms, fwd_err=max(e_out, e_lse), bwd_ms=bwd_ms,
+    return dict(fwd_ms=fwd_ms, fwd_graph_ms=fwd_graph_ms, fwd_err=max(e_out, e_lse),
+                bwd_ms=bwd_ms,
                 bwd_graph_ms=bwd_graph_ms, bwd_err=abs_err)
 
 
@@ -862,19 +940,24 @@ def _router_group_sizes(dev: torch.device, seed: int) -> torch.Tensor:
     return seen[0]
 
 
-def _library_ms(fn) -> tuple[float | None, str]:
-    """Median ms of a PyTorch yardstick call, or None and why it refused."""
+def _library_ms(fn) -> tuple[float | None, float | None, str]:
+    """Median CUDA-event ms and graph-replay ms of a PyTorch yardstick call,
+    or None and why it refused."""
     try:
-        return float(np.median(cuda_times(fn))), ""
+        return float(np.median(cuda_times(fn))), graph_ms(fn), ""
     except (RuntimeError, TypeError, ValueError, AttributeError, NotImplementedError) as e:
-        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        return None, None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
 
 
 def phase_gmm(dev: torch.device, gen: torch.Generator, seed: int) -> tuple[dict, dict]:
     """K4a and K4b against their plain versions at AST-MoE's batch-64 shapes:
     gmm1 x @ wi and gmm2 h @ wo (forward), their transposed-rhs dlhs, and
     tgmm for dwi and dwo; bf16 with a real router draw's group sizes and
-    with a skewed set, f32 for gmm1 and tgmm1 on the router draw."""
+    with a skewed set, f32 for gmm1 and tgmm1 on the router draw. What the
+    library compiled to (``_build_report``); each bf16 product also by graph
+    replay beside ``torch._grouped_mm``'s, and two calls required
+    bit-identical."""
+    build = _build_report("gmm")
     E, D, Fd, M = AST_MOE["n_experts"], MOE_DIM, MOE_FF, MOE_ROWS
     real = _router_group_sizes(dev, seed)
     require(int(real.sum()) == M, f"router draw has {int(real.sum())} rows, not {M}")
@@ -924,21 +1007,26 @@ def phase_gmm(dev: torch.device, gen: torch.Generator, seed: int) -> tuple[dict,
             finite = torch.isfinite(got).all().item()
             del got, want
             ms, plain_ms = paired_ms(kernel, plain)
-            lib_ms, why = _library_ms(lib)
+            g_ms = graph_ms(kernel)
+            lib_ms, lib_g_ms, why = _library_ms(lib)
             lib_err = None
             if lib_ms is not None:
                 lib_err = norm_err(lib(), plain())
+            det = _reruns_equal(kernel)
             key = "tgmm" if name.startswith("tgmm") else "gmm"
             max_abs[key] = max(max_abs[key], abs_err)
-            results[(set_name, name)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                             norm_err=err, max_abs_err=abs_err)
-            lib_txt = (f"{lib_ms:.3f} ms (its own error {lib_err:.1e})" if lib_ms is not None
-                       else f"null ({why})")
-            print(f"K4 {key} bf16 {name}, {set_name}: norm_err {err:.3e} (<= {GMM_BF16_ERR}), max_abs {abs_err:.3e}  median kernel "
-                  f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:.3f} ms  "
-                  f"torch._grouped_mm {lib_txt}; bound {bd['bound_ms']:.3f} ms "
-                  f"({bd['bound_by']})", flush=True)
-            require(err <= GMM_BF16_ERR and finite, f"K4 {name} bf16 disagrees ({set_name})")
+            results[(set_name, name)] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                                             library_ms=lib_ms, library_graph_ms=lib_g_ms,
+                                             norm_err=err, max_abs_err=abs_err, deterministic=det)
+            lib_txt = (f"{lib_ms:.3f} ms, {lib_g_ms:.4f} by graph replay (its own error "
+                       f"{lib_err:.1e})" if lib_ms is not None else f"null ({why})")
+            print(f"K4 {key} bf16 {name}, {set_name}: norm_err {err:.3e} (<= {GMM_BF16_ERR}), "
+                  f"max_abs {abs_err:.3e}  median kernel {ms:.3f} ms, {g_ms:.4f} by graph replay "
+                  f"({flops / g_ms / 1e9:.1f} TFLOP/s, {bd['bound_ms'] / g_ms:.3f} of the bound "
+                  f"{bd['bound_ms']:.3f} ms, {bd['bound_by']})  plain {plain_ms:.3f} ms  "
+                  f"torch._grouped_mm {lib_txt}; two calls bit-identical: {det}", flush=True)
+            require(err <= GMM_BF16_ERR and finite and det,
+                    f"K4 {name} bf16 disagrees ({set_name})")
 
     # f32 at one shape: the scalar path, summation order only
     x32, wi32, gh32 = x.float(), wi.float(), gh.float()
@@ -956,10 +1044,17 @@ def phase_gmm(dev: torch.device, gen: torch.Generator, seed: int) -> tuple[dict,
 
     def entry(key, name):
         r = results[("router draw", name)]
+        mine = {f"{n} ({sn})": v for (sn, n), v in results.items()
+                if (n.startswith("tgmm")) == (key == "tgmm")}
         return dict(max_abs_err=max_abs[key], norm_err=r["norm_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], library_ms=r["library_ms"], **bd,
-                    ms_by_product={f"{n} ({sn})": v["ms"] for (sn, n), v in results.items()
-                                   if (n.startswith("tgmm")) == (key == "tgmm")})
+                    graph_ms=r["graph_ms"], library_graph_ms=r["library_graph_ms"],
+                    bound_share=bd["bound_ms"] / r["graph_ms"],
+                    deterministic=all(v["deterministic"] for v in mine.values()),
+                    ms_by_product={p: v["ms"] for p, v in mine.items()},
+                    graph_ms_by_product={p: v["graph_ms"] for p, v in mine.items()},
+                    library_graph_ms_by_product={p: v["library_graph_ms"]
+                                                 for p, v in mine.items()}, **build)
 
     return entry("gmm", "gmm1 x @ wi"), entry("tgmm", "tgmm1 x^T dh")
 
@@ -1229,7 +1324,8 @@ def phase_ln(dev: torch.device, gen: torch.Generator) -> tuple[dict, dict]:
 def _attn_case(dev: torch.device, g: torch.Generator, B: int, H: int, N: int, n_real: int,
                dtype: torch.dtype) -> dict:
     """K2f and K2b on one shape against their plain versions (one batch row
-    at a time), timed beside SDPA (boolean key mask when n_real < N)."""
+    at a time), timed beside SDPA (boolean key mask when n_real < N); two
+    calls of each must give the same bits."""
     q, k, v, do = (torch.randn(B, H, N, 64, generator=g, device=dev) for _ in range(4))
     q = q * 64**-0.5
     q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
@@ -1248,7 +1344,8 @@ def _attn_case(dev: torch.device, g: torch.Generator, B: int, H: int, N: int, n_
     zero_tails = all((a[:, :, n_real:] == 0).all().item() for a in got[1:])
     finite = all(torch.isfinite(t).all().item() for t in (out, *got))
     again = attn_fast.fast_mha_backward(q, k, v, out, lse, do, n_real)
-    deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+    fwd_det = _reruns_equal(lambda: attn_fast.fast_mha_forward(q, k, v, n_real))
+    deterministic = fwd_det and all(torch.equal(a, b) for a, b in zip(got, again))
     del got, want, again
     mask = None if n_real == N else _key_mask(N, n_real, dev)
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1610,7 +1707,8 @@ def main() -> None:
         dict(name="attn_fwd", route="cuda", source="dlsc_tpu_torch/csrc/attn_fwd.cu",
              replaces="dlsc_tpu/ops/attn_fast.py:125, dlsc_tpu/models/vit.py:349, "
                       "dlsc_tpu/models/vit.py:518", **launches("k2f"), **k2f,
-             ms_ast_moe=k2_moe["fwd_ms"], max_abs_err_ast_moe=k2_moe["fwd_err"],
+             ms_ast_moe=k2_moe["fwd_ms"], graph_ms_ast_moe=k2_moe["fwd_graph_ms"],
+             max_abs_err_ast_moe=k2_moe["fwd_err"],
              k5_k6_shapes=k5_k6_shapes("fwd")),
         dict(name="attn_bwd", route="cuda", source="dlsc_tpu_torch/csrc/attn_bwd.cu",
              replaces="dlsc_tpu/ops/attn_fast.py:205, dlsc_tpu/models/vit.py:349, "

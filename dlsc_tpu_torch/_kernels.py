@@ -9,7 +9,8 @@ flags, so an edited source or header is rebuilt and never mixed with a stale
 build. ``build(*names)`` compiles several sources at once, one ``nvcc`` each,
 and keeps what ``nvcc`` printed beside the library (``build_log``: with
 ``-Xptxas -v`` among a library's ``EXTRA_FLAGS``, each kernel's registers and
-spills). ``sass(name)`` disassembles a built library with ``cuobjdump``.
+spills). ``sass(name)`` disassembles a built library with ``cuobjdump``, and
+``sass_functions(name)`` splits that by kernel.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception. There is no fallback: a
@@ -22,6 +23,7 @@ import ctypes
 import hashlib
 import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,9 +34,9 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "build" / "dlsc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# flags of one library beside NVCC_FLAGS (part of its hash): K2b's registers
-# and spills, which chip_smoke.py prints
-EXTRA_FLAGS = {"attn_bwd": ("-Xptxas", "-v")}
+# flags of one library beside NVCC_FLAGS (part of its hash): the registers
+# and spills of the wgmma kernels' libraries, which chip_smoke.py prints
+EXTRA_FLAGS = {name: ("-Xptxas", "-v") for name in ("attn_fwd", "attn_bwd", "gmm")}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -139,3 +141,9 @@ def sass(name: str) -> str:
     build(name)
     return subprocess.run([_cuobjdump(), "-sass", str(_paths(name)[1])], capture_output=True,
                           text=True, check=True).stdout
+
+
+def sass_functions(name: str) -> dict[str, str]:
+    """``sass(name)`` split by function: mangled kernel name → its SASS."""
+    parts = re.split(r"^\s*Function : (\S+)\s*$", sass(name), flags=re.MULTILINE)
+    return dict(zip(parts[1::2], parts[2::2]))

@@ -79,11 +79,6 @@ constexpr int BR32 = 64;        // rows per block, f32 path (one thread each)
 constexpr int BKV32 = 32;       // keys per tile, f32 dQ kernel
 constexpr int BQ32 = 16;        // queries per tile, f32 dK/dV kernel
 
-// The 1024-byte aligned start of dynamic shared memory (128-byte swizzle atoms).
-__device__ __forceinline__ uint8_t* align1024(uint8_t* raw) {
-  return raw + ((1024u - (hopper::smem_u32(raw) & 1023u)) & 1023u);
-}
-
 __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
   const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
   const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
@@ -122,7 +117,7 @@ attn_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                         float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int N,
                         int n_real) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(align1024(smem_raw));  // BLOCK x 64
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(hopper::align1024(smem_raw));  // BLOCK x 64
   __nv_bfloat16* dOs = Qs + BLOCK * DH;                                       // BLOCK x 64
   __nv_bfloat16* Ks = dOs + BLOCK * DH;                         // STAGES x (TILE x 64)
   __nv_bfloat16* Vs = Ks + STAGES * TILE * DH;                  // STAGES x (TILE x 64)
@@ -265,7 +260,7 @@ attn_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   extern __shared__ __align__(1024) uint8_t smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(align1024(smem_raw));  // BLOCK x 64
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(hopper::align1024(smem_raw));  // BLOCK x 64
   __nv_bfloat16* Vs = Ks + BLOCK * DH;                                        // BLOCK x 64
   __nv_bfloat16* Qs = Vs + BLOCK * DH;                 // STAGES x (TILE x 64)
   __nv_bfloat16* dOs = Qs + STAGES * TILE * DH;        // STAGES x (TILE x 64)

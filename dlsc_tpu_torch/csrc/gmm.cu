@@ -18,43 +18,83 @@
 // the card's ridge (0.105 ms of tensor-core time, 0.104 ms of memory time),
 // so the design has to keep the tensor cores fed and read each operand
 // about once. Megablox's TPU tiling (1024 x 384 x 512 VMEM tiles, rows
-// padded to the tile grain) does not carry over:
-//  - bf16: blocks of 256 threads own a 128 x 128 output tile; 8 warps of
-//    64 x 32 each run mma.sync.m16n8k16 (bf16 in, f32 accumulate) on
-//    fragments loaded by ldmatrix (.trans where the operand's reduction
-//    index is the slow one), from 32-deep tiles staged in shared memory by
-//    cp.async, double buffered;
-//  - gmm: a row tile belongs to one group. Tile t of the grid's y axis
-//    finds its group by walking the group sizes (at most ceil(M/128) + E
-//    tiles; the surplus blocks exit); rows past the group's end are
-//    zero-filled on load and never stored. The grid's x axis runs over the
-//    column tiles, so the blocks resident together share their lhs rows in
-//    L2 and read each once from HBM;
-//  - tgmm: one block per (column tile, k tile, group) loops over the
-//    group's rows in 32-row chunks and keeps its sums in registers: no
-//    atomics, deterministic. Under skewed routing the largest group sets
-//    the pace;
-//  - a scalar f32 path (64 x 64 tiles, 4 x 4 outputs a thread) serves the
-//    tight-tolerance parity checks.
+// padded to the tile grain) does not carry over.
+//
+// K4a bf16 (hopper.cuh; the numbers of `_gmm_plan` in ops/gmm.py):
+//  - a CTA owns 128 x 128 output tiles, one at a time: 2 consumer
+//    warpgroups of 64 rows each run bf16 wgmma m64n128k16 with f32
+//    accumulators in registers (64 a thread, under ptxas's 168-register cap
+//    for 288 threads); one producer warp's thread keeps TMA loads in flight
+//    into a ring of GSTAGES slots on "full"/"empty" mbarriers: per slot the
+//    128-row lhs tile and the matching rhs[g] tile, 64 deep (one 128-byte
+//    swizzle row of bf16), so the tensor cores are kept fed while the ring
+//    runs ahead, across tile boundaries;
+//  - operands: lhs is the K-major A (SS). With transpose_rhs, rhs[g] (N, K)
+//    is a K-major B: one 128-row box. Without it, rhs[g] (K, N) is an
+//    MN-major B read through the transpose bit: two 64-column boxes, panels
+//    8 KB apart, which the descriptor's LBO names (`desc_mnmajor_panels`).
+//    One m64n128k16 product per 16-deep step rather than two n64 ones: each
+//    A fragment is read from shared memory once per step. rhs goes through
+//    a 3-D tensor map (E, ., .), so a box past N or K reads zeros, never the
+//    next expert's weights; a box wholly past N is not loaded;
+//  - groups: a row tile never straddles two groups, so it multiplies by one
+//    rhs[g]; there are at most ceil(M/128) + E row tiles. TMA loads the
+//    full 128 rows; rows at or past the group's end (or past M, which read
+//    as zeros) are computed and never stored;
+//  - epilogue: each warpgroup stages its 64 x 128 slice in bf16 in shared
+//    memory (two 128-byte-swizzled panels: conflict-free from the
+//    accumulator layout) and writes it by TMA store when every row of the
+//    slice below M is the group's: one thread issues it and the warpgroup
+//    goes on to the next tile's products while it drains. A TMA store
+//    cannot mask the rows of the next group, so a slice that ends inside it
+//    is written by 16-byte stores under a row mask;
+//  - schedule: persistent, one CTA per SM, each walking the (row tile,
+//    column tile) pairs t = blockIdx.x, + gridDim.x, ..., columns fastest,
+//    so that the CTAs resident together share their lhs rows in L2 and lhs
+//    is read about once from HBM. Every CTA builds the group table (first
+//    tile, first row of each group) from group_sizes on the card; the host
+//    never reads the sizes, and no grid dimension caps the row tiles.
+// K4b bf16 (tgmm, mma.sync): one block per (column tile, k tile, group)
+// loops over the group's rows in 32-row chunks staged by cp.async, double
+// buffered, and keeps its sums in registers: no atomics, deterministic.
+// Under skewed routing the largest group sets the pace.
+// A scalar f32 path (64 x 64 tiles, 4 x 4 outputs a thread) serves the
+// tight-tolerance parity checks of both.
 // Operands are contiguous; in bf16, K and N are multiples of 8 (16-byte
-// cp.async chunks). wgmma, TMA and a persistent schedule are later work.
+// rows for TMA and cp.async).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BM = 128, BN = 128, BK = 32;  // bf16 block tile
+// K4a bf16: the numbers of `_gmm_plan` (ops/gmm.py)
+constexpr int GM = 128;                  // rows of an output tile: 2 consumer warpgroups of 64
+constexpr int GN = 128;                  // columns of an output tile: one m64n128k16 product
+constexpr int GK = 64;                   // depth of a stage: one 128-byte swizzle row of bf16
+constexpr int GSTAGES = 5;               // slots of the ring
+constexpr int G_CONSUMERS = 256;         // then 1 producer warp
+constexpr int G_THREADS = G_CONSUMERS + 32;
+constexpr int A_BYTES = GM * GK * 2;     // one lhs tile
+constexpr int PANEL_BYTES = GK * 64 * 2; // one 64-column panel of an MN-major rhs tile
+constexpr int B_BYTES = GK * GN * 2;     // one rhs tile
+constexpr int C_BYTES = 64 * GN * 2;     // one consumer warpgroup's output slice, staged
+constexpr int MAX_GROUPS = 256;          // the group table's capacity
+constexpr int GMM_SMEM = 1024 + GSTAGES * (A_BYTES + B_BYTES) + 2 * C_BYTES +
+                         2 * GSTAGES * 8 + 2 * (MAX_GROUPS + 1) * 4;
+// K4b bf16
+constexpr int BM = 128, BN = 128, BK = 32;  // block tile
 constexpr int THREADS = 256;                // 8 warps: 2 (rows) x 4 (columns)
 constexpr int PAD = 8;                      // bf16 row padding: ldmatrix without bank conflicts
-constexpr int TILE = BM * (BK + PAD);       // elements of one staged operand tile (either layout)
+constexpr int TILE = BK * (BM + PAD);       // elements of one staged operand tile
 constexpr int FB = 64, FK = 16;             // f32 block tile and depth
 
-static_assert(BK * (BM + PAD) <= TILE && BK * (BN + PAD) <= TILE && BN * (BK + PAD) <= TILE,
-              "staged tiles fit their buffers");
+static_assert(BK * (BN + PAD) <= TILE, "staged tiles fit their buffers");
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -67,13 +107,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
 }
 
 __device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
@@ -90,11 +123,6 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Row tile t of a grid whose row tiles of TM rows never straddle two
@@ -118,10 +146,9 @@ __device__ __forceinline__ bool find_row_tile(const int* __restrict__ sizes, int
   return false;
 }
 
-// One 32-deep stage: the warp's 64 x 32 sub-tile accumulates A (64 x 32) B
-// (32 x 32). A_T: A is staged [BK][BM] (reduction index slow), else
-// [BM][BK]. B_KN: B is staged [BK][BN], else [BN][BK].
-template <bool A_T, bool B_KN>
+// One 32-deep tgmm stage: the warp's 64 x 32 sub-tile accumulates A (64 x
+// 32) B (32 x 32), both staged with the reduction index slow: A [BK][BM],
+// B [BK][BN].
 __device__ __forceinline__ void mma_stage(float acc[4][4][4], const bf16* sA, const bf16* sB,
                                           int wm, int wn, int lane) {
 #pragma unroll
@@ -130,22 +157,17 @@ __device__ __forceinline__ void mma_stage(float acc[4][4][4], const bf16* sA, co
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m0 = wm * 64 + i * 16;
-      if (A_T)  // matrix j = lane / 8: rows kk + (j / 2) * 8 .., columns m0 + (j % 2) * 8
-        ldsm_x4_t(a[i], sA + (kk + (lane & 7) + (lane >> 4) * 8) * (BM + PAD) + m0 +
-                            ((lane >> 3) & 1) * 8);
-      else  // matrix j: rows m0 + (j % 2) * 8 .., columns kk + (j / 2) * 8
-        ldsm_x4(a[i], sA + (m0 + (lane & 15)) * (BK + PAD) + kk + (lane >> 4) * 8);
+      // matrix j = lane / 8: rows kk + (j / 2) * 8 .., columns m0 + (j % 2) * 8
+      ldsm_x4_t(a[i], sA + (kk + (lane & 7) + (lane >> 4) * 8) * (BM + PAD) + m0 +
+                          ((lane >> 3) & 1) * 8);
     }
 #pragma unroll
     for (int j = 0; j < 2; ++j) {  // two n8 tiles per ldmatrix.x4
       const int n0 = wn * 32 + j * 16;
       uint32_t r[4];
-      if (B_KN)  // matrices: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
-        ldsm_x4_t(r, sB + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * (BN + PAD) + n0 +
-                         (lane >> 4) * 8);
-      else
-        ldsm_x4(r, sB + (n0 + (lane & 7) + (lane >> 4) * 8) * (BK + PAD) + kk +
-                       ((lane >> 3) & 1) * 8);
+      // matrices: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+      ldsm_x4_t(r, sB + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * (BN + PAD) + n0 +
+                       (lane >> 4) * 8);
       b[2 * j][0] = r[0];
       b[2 * j][1] = r[1];
       b[2 * j + 1][0] = r[2];
@@ -155,35 +177,6 @@ __device__ __forceinline__ void mma_stage(float acc[4][4][4], const bf16* sA, co
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int n = 0; n < 4; ++n) mma_bf16_16816(acc[i][n], a[i], b[n]);
-  }
-}
-
-// Stage the gmm operands of reduction step k0: A = lhs rows [row0, row1) x
-// [k0, k0 + BK), staged [BM][BK]; B = rhs_g's [k0, k0 + BK) x [n0, n0 + BN),
-// staged [BK][BN] from (K, N), or [BN][BK] from (N, K) when TRANS_B.
-template <bool TRANS_B>
-__device__ __forceinline__ void load_gmm_stage(bf16* sA, bf16* sB, const bf16* lhs,
-                                               const bf16* rhs_g, int row0, int row1, int n0,
-                                               int k0, int K, int N, int tid) {
-#pragma unroll
-  for (int c = tid; c < BM * BK / 8; c += THREADS) {
-    const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
-    const bool ok = row0 + r < row1 && k0 + col < K;
-    cp_async16(sA + r * (BK + PAD) + col, ok ? lhs + (size_t)(row0 + r) * K + k0 + col : lhs, ok);
-  }
-#pragma unroll
-  for (int c = tid; c < BK * BN / 8; c += THREADS) {
-    if (TRANS_B) {
-      const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      const bool ok = n0 + r < N && k0 + col < K;
-      cp_async16(sB + r * (BK + PAD) + col,
-                 ok ? rhs_g + (size_t)(n0 + r) * K + k0 + col : rhs_g, ok);
-    } else {
-      const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-      const bool ok = k0 + r < K && n0 + col < N;
-      cp_async16(sB + r * (BN + PAD) + col,
-                 ok ? rhs_g + (size_t)(k0 + r) * N + n0 + col : rhs_g, ok);
-    }
   }
 }
 
@@ -219,49 +212,168 @@ __device__ __forceinline__ void store_tile(float acc[4][4][4], bf16* out, int ro
       if (col >= N) continue;
       if (r0 < row_end)
         *reinterpret_cast<uint32_t*>(out + (size_t)r0 * N + col) =
-            pack_bf16(acc[i][n][0], acc[i][n][1]);
+            hopper::pack_bf16(acc[i][n][0], acc[i][n][1]);
       if (r0 + 8 < row_end)
         *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + 8) * N + col) =
-            pack_bf16(acc[i][n][2], acc[i][n][3]);
+            hopper::pack_bf16(acc[i][n][2], acc[i][n][3]);
     }
 }
 
+// ---- K4a bf16: wgmma on a TMA ring, persistent ----
+
+// The row tile `rt` of the walk: its group g (carried forward, since a CTA
+// visits row tiles in increasing order) and its first row. tstart[e]: the
+// first row tile of group e (tstart[E] = all row tiles); rstart[e]: its first
+// row. An empty group has tstart[e] == tstart[e + 1] and is stepped over.
+__device__ __forceinline__ int tile_group(const int* tstart, int rt, int g) {
+  while (tstart[g + 1] <= rt) ++g;
+  return g;
+}
+
+// TRANS_B: rhs (E, N, K), a K-major B; else rhs (E, K, N), an MN-major B.
 template <bool TRANS_B>
-__global__ void __launch_bounds__(THREADS)
-gmm_bf16_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
-                const int* __restrict__ sizes, bf16* __restrict__ out, int K, int N, int E) {
-  __shared__ __align__(16) bf16 sA[2][TILE];
-  __shared__ __align__(16) bf16 sB[2][TILE];
-  int g, row0, row1;
-  if (!find_row_tile<BM>(sizes, E, blockIdx.y, g, row0, row1)) return;
-  const int n0 = blockIdx.x * BN;
-  const bf16* rhs_g = rhs + (size_t)g * K * N;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wm = warp >> 2, wn = warp & 3;
+__global__ void __launch_bounds__(G_THREADS, 1)
+gmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_lhs,
+                      const __grid_constant__ CUtensorMap tm_rhs,
+                      const __grid_constant__ CUtensorMap tm_out,
+                      const int* __restrict__ sizes, bf16* __restrict__ out, int M, int K, int N,
+                      int E) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* As = hopper::align1024(smem_raw);                     // GSTAGES x (GM x GK)
+  uint8_t* Bs = As + GSTAGES * A_BYTES;                  // GSTAGES x (GK x GN)
+  uint8_t* Cs = Bs + GSTAGES * B_BYTES;                  // 2 x (64 x GN), two panels each
+  uint64_t* full = reinterpret_cast<uint64_t*>(Cs + 2 * C_BYTES);
+  uint64_t* empty = full + GSTAGES;
+  int* tstart = reinterpret_cast<int*>(empty + GSTAGES);  // E + 1
+  int* rstart = tstart + MAX_GROUPS + 1;                  // E + 1
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
-
-  const int nk = (K + BK - 1) / BK;
-  load_gmm_stage<TRANS_B>(sA[0], sB[0], lhs, rhs_g, row0, row1, n0, 0, K, N, tid);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_gmm_stage<TRANS_B>(sA[(kt + 1) & 1], sB[(kt + 1) & 1], lhs, rhs_g, row0, row1, n0,
-                              (kt + 1) * BK, K, N, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    int tiles = 0, rows = 0;
+    for (int e = 0; e < E; ++e) {
+      const int s = max(sizes[e], 0);
+      tstart[e] = tiles;
+      rstart[e] = rows;
+      tiles += (s + GM - 1) / GM;
+      rows += s;
     }
-    __syncthreads();
-    mma_stage<false, !TRANS_B>(acc, sA[kt & 1], sB[kt & 1], wm, wn, lane);
-    __syncthreads();
+    tstart[E] = tiles;
+    rstart[E] = rows;
+    for (int s = 0; s < GSTAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    hopper::mbar_fence_init();
   }
-  store_tile(acc, out, row0 + wm * 64, row1, n0 + wn * 32, N, lane);
+  __syncthreads();
+
+  const int col_tiles = (N + GN - 1) / GN, k_steps = (K + GK - 1) / GK;
+  const int total = tstart[E] * col_tiles;
+
+  if (threadIdx.x >= G_CONSUMERS) {  // the producer warp: one thread issues every load
+    if (threadIdx.x == G_CONSUMERS) {
+      int it = 0, g = 0;
+      for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+        const int rt = tile / col_tiles, n0 = (tile % col_tiles) * GN;
+        g = tile_group(tstart, rt, g);
+        const int row0 = rstart[g] + (rt - tstart[g]) * GM;
+        const int panels = n0 + 64 < N ? 2 : 1;  // MN-major: boxes not wholly past N
+        const uint32_t bytes = A_BYTES + (TRANS_B ? B_BYTES : panels * PANEL_BYTES);
+        for (int ks = 0; ks < k_steps; ++ks, ++it) {
+          const int s = it % GSTAGES;
+          hopper::mbar_wait(&empty[s], ((it / GSTAGES) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], bytes);
+          hopper::tma_load_2d(As + s * A_BYTES, &tm_lhs, &full[s], ks * GK, row0);
+          uint8_t* b = Bs + s * B_BYTES;
+          if (TRANS_B) {
+            hopper::tma_load_3d(b, &tm_rhs, &full[s], ks * GK, n0, g);
+          } else {
+            for (int p = 0; p < panels; ++p)
+              hopper::tma_load_3d(b + p * PANEL_BYTES, &tm_rhs, &full[s], n0 + 64 * p, ks * GK,
+                                  g);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int it = 0, g = 0;
+  for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+    const int rt = tile / col_tiles, n0 = (tile % col_tiles) * GN;
+    g = tile_group(tstart, rt, g);
+    const int row0 = rstart[g] + (rt - tstart[g]) * GM;
+    const int row_end = min(min(rstart[g + 1], row0 + GM), M);
+
+    for (int ks = 0; ks < k_steps; ++ks, ++it) {
+      const int s = it % GSTAGES;
+      hopper::mbar_wait(&full[s], (it / GSTAGES) & 1);
+      const uint64_t a_desc = hopper::desc_kmajor(As + s * A_BYTES + wg * (A_BYTES / 2));
+      const uint64_t b_desc = TRANS_B ? hopper::desc_kmajor(Bs + s * B_BYTES)
+                                      : hopper::desc_mnmajor_panels(Bs + s * B_BYTES, PANEL_BYTES);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k)  // K-major steps 32 bytes along the row; MN-major 16 rows down
+        hopper::wgmma_m64n128k16_ss<0, TRANS_B ? 0 : 1>(
+            acc, a_desc + 2 * k, b_desc + (TRANS_B ? 2 : 128) * k, ks > 0 || k > 0);
+      hopper::wgmma_commit();
+      // keep this step's products in flight; the previous step's are done,
+      // so its slot goes back to the producer
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(acc);
+      if (ks > 0 && tid == 0) hopper::mbar_arrive(&empty[(it - 1) % GSTAGES]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (tid == 0) hopper::mbar_arrive(&empty[(it - 1) % GSTAGES]);
+
+    // epilogue: this warpgroup's 64 rows from lo, rows < row_end (this
+    // group's, < M) and columns < N, staged in bf16 as two 128-byte-swizzled
+    // 64-column panels
+    const int lo = row0 + wg * 64;
+    if (lo >= row_end) continue;  // no row of the slice is this group's
+    uint8_t* C = Cs + wg * C_BYTES;
+    if (tid == 0) hopper::bulk_wait_read<0>();  // the last TMA store has read the stage
+    hopper::named_barrier(1 + wg, 128);
+    const int ra = warp * 16 + lane / 4;  // this thread's rows ra and ra + 8 of the slice
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      uint8_t* panel = C + (j / 8) * PANEL_BYTES + 4 * t;
+      *reinterpret_cast<uint32_t*>(panel + hopper::sw128(ra, j % 8)) =
+          hopper::pack_bf16(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(panel + hopper::sw128(ra + 8, j % 8)) =
+          hopper::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    hopper::fence_async_smem();
+    hopper::named_barrier(1 + wg, 128);
+    if (min(lo + 64, M) <= row_end) {
+      // every row of the slice below M is this group's: TMA stores, which
+      // clip at M and N and run on while the next tile's products do
+      if (tid == 0) {
+        for (int p = 0; p < (n0 + 64 < N ? 2 : 1); ++p)
+          hopper::tma_store_2d(&tm_out, C + p * PANEL_BYTES, n0 + 64 * p, lo);
+        hopper::bulk_commit();
+      }
+    } else {
+      // the slice ends inside the next group: 16-byte stores under a row mask
+      for (int c = tid; c < 64 * GN / 8; c += 128) {
+        const int r = c / (GN / 8), cc = c % (GN / 8), col = n0 + 8 * cc;
+        if (lo + r < row_end && col < N)
+          *reinterpret_cast<uint4*>(out + (size_t)(lo + r) * N + col) =
+              *reinterpret_cast<const uint4*>(C + (cc / 8) * PANEL_BYTES +
+                                              hopper::sw128(r, cc % 8));
+      }
+    }
+  }
+  if (tid == 0) hopper::bulk_wait<0>();  // the stage stays until the last store is done
 }
+
+// ---- K4b bf16 ----
 
 __global__ void __launch_bounds__(THREADS)
 tgmm_bf16_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ grad,
@@ -295,7 +407,7 @@ tgmm_bf16_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ grad,
       cp_async_wait<0>();
     }
     __syncthreads();
-    mma_stage<true, true>(acc, sA[kt & 1], sB[kt & 1], wm, wn, lane);
+    mma_stage(acc, sA[kt & 1], sB[kt & 1], wm, wn, lane);
     __syncthreads();
   }
   store_tile(acc, out + (size_t)g * K * N, i0 + wm * 64, K, n0 + wn * 32, N, lane);
@@ -397,32 +509,63 @@ extern "C" const char* dlsc_error_string(int err) {
 
 // K4a. dtype: 0 = bfloat16, 1 = float32. lhs (M, K); rhs (E, K, N), or
 // (E, N, K) when transpose_rhs; group_sizes (E,) int32 on the card, summing
-// to M; out (M, N).
+// to M; out (M, N). bf16: `grid`, `threads`, `smem` and `stages` are the
+// wrapper's `_gmm_plan`; the launch is refused unless they are this
+// kernel's own (grid: one CTA per SM, at most one per tile).
 extern "C" int dlsc_gmm(const void* lhs, const void* rhs, const int* group_sizes, void* out,
-                        int M, int K, int N, int E, int transpose_rhs, int dtype, void* stream) {
+                        int M, int K, int N, int E, int transpose_rhs, int dtype, int grid,
+                        int threads, int smem, int stages, void* stream) {
   if (M < 0 || K <= 0 || N <= 0 || E <= 0 || (dtype == 0 && (K % 8 || N % 8)))
     return cudaErrorInvalidValue;
-  const int tm = dtype == 0 ? BM : FB, tn = dtype == 0 ? BN : FB;
-  const long long row_tiles = ((long long)M + tm - 1) / tm + E;  // at least every group's tiles
-  if (row_tiles > 65535) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + tn - 1) / tn, (unsigned)row_tiles);
   if (dtype == 0) {
-    const bf16* a = static_cast<const bf16*>(lhs);
-    const bf16* b = static_cast<const bf16*>(rhs);
-    bf16* o = static_cast<bf16*>(out);
-    if (transpose_rhs)
-      gmm_bf16_kernel<true><<<grid, THREADS, 0, st>>>(a, b, group_sizes, o, K, N, E);
-    else
-      gmm_bf16_kernel<false><<<grid, THREADS, 0, st>>>(a, b, group_sizes, o, K, N, E);
+    if (E > MAX_GROUPS) return cudaErrorInvalidValue;
+    if (M == 0) return cudaSuccess;
+    int device = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    const long long max_tiles = ((long long)(M + GM - 1) / GM + E) * ((N + GN - 1) / GN);
+    const int ctas = (int)(max_tiles < sms ? max_tiles : sms);
+    if (grid != ctas || threads != G_THREADS || smem != GMM_SMEM || stages != GSTAGES)
+      return cudaErrorInvalidConfiguration;
+    CUtensorMap tm_lhs, tm_rhs, tm_out;
+    const uint64_t a_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+    const uint64_t a_strides[1] = {static_cast<uint64_t>(K) * 2};
+    const uint32_t a_box[2] = {GK, GM};
+    err = hopper::make_tensor_map(&tm_lhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, lhs, a_dims,
+                                  a_strides, a_box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+    const uint64_t c_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(M)};
+    const uint64_t c_strides[1] = {static_cast<uint64_t>(N) * 2};
+    const uint32_t c_box[2] = {64, 64};
+    err = hopper::make_tensor_map(&tm_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, out, c_dims,
+                                  c_strides, c_box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+    const uint64_t inner = transpose_rhs ? K : N, outer = transpose_rhs ? N : K;
+    const uint64_t b_dims[3] = {inner, outer, static_cast<uint64_t>(E)};
+    const uint64_t b_strides[2] = {inner * 2, inner * outer * 2};
+    const uint32_t b_box[3] = {GK, static_cast<uint32_t>(transpose_rhs ? GN : GK), 1};
+    err = hopper::make_tensor_map(&tm_rhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, rhs, b_dims,
+                                  b_strides, b_box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+    auto kernel = transpose_rhs ? gmm_bf16_wgmma_kernel<true> : gmm_bf16_wgmma_kernel<false>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GMM_SMEM);
+    if (err != cudaSuccess) return err;
+    kernel<<<ctas, G_THREADS, GMM_SMEM, st>>>(tm_lhs, tm_rhs, tm_out, group_sizes,
+                                              static_cast<bf16*>(out), M, K, N, E);
   } else if (dtype == 1) {
+    const long long row_tiles = ((long long)M + FB - 1) / FB + E;  // at least every group's tiles
+    if (row_tiles > 65535) return cudaErrorInvalidValue;
+    const dim3 grid32((N + FB - 1) / FB, (unsigned)row_tiles);
     const float* a = static_cast<const float*>(lhs);
     const float* b = static_cast<const float*>(rhs);
     float* o = static_cast<float*>(out);
     if (transpose_rhs)
-      gmm_f32_kernel<true><<<grid, 256, 0, st>>>(a, b, group_sizes, o, K, N, E);
+      gmm_f32_kernel<true><<<grid32, 256, 0, st>>>(a, b, group_sizes, o, K, N, E);
     else
-      gmm_f32_kernel<false><<<grid, 256, 0, st>>>(a, b, group_sizes, o, K, N, E);
+      gmm_f32_kernel<false><<<grid32, 256, 0, st>>>(a, b, group_sizes, o, K, N, E);
   } else {
     return cudaErrorInvalidValue;
   }

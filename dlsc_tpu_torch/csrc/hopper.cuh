@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: TMA tile
-// loads that complete on an mbarrier, the mbarrier itself, and bf16 wgmma
-// on 128-byte-swizzled shared-memory tiles with A from shared memory (SS)
-// or from registers (RS). Inline PTX only, so a source that includes this
-// header still builds in seconds.
+// loads that complete on an mbarrier, TMA tile stores, the mbarrier itself,
+// and bf16 wgmma on 128-byte-swizzled shared-memory tiles with A from shared
+// memory (SS) or from registers (RS). Inline PTX only, so a source that
+// includes this header still builds in seconds.
 //
 // Tiles: every operand tile here is rows of 64 bf16 (128 bytes: one swizzle
 // row), written by TMA with CU_TENSOR_MAP_SWIZZLE_128B at a 1024-byte
@@ -15,9 +15,10 @@
 //  - MN-major (the depth runs down the rows, the transpose bit set): the
 //    64-wide output dimension is the one 128-byte row, and the k-th step of
 //    16 rows starts 16 * 128 bytes further (`desc + 128 * k`); the two 8-row
-//    groups of a step are SBO = 1024 bytes apart. LBO (the stride between
-//    64-element blocks of the output dimension) is unused at width 64 and
-//    set to the same 1024.
+//    groups of a step are SBO = 1024 bytes apart. LBO is the stride between
+//    64-element panels of the output dimension: unused at width 64 (set to
+//    the same 1024), the panel's bytes for a wider product whose operand is
+//    stored as consecutive 64-column panels (`desc_mnmajor_panels`).
 // Accumulator layout of m64nNk16 (f32, N / 2 registers a thread): warp w of
 // the warpgroup owns rows 16 w .. 16 w + 15; lane (g = lane / 4, t = lane %
 // 4) holds d[4 j + e] at row 16 w + g + 8 (e >= 2), column 8 j + 2 t + (e & 1).
@@ -38,6 +39,11 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The 1024-byte aligned start of dynamic shared memory (128-byte swizzle atoms).
+__device__ __forceinline__ uint8_t* align1024(uint8_t* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -99,10 +105,53 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// TMA store: one thread writes a box of shared memory to the tensor map at the
+// given coordinates; elements outside the tensor are not written. Stores are
+// tracked per issuing thread in bulk groups: `bulk_commit` closes a group,
+// `bulk_wait_read<N>` waits until at most N groups still read shared memory,
+// `bulk_wait<N>` until at most N are still writing.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the async proxy (a TMA
+// store that reads them next).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of the 16-byte chunk `chunk` (0..7) of row `row` in a tile of
+// 128-byte rows written or read by TMA with the 128-byte swizzle (1024-byte
+// aligned): the chunk index is XORed with the row's place in its 8-row atom.
+__device__ __forceinline__ uint32_t sw128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
 // Synchronises the `count` threads (whole warps) that name barrier `id` (1..15;
 // 0 is __syncthreads').
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// Arrives on named barrier `id` without waiting (a `named_barrier` of the
+// same id and count is the other side).
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile (see the top).
@@ -118,6 +167,10 @@ __device__ __forceinline__ uint64_t desc_kmajor(const void* tile) {
 }
 __device__ __forceinline__ uint64_t desc_mnmajor(const void* tile) {
   return desc_sw128(tile, 1024, 1024);
+}
+// An MN-major operand wider than 64: 64-column panels `panel_bytes` apart.
+__device__ __forceinline__ uint64_t desc_mnmajor_panels(const void* tile, uint32_t panel_bytes) {
+  return desc_sw128(tile, panel_bytes, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -137,6 +190,15 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for register A fragments that an asynchronous RS wgmma reads:
+// they stay live, and unchanged, until the wait that this follows.
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
 }
 
 #define HOPPER_D32(d)                                                                      \
@@ -178,7 +240,43 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TB));
 }
 
+#define HOPPER_D64(d)                                                                      \
+  HOPPER_D32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),          \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),        \
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),        \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),        \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),        \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (64 x 128 f32) (+)= A (64 x 16, shared) . B (16 x 128, shared), as the
+// m64n64k16 product above; an MN-major B of width 128 is two 64-column panels
+// (`desc_mnmajor_panels`).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : HOPPER_D64(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+#undef HOPPER_D64
 #undef HOPPER_D32
+
+// 2^x by the special-function unit alone (results below 2^-126 flush to 0,
+// which a softmax over a row normalised by its max never notices).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // Two floats as a bf16 pair, `lo` in the low half (round to nearest even).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

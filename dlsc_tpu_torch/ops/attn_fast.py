@@ -36,6 +36,8 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # producer warp), slots of the ring of streamed tiles; a block's shared memory
 # (H100: 227 KB)
 BWD_TILE, BWD_BLOCK, BWD_STAGES, BWD_THREADS = 64, 128, 3, 288
+# K2f bf16 (csrc/attn_fwd.cu): the same tiles, CTA and threads; its K/V ring
+FWD_TILE, FWD_BLOCK, FWD_STAGES, FWD_THREADS = 64, 128, 4, 288
 SMEM_LIMIT = 232_448
 
 launches = 0      # forward kernel launches since the last reset (see reset_launches)
@@ -104,14 +106,18 @@ def fast_mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      n_real: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked attention forward: (B, H, N, dh) ×3 → (out (B, H, N, dh), lse (B, H, N)).
 
-    CUDA tensors: kernel K2f (dh 64, bfloat16 or float32). CPU tensors:
-    ``mha_forward_reference``.
+    CUDA tensors: kernel K2f (dh 64, bfloat16 or float32; bf16 by wgmma on
+    TMA-fed tiles, see ``_fwd_plan``). CPU tensors: ``mha_forward_reference``.
     """
     _check_qkv("fast_mha_forward", q, k, v, n_real)
     B, H, N, dh = q.shape
     if q.device.type == "cpu":
         return mha_forward_reference(q, k, v, n_real)
     _check_kernel_operands("fast_mha_forward", q, k, v)
+    if q.dtype == torch.bfloat16:
+        plan = _fwd_plan(B, H, N, n_real)
+        if plan["smem"] > SMEM_LIMIT:
+            raise ValueError(f"fast_mha_forward: shared memory {plan} over {SMEM_LIMIT}")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -124,6 +130,24 @@ def fast_mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     launches += 1
     return out, lse
+
+
+def _fwd_plan(B: int, H: int, N: int, n_real: int) -> dict:
+    """The launch of K2f's bf16 kernel (``csrc/attn_fwd.cu`` computes the
+    same by the same formulas): a grid of (N / 128 rounded up, B*H) CTAs of
+    ``FWD_THREADS`` threads, each loading its 128 query rows once and
+    streaming the ``key_tiles`` 64-key tiles below n_real (K and V) through a
+    ring of ``stages`` slots. ``smem``: dynamic shared memory in bytes (1024
+    of alignment slack, the Q tile, the ring, the mbarriers)."""
+    tile_bytes = FWD_TILE * HEAD_DIM * 2
+    return dict(
+        threads=FWD_THREADS,
+        grid=(-(-N // FWD_BLOCK), B * H),
+        key_tiles=-(-n_real // FWD_TILE),
+        stages=FWD_STAGES,
+        smem=(1024 + FWD_BLOCK * HEAD_DIM * 2 + FWD_STAGES * 2 * tile_bytes
+              + (1 + 2 * FWD_STAGES) * 8),
+    )
 
 
 def _bwd_plan(B: int, H: int, N: int, n_real: int) -> dict:

@@ -9,7 +9,9 @@ moves it to the host.
 
 - ``gmm`` (K4a): out[rows of g] = lhs[rows of g] @ rhs[g], rhs (E, k, n),
   or @ rhs[g]^T with rhs (E, n, k) when ``transpose_rhs``; out in lhs's
-  dtype, f32 sums.
+  dtype, f32 sums. In bf16 a persistent wgmma kernel fed by a TMA ring:
+  ``_gmm_plan`` is its launch, ``_row_tiles`` and ``_tile_walk`` mirror the
+  tiles it computes and the order in which its CTAs visit them.
 - ``tgmm`` (K4b): out[g] = lhs[rows of g]^T @ grad[rows of g], (E, k, n);
   an empty group gives zeros.
 
@@ -32,6 +34,13 @@ import torch
 from dlsc_tpu_torch import _kernels
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# K4a bf16 (csrc/gmm.cu, which uses the same numbers): an output tile's rows
+# (2 consumer warpgroups of 64) and columns, a ring stage's depth, the ring's
+# slots, threads (the consumers and a producer warp), the group table's
+# capacity; a block's shared memory (H100: 227 KB)
+GMM_TILE_M, GMM_TILE_N, GMM_TILE_K, GMM_STAGES, GMM_THREADS = 128, 128, 64, 5, 288
+GMM_MAX_GROUPS = 256
+SMEM_LIMIT = 232_448
 
 launches = 0        # K4a gmm launches since the last reset (see reset_launches)
 tgmm_launches = 0   # K4b tgmm launches
@@ -46,11 +55,65 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _kernels.load("gmm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dlsc_gmm.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.dlsc_gmm.argtypes = [p, p, p, p] + [i] * 10 + [p]
     lib.dlsc_gmm.restype = i
     lib.dlsc_tgmm.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.dlsc_tgmm.restype = i
     return lib
+
+
+def _gmm_plan(M: int, K: int, N: int, E: int, transpose_rhs: bool, sms: int = 132) -> dict:
+    """The launch of K4a's bf16 kernel (``csrc/gmm.cu`` computes the same by
+    the same formulas and refuses a launch whose numbers differ): a
+    persistent grid of one CTA per SM (``sms``), never more than the tiles
+    there can be, ``max_tiles`` = (at most ceil(M/128) + E row tiles) x
+    ``col_tiles``; ``k_steps`` ring stages per tile, each a 128-row lhs box
+    and the rhs[g] tile (``rhs_boxes``: one 128-row K-major box with
+    ``transpose_rhs``, else two 64-column MN-major panels). ``smem``: 1024
+    of alignment slack, the ring, the staged output tile, the ring's
+    mbarriers and the group table."""
+    col_tiles = -(-N // GMM_TILE_N)
+    max_tiles = (-(-M // GMM_TILE_M) + E) * col_tiles
+    stage_bytes = 2 * GMM_TILE_K * (GMM_TILE_M + GMM_TILE_N)
+    return dict(
+        grid=min(sms, max_tiles),
+        threads=GMM_THREADS,
+        stages=GMM_STAGES,
+        smem=(1024 + GMM_STAGES * stage_bytes + 2 * GMM_TILE_M * GMM_TILE_N
+              + 2 * GMM_STAGES * 8 + 2 * (GMM_MAX_GROUPS + 1) * 4),
+        col_tiles=col_tiles,
+        max_tiles=max_tiles,
+        k_steps=-(-K // GMM_TILE_K),
+        rhs_boxes=1 if transpose_rhs else 2,
+    )
+
+
+def _row_tiles(sizes, tile: int = GMM_TILE_M) -> list[tuple[int, int, int]]:
+    """K4a's row tiles as its bf16 kernel finds them, in its order: (group,
+    first row, end row), each within one group and at most ``tile`` rows.
+    The kernel's group table holds each group's first tile and first row
+    (negative sizes read as 0); row tile t takes the group whose tiles hold
+    t, carried forward from the last tile (a CTA visits its row tiles in
+    increasing order), so an empty group is stepped over."""
+    tstart, rstart = [0], [0]
+    for size in sizes:
+        size = max(int(size), 0)
+        tstart.append(tstart[-1] + -(-size // tile))
+        rstart.append(rstart[-1] + size)
+    tiles, g = [], 0
+    for t in range(tstart[-1]):
+        while tstart[g + 1] <= t:
+            g += 1
+        row0 = rstart[g] + (t - tstart[g]) * tile
+        tiles.append((g, row0, min(rstart[g + 1], row0 + tile)))
+    return tiles
+
+
+def _tile_walk(n_row_tiles: int, col_tiles: int, grid: int) -> list[list[tuple[int, int]]]:
+    """The persistent schedule: CTA b computes tiles b, b + grid, ... of the
+    n_row_tiles x col_tiles (row tile, column tile) pairs, columns fastest."""
+    total = n_row_tiles * col_tiles
+    return [[divmod(t, col_tiles) for t in range(b, total, grid)] for b in range(grid)]
 
 
 def _check_sizes(what: str, lhs: torch.Tensor, group_sizes: torch.Tensor,
@@ -120,8 +183,9 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
         transpose_rhs: bool = False) -> torch.Tensor:
     """Grouped product (M, k) x (E, k, n) → (M, n) (see the module docstring).
 
-    CUDA tensors: kernel K4a. CPU tensors: ``gmm_reference``, after checking
-    that the sizes sum to M.
+    CUDA tensors: kernel K4a (bf16: launched as ``_gmm_plan`` says, at most
+    ``GMM_MAX_GROUPS`` groups; rows past the sizes' sum are not written).
+    CPU tensors: ``gmm_reference``, after checking that the sizes sum to M.
     """
     _check_sizes("gmm", lhs, group_sizes, rhs.shape[0])
     k, n = (rhs.shape[2], rhs.shape[1]) if transpose_rhs else rhs.shape[1:]
@@ -135,11 +199,22 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
     group_sizes = group_sizes.contiguous()
     M, E = lhs.shape[0], rhs.shape[0]
     out = torch.empty((M, n), dtype=lhs.dtype, device=lhs.device)
+    if M == 0:
+        return out
+    launch = (0, 0, 0, 0)   # the f32 kernel's grid is its own
+    if lhs.dtype == torch.bfloat16:
+        if E > GMM_MAX_GROUPS:
+            raise ValueError(f"gmm: {E} groups, the kernel's table holds {GMM_MAX_GROUPS}")
+        sms = torch.cuda.get_device_properties(lhs.device).multi_processor_count
+        plan = _gmm_plan(M, k, n, E, transpose_rhs, sms)
+        if plan["smem"] > SMEM_LIMIT:
+            raise ValueError(f"gmm: shared memory {plan['smem']} over {SMEM_LIMIT}")
+        launch = (plan["grid"], plan["threads"], plan["smem"], plan["stages"])
     lib = _lib()
     with torch.cuda.device(lhs.device):
         err = lib.dlsc_gmm(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
                            out.data_ptr(), M, k, n, E, int(transpose_rhs), _DTYPES[lhs.dtype],
-                           torch.cuda.current_stream().cuda_stream)
+                           *launch, torch.cuda.current_stream().cuda_stream)
     _kernels.check(lib, err, "grouped matmul kernel")
     global launches
     launches += 1

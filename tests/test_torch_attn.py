@@ -4,7 +4,8 @@
 on the card — against the JAX shape-specialised Pallas kernel
 (``make_fast_mha``, interpret mode) on the same numpy-seeded f32 inputs,
 rows < n_real, at the 2e-5 of tests/test_attn_fast.py; its lse against a
-float64 numpy logsumexp of the masked scores at 1e-5.
+float64 numpy logsumexp of the masked scores at 1e-5. The bf16 kernel's
+launch plan (``_fwd_plan``) is checked at the shapes of ``_bwd_plan``'s test.
 """
 
 import jax.numpy as jnp
@@ -65,3 +66,27 @@ def test_rejects_bad_arguments():
     with pytest.raises(ValueError, match="shapes"):
         A.fast_mha_forward(q, k[:, :, :128], v, 100)
 
+
+
+# (B, H, N, n_real): the five main-path shapes (AST-Base, AST-MoE / AST-Small,
+# AST-Mini, the 10-s sequence, n_real == N), then ragged ones
+@pytest.mark.parametrize("B,H,N,n_real", [
+    (64, 12, 1664, 1645),
+    (64, 6, 768, 689),
+    (64, 3, 1664, 1645),
+    (8, 12, 3328, 3301),
+    (8, 6, 768, 768),
+    (2, 3, 200, 131),
+    (2, 3, 130, 130),
+    (2, 3, 256, 40),
+])
+def test_fwd_plan(B, H, N, n_real):
+    plan = A._fwd_plan(B, H, N, n_real)
+    assert plan["grid"] == (-(-N // 128), B * H)
+    assert plan["threads"] == 288   # 2 consumer warpgroups and a producer warp
+    assert plan["key_tiles"] == -(-n_real // 64)   # key tiles past n_real are never loaded
+    assert (plan["key_tiles"] - 1) * 64 < n_real <= plan["key_tiles"] * 64
+    assert 48 * 1024 < plan["smem"] <= A.SMEM_LIMIT == 227 * 1024
+    # the Q tile and a ring of at least two 64-key K and V tiles
+    assert plan["stages"] >= 2
+    assert plan["smem"] >= 1024 + 128 * 128 + plan["stages"] * 2 * 64 * 128

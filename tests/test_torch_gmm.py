@@ -5,6 +5,9 @@ against megablox ``gmm`` / ``tgmm`` run in interpret mode on the CPU, as
 Group sizes include an empty group and sizes that are not multiples of 8
 (megablox needs only the row count to be a multiple of its 8-row tile).
 Tolerance: f32, 1e-5 (summation order only).
+
+The bf16 kernel's launch plan is held to its contract by ``test_gmm_plan``;
+its tile walk, under hypothesis, in ``tests/test_torch_gmm_plan.py``.
 """
 
 import jax
@@ -92,3 +95,23 @@ def test_cpu_wrappers_run_the_plain_versions_and_check_their_input():
     short = gs.clone()
     short[1] -= 4
     assert (G.gmm_reference(lhs, rhs, short)[-4:] == 0).all()
+
+
+@pytest.mark.parametrize("M,K,N,transpose_rhs", [
+    (88_192, 384, 1536, False),   # gmm1 at AST-MoE's batch 64
+    (88_192, 1536, 384, False),   # gmm2
+    (88_192, 1536, 384, True),    # dlhs1
+    (88_192, 384, 1536, True),    # dlhs2
+    (40, 40, 136, False),         # ragged depth and width
+])
+def test_gmm_plan(M, K, N, transpose_rhs):
+    plan = G._gmm_plan(M, K, N, 8, transpose_rhs, 132)
+    assert plan["threads"] == 288   # 2 consumer warpgroups and a producer warp
+    assert plan["stages"] >= 3
+    assert 48 * 1024 < plan["smem"] <= G.SMEM_LIMIT == 227 * 1024
+    # the ring: each stage a 128-row lhs tile and a 128-column rhs tile, 64 deep
+    assert plan["smem"] >= plan["stages"] * 2 * (128 * 64 * 2)
+    assert plan["k_steps"] == -(-K // 64)
+    assert plan["rhs_boxes"] == (1 if transpose_rhs else 2)
+    assert plan["max_tiles"] == (-(-M // 128) + 8) * -(-N // 128)
+    assert plan["grid"] == min(132, plan["max_tiles"])

@@ -21,6 +21,8 @@ stored in bf16); the small AST-Small train step with ``ln_fused`` through
 K2 and K3 vs plain ops 1e-4, as the AST step.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -75,9 +77,11 @@ def test_mel_kernel_matches_plain(hop, win, n, cuda_device):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("n,n_real", [(256, 256), (256, 200), (200, 131), (1664, 1645),
-                                      (768, 768)])
+                                      (768, 768), (130, 130), (256, 40), (768, 689),
+                                      (3328, 3301)])
 def test_attention_kernel_matches_reference(dtype, tol, n, n_real, cuda_device):
-    """Any N and n_real, including a ragged last query block and kv tile."""
+    """Any N and n_real, including a ragged last query block and kv tile, a
+    64-row query box wholly past N (130) and key tiles past n_real (256, 40)."""
     rng = np.random.default_rng(n + n_real)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, n, 64)).astype(np.float32))
                for _ in range(3))
@@ -90,6 +94,35 @@ def test_attention_kernel_matches_reference(dtype, tol, n, n_real, cuda_device):
     assert (out.float() - ref)[:, :, :n_real].abs().max().item() <= tol
     assert (lse - ref_lse)[:, :, :n_real].abs().max().item() <= tol
     assert torch.isfinite(out).all()  # pad query rows too
+
+
+@pytest.mark.parametrize("n,n_real", [(1664, 1645), (130, 130)])
+def test_attention_forward_kernel_is_deterministic(n, n_real, cuda_device):
+    """Two bf16 K2f calls on the same inputs give the same bits in out and
+    lse: each row is owned by one CTA and summed in a fixed order."""
+    g = torch.Generator(cuda_device).manual_seed(n + 1)
+    q, k, v = (torch.randn(2, 3, n, 64, generator=g, device=cuda_device) for _ in range(3))
+    q, k, v = (t.to(torch.bfloat16) for t in (q * 0.125, k, v))
+    first = A.fast_mha_forward(q, k, v, n_real)
+    second = A.fast_mha_forward(q, k, v, n_real)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse"), first, second):
+        assert torch.equal(a, b), name
+
+
+def _hgmma_hmma(functions: dict, part: str) -> dict:
+    """(HGMMA, HMMA) instruction counts of each SASS function whose name
+    holds ``part``."""
+    return {f: (text.count("HGMMA"), len(re.findall(r"\bHMMA\b", text)))
+            for f, text in functions.items() if part in f}
+
+
+def test_attention_forward_bf16_runs_on_wgmma(cuda_device):
+    """The bf16 forward's SASS holds Hopper's warpgroup products (HGMMA)
+    and no mma.sync (HMMA) left from the earlier design; needs cuobjdump."""
+    counts = _hgmma_hmma(_kernels.sass_functions("attn_fwd"), "attn_fwd_bf16")
+    assert len(counts) == 1
+    assert all(hgmma > 0 and hmma == 0 for hgmma, hmma in counts.values()), counts
 
 
 def test_attention_kernel_rejects_unsupported(cuda_device):
@@ -255,6 +288,43 @@ def test_gmm_kernels_match_reference(dtype, tol, sizes, k, n, cuda_device):
     for g, size in enumerate(sizes):
         if size == 0:
             assert (got_w[g] == 0).all()
+
+
+# AST-MoE's widths (d 384, ff 1536) with empty first and last groups, and
+# one group holding every row
+_MOE_SIZES = [(0, 300, 1, 517, 129, 0), (947,)]
+
+
+@pytest.mark.parametrize("sizes", _MOE_SIZES)
+@pytest.mark.parametrize("k,n", [(384, 1536), (1536, 384)])
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+def test_gmm_bf16_at_ast_moe_widths(sizes, k, n, transpose_rhs, cuda_device):
+    """K4a bf16 in both rhs layouts at the MoE MLP's widths against its
+    plain version (1e-2 normalised); rows past a group's end are never
+    written into the next group's; two calls give the same bits."""
+    lhs, rhs, gs = _gmm_inputs(sizes, k, n, torch.bfloat16, cuda_device, k + len(sizes))
+    rhs = (rhs * k**-0.5).to(torch.bfloat16)
+    if transpose_rhs:
+        rhs = rhs.transpose(1, 2).contiguous()
+    got = G.gmm(lhs, rhs, gs, transpose_rhs)
+    again = G.gmm(lhs, rhs, gs, transpose_rhs)
+    torch.cuda.synchronize()
+    want = G.gmm_reference(lhs, rhs, gs, transpose_rhs)
+    assert got.shape == want.shape == (sum(sizes), n)
+    assert torch.isfinite(got).all()
+    assert _norm_err(got.float(), want.float()) <= 1e-2
+    assert torch.equal(got, again)
+
+
+def test_gmm_bf16_runs_on_wgmma(cuda_device):
+    """K4a's bf16 kernels (both rhs layouts) hold HGMMA and no HMMA in
+    their SASS; K4b's tgmm, in the same library, is still mma.sync."""
+    functions = _kernels.sass_functions("gmm")
+    k4a = _hgmma_hmma(functions, "gmm_bf16_wgmma")
+    assert len(k4a) == 2
+    assert all(hgmma > 0 and hmma == 0 for hgmma, hmma in k4a.values()), k4a
+    k4b = _hgmma_hmma(functions, "tgmm_bf16")
+    assert len(k4b) == 1 and all(hmma > 0 for _, hmma in k4b.values()), k4b
 
 
 def test_grouped_matmul_gradient_matches_autograd_of_plain(cuda_device):
