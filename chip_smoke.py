@@ -8,8 +8,11 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 0. start-up: require CUDA, print the card's name and power limit, turn TF32
    off for matmuls and cuDNN, build the five kernel sources from csrc/ (one
    nvcc each, all at once);
-1. kernel K1 (mel power) against its plain version, both mel configs at the
-   serving batch 8, and the AST config at the training batch 64;
+1. kernel K1 (mel power, an FFT in shared memory): registers and no spill
+   (``-Xptxas -v``, printed); against its plain version, both mel configs at
+   the serving batch 8 and the AST config at the training batch 64, each
+   also by graph replay with its share of the bound, two calls of each
+   bit-identical;
 2. kernel K2f (attention forward): its bf16 kernel's own SASS must hold
    HGMMA (wgmma) and no HMMA, and it spills nothing (``-Xptxas -v``,
    printed with its registers); against its plain version, f32 and bf16 at
@@ -38,25 +41,31 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 7. kernels K2f and K2b at AST-MoE's training shape (64, 6, 768, 64),
    n_real 689, bf16, against their plain versions one batch row at a time,
    both also by graph replay and two calls of each bit-identical;
-8. kernels K4a (gmm) and K4b (tgmm): K4a's bf16 kernels (both rhs layouts)
-   must hold HGMMA and no HMMA in their own SASS and spill nothing (K4b's
-   tgmm, in the same library, is printed as mma.sync); against their plain
-   versions at AST-MoE's batch-64 shapes (88 192 sorted rows): the two
-   expert products, their transposed-rhs dlhs and both tgmm, bf16 with the
-   group sizes of a real router draw and with a skewed set, each also by
-   graph replay beside ``torch._grouped_mm``'s and two calls bit-identical,
-   f32 at one shape;
+8. kernels K4a (gmm) and K4b (tgmm): their bf16 wgmma kernels (K4a in both
+   rhs layouts) must hold HGMMA and no HMMA in their own SASS and spill
+   nothing; against their plain versions at AST-MoE's batch-64 shapes
+   (88 192 sorted rows): the two expert products, their transposed-rhs dlhs
+   and both tgmm, bf16 with the group sizes of a real router draw and with
+   a skewed set, each also by graph replay (K4b: both of its kernels) beside
+   ``torch._grouped_mm``'s, with its share of the bound, and two calls
+   bit-identical, f32 at one shape;
 9. AST-MoE serving: exported with seeded weights, loaded on the card, one
    batch of 8 clips (per device batch K1 1, K2f 12, gmm 24, K2b and tgmm
    0), held against the same weights in f32 with plain attention and plain
    grouped matmul on the same routes, and timed at batch 8 and 64;
 10. AST-MoE training: ``scripts/bench.py --model ast_moe``'s configuration,
     2 warm-up and 10 timed steps at batch 64 (per step K1 1, K2f 12, K2b 12,
-    gmm 72, tgmm 24), every parameter and every expert changed, then the
-    bench's profiled record;
+    gmm 72, tgmm 24), with the tokens routed to each (block, expert) whose
+    output reaches the loss counted through the ``topk`` hook
+    (``ExpertTokens``; in the last block only the CLS token's): every
+    parameter changed, and every expert that got such a token; the experts
+    that got none are printed and counted; then the bench's profiled record;
 11. AST-MoE card parity of one train step at batch 4, dropout 0.1 with one
-    seed: f32 kernels vs f32 plain ops, bf16 kernels (remat ``attn_res``)
-    vs f32 plain ops, each pair on the same routes;
+    seed: f32 kernels vs f32 plain ops, and bf16 kernels (remat
+    ``attn_res``) vs bf16 plain ops that round where the TPU kernels round
+    (``_RoundedPlainMha``), each pair on the same routes; the bf16 runs
+    against f32 plain ops are printed, not bounds (``--moe-parity-seeds A-B``
+    runs this phase alone over seeds);
 12. kernels K3f and K3b (fused residual add + LayerNorm) against their plain
     versions at the three widths of the models' training batch 64 (AST-Small
     49 152 x 384, AST-Base 106 496 x 768, AST-Mini 106 496 x 192) in bf16,
@@ -101,6 +110,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import functools
 import http.client
 import json
 import re
@@ -193,8 +203,16 @@ STEP_F32_GRAD = 1e-4    # loss relative; gradients and parameters after the
                         # bias after one step is lr x its gradient, so the
                         # parameter bar is the gradient's): the kernels' f32
                         # summation order, through 12 blocks
-STEP_BF16_LOSS = 1e-2   # bf16 step vs the f32 plain step: 12 blocks of bf16
-STEP_BF16_GRAD = 5e-2   # activations (2^-8 relative per op) forward and back
+STEP_BF16_LOSS = 1e-2   # bf16 step through the kernels vs a plain step: 12 blocks
+STEP_BF16_GRAD = 5e-2   # of bf16 activations (2^-8 relative per op) forward and
+                        # back. AST-Base and AST-Small (phases 6, 16) are held to
+                        # the f32 plain step. AST-MoE (phase 11) is held to a bf16
+                        # plain step on the same routes that rounds where the TPU
+                        # kernels round (P before P·V, the grouped products'
+                        # outputs): there the bound covers the kernels' own
+                        # rounding and summation order, not the bf16 model's
+                        # noise against f32, which a router-weight gradient
+                        # amplifies to the bound's size (PERF.md §6)
 GMM_F32_ERR = 1e-5      # K4 f32, normalised by max |out|: summation order only
 GMM_BF16_ERR = 1e-2     # K4 bf16: the output rounded to bf16 (2^-9 relative),
                         # f32 sums on both sides
@@ -318,54 +336,66 @@ class RouteLog:
         return diff, sum(a[:, :n_real].numel() for a, _ in pairs)
 
 
-def phase_mel(dev: torch.device, gen: torch.Generator) -> dict:
-    wave = (torch.randn(SERVE_BATCH, CLIP, generator=gen) * 0.3).to(dev)
-    result = {}
-    for cfg in (M.MelConfig(), M.MelConfig(n_fft=1024, hop_length=512, win_length=1024)):
-        got = mel_kernel.mel_power(wave, cfg)
-        ref = M.mel_spectrogram(wave, cfg)
-        require(got.shape == ref.shape, f"K1 shape {tuple(got.shape)} vs {tuple(ref.shape)}")
-        norm = ((got - ref).abs().max() / ref.abs().max()).item()
-        abs_err = (got - ref).abs().max().item()
-        got_db, ref_db = M.amplitude_to_db(got, cfg.top_db), M.amplitude_to_db(ref, cfg.top_db)
-        db = (got_db - ref_db).abs().max().item()
-        ast = (M.ast_normalize(got_db) - M.ast_normalize(ref_db)).abs().max().item()
-        ms, plain_ms = paired_ms(lambda: mel_kernel.mel_power(wave, cfg),
-                                 lambda: M.mel_spectrogram(wave, cfg))
-        print(f"K1 mel_power hop {cfg.hop_length} win {cfg.win_length}: B {SERVE_BATCH} x "
-              f"{CLIP} -> {tuple(got.shape)}  norm_err {norm:.3e} (< {MEL_NORM_ERR})  "
-              f"max_abs {abs_err:.3e}  dB {db:.3e} (< {DB_ABS_ERR})  ast {ast:.3e} "
-              f"(< {AST_ABS_ERR})  median kernel {ms:.3f} ms  plain {plain_ms:.3f} ms",
-              flush=True)
-        require(norm < MEL_NORM_ERR and db < DB_ABS_ERR and ast < AST_ABS_ERR,
-                f"K1 disagrees with its plain version at hop {cfg.hop_length}")
-        if cfg.hop_length == M.AST_HOP_LENGTH:  # the slice's config
-            # what the function needs at the least, not the dense DFT product
-            # the kernel runs: per frame the window, a real FFT (~2.5 n log2 n),
-            # the power (3 per bin) and the filterbank's nonzero entries (2
-            # each); bytes: the wave, those entries and the output, each once
-            nnz = int(np.count_nonzero(M.mel_filterbank_np(cfg)))
-            per_frame = (cfg.win_length + 2.5 * cfg.n_fft * np.log2(cfg.n_fft)
-                         + 3 * (cfg.n_fft // 2 + 1) + 2 * nnz)
-            flops = SERVE_BATCH * cfg.num_frames(CLIP) * per_frame
-            nbytes = 4 * (SERVE_BATCH * CLIP + nnz + got.numel())
-            # no single PyTorch call computes a mel power spectrogram
-            result = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                          **bound(flops, F32_FLOPS, nbytes))
+def _mel_bound(cfg: M.MelConfig, batch: int, n_out: int) -> dict:
+    """K1's bound: what the function needs at the least, not the work the
+    kernel runs: per frame the window, a real FFT (~2.5 n log2 n), the power
+    (3 per bin) and the filterbank's nonzero entries (2 each); bytes: the
+    wave, those entries and the output, each once."""
+    nnz = int(np.count_nonzero(M.mel_filterbank_np(cfg)))
+    per_frame = (cfg.win_length + 2.5 * cfg.n_fft * np.log2(cfg.n_fft)
+                 + 3 * (cfg.n_fft // 2 + 1) + 2 * nnz)
+    flops = batch * cfg.num_frames(CLIP) * per_frame
+    return bound(flops, F32_FLOPS, 4 * (batch * CLIP + nnz + n_out))
 
-    # the training slice's shape: the whole batch of 64 clips in one launch
-    cfg = M.MelConfig()
-    wave = (torch.randn(TRAIN_BATCH, CLIP, generator=gen) * 0.3).to(dev)
+
+def _mel_case(wave: torch.Tensor, cfg: M.MelConfig) -> dict:
+    """K1 on ``wave`` against its plain version: errors (normalised, max
+    abs, dB, AST features), CUDA-event times in turns with the plain
+    version, the graph-replay time with its share of the bound, and two
+    calls bit-identical; printed, and required within the bars."""
     got, ref = mel_kernel.mel_power(wave, cfg), M.mel_spectrogram(wave, cfg)
     require(got.shape == ref.shape, f"K1 shape {tuple(got.shape)} vs {tuple(ref.shape)}")
     norm, abs_err = norm_err(got, ref), (got - ref).abs().max().item()
-    ms = float(np.median(cuda_times(lambda: mel_kernel.mel_power(wave, cfg))))
-    print(f"K1 mel_power at the train batch: B {TRAIN_BATCH} x {CLIP} -> {tuple(got.shape)}  "
-          f"norm_err {norm:.3e} (< {MEL_NORM_ERR})  max_abs {abs_err:.3e}  median kernel "
-          f"{ms:.3f} ms", flush=True)
-    require(norm < MEL_NORM_ERR, f"K1 disagrees with its plain version at batch {TRAIN_BATCH}")
-    result["max_abs_err"] = max(result["max_abs_err"], abs_err)
-    return result
+    got_db, ref_db = M.amplitude_to_db(got, cfg.top_db), M.amplitude_to_db(ref, cfg.top_db)
+    db = (got_db - ref_db).abs().max().item()
+    ast = (M.ast_normalize(got_db) - M.ast_normalize(ref_db)).abs().max().item()
+    ms, plain_ms = paired_ms(lambda: mel_kernel.mel_power(wave, cfg),
+                             lambda: M.mel_spectrogram(wave, cfg))
+    g_ms = graph_ms(lambda: mel_kernel.mel_power(wave, cfg), reps=5)
+    det = _reruns_equal(lambda: mel_kernel.mel_power(wave, cfg))
+    bd = _mel_bound(cfg, wave.shape[0], got.numel())
+    print(f"K1 mel_power hop {cfg.hop_length} win {cfg.win_length}: B {wave.shape[0]} x "
+          f"{wave.shape[1]} -> {tuple(got.shape)}  norm_err {norm:.3e} (< {MEL_NORM_ERR})  "
+          f"max_abs {abs_err:.3e}  dB {db:.3e} (< {DB_ABS_ERR})  ast {ast:.3e} (< "
+          f"{AST_ABS_ERR})  median kernel {ms:.3f} ms, {g_ms:.4f} by graph replay "
+          f"({bd['bound_ms'] / g_ms:.3f} of the bound {bd['bound_ms']:.4f} ms, "
+          f"{bd['bound_by']})  plain {plain_ms:.3f} ms; two calls bit-identical: {det}",
+          flush=True)
+    require(norm < MEL_NORM_ERR and db < DB_ABS_ERR and ast < AST_ABS_ERR and det,
+            f"K1 disagrees with its plain version at batch {wave.shape[0]}, hop "
+            f"{cfg.hop_length}")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, graph_ms=g_ms,
+                bound_share=bd["bound_ms"] / g_ms, deterministic=det, **bd)
+
+
+def phase_mel(dev: torch.device, gen: torch.Generator) -> dict:
+    """K1: what it compiled to (``_build_report``: registers, no spill);
+    against its plain version (``_mel_case``) for both mel configs at the
+    serving batch 8, and for the AST config at the training batch 64."""
+    build = _build_report("mel_power")
+    wave = (torch.randn(SERVE_BATCH, CLIP, generator=gen) * 0.3).to(dev)
+    ast = _mel_case(wave, M.MelConfig())   # the slice's config
+    cnn = _mel_case(wave, M.MelConfig(n_fft=1024, hop_length=512, win_length=1024))
+    # the training slice's shape: the whole batch of 64 clips in one launch
+    wave = (torch.randn(TRAIN_BATCH, CLIP, generator=gen) * 0.3).to(dev)
+    train = _mel_case(wave, M.MelConfig())
+    # no single PyTorch call computes a mel power spectrogram
+    return dict(ast, library_ms=None,
+                max_abs_err=max(ast["max_abs_err"], cnn["max_abs_err"], train["max_abs_err"]),
+                deterministic=ast["deterministic"] and cnn["deterministic"]
+                and train["deterministic"],
+                **{f"{k}_batch64": train[k] for k in ("ms", "plain_ms", "graph_ms", "bound_ms",
+                                                      "bound_share")}, **build)
 
 
 def _key_mask(n: int, n_real: int, dev: torch.device) -> torch.Tensor:
@@ -497,20 +527,23 @@ KERNEL_NAMES = {
     "attn_fwd": ("attn_fwd_bf16_kernel", "attn_fwd_f32_kernel"),
     "attn_bwd": ("attn_bwd_dq_bf16_kernel", "attn_bwd_dkv_bf16_kernel",
                  "attn_bwd_dq_f32_kernel", "attn_bwd_dkv_f32_kernel"),
-    "gmm": ("gmm_bf16_wgmma_kernel", "tgmm_bf16_kernel", "gmm_f32_kernel", "tgmm_f32_kernel"),
+    "gmm": ("gmm_bf16_wgmma_kernel", "tgmm_bf16_wgmma_kernel", "tgmm_reduce_kernel",
+            "gmm_f32_kernel", "tgmm_f32_kernel"),
+    "mel_power": ("mel_power_kernel",),
 }
 WGMMA_KERNELS = {"attn_fwd": ("attn_fwd_bf16_kernel",),
                  "attn_bwd": ("attn_bwd_dq_bf16_kernel", "attn_bwd_dkv_bf16_kernel"),
-                 "gmm": ("gmm_bf16_wgmma_kernel",)}
+                 "gmm": ("gmm_bf16_wgmma_kernel", "tgmm_bf16_wgmma_kernel"),
+                 "mel_power": ()}
 
 
 def _kernel_name(mangled: str, lib: str) -> str:
-    """The kernel of ``lib`` that a mangled symbol names, with its bool
-    template argument (``<0>`` / ``<1>``) where it has one."""
+    """The kernel of ``lib`` that a mangled symbol names, with its bool or
+    int template argument (``<0>``, ``<1>``, ``<512>``) where it has one."""
     for k in KERNEL_NAMES[lib]:
         i = mangled.find(f"{len(k)}{k}")
         if i >= 0:
-            m = re.match(r"ILb([01])E", mangled[i + len(str(len(k))) + len(k):])
+            m = re.match(r"IL[bi](\d+)E", mangled[i + len(str(len(k))) + len(k):])
             return k + (f"<{m.group(1)}>" if m else "")
     raise RuntimeError(f"chip_smoke: {mangled} is none of {KERNEL_NAMES[lib]}")
 
@@ -520,7 +553,8 @@ def _build_report(lib: str) -> dict:
     HMMA (mma.sync) instructions in its own SASS function (``cuobjdump
     -sass``), registers and spill-store bytes (``-Xptxas -v``, one of the
     library's build flags). The kernels of ``WGMMA_KERNELS`` must hold
-    HGMMA and no HMMA and spill nothing."""
+    HGMMA and no HMMA and spill nothing; a library without wgmma kernels
+    (K1's) must spill nothing at all."""
     sass = {_kernel_name(f, lib): text for f, text in _kernels.sass_functions(lib).items()}
     counts = {k: dict(hgmma=t.count("HGMMA"), hmma=len(re.findall(r"\bHMMA\b", t)))
               for k, t in sass.items()}
@@ -540,6 +574,8 @@ def _build_report(lib: str) -> dict:
     require(len(wgmma) >= len(WGMMA_KERNELS[lib]) and all(
         counts[k]["hgmma"] > 0 and counts[k]["hmma"] == 0 and spills.get(k) == 0
         for k in wgmma), f"{lib}: wgmma kernels {wgmma}: SASS {counts}, spills {spills}")
+    require(WGMMA_KERNELS[lib] or (spills and not any(spills.values())),
+            f"{lib}: spill store bytes {spills}")
     return dict(sass=counts, registers=regs, spill_store_bytes=spills)
 
 
@@ -850,11 +886,13 @@ def phase_parity(dev: torch.device, seed: int) -> None:
 
 
 def _compare_steps(got, want, what: str, loss_tol: float, tol: float,
-                   required: bool = True) -> tuple[float, float, float]:
+                   required: bool = True, readings: dict | None = None,
+                   key: str = "") -> tuple[float, float, float]:
     """Loss (relative), gradients (momentum buffers) and parameters after the
     update (normalised per parameter) of two one-step runs; a gradient that
     is exactly 0 on the reference side must be exactly 0 on the other.
-    Raises past the bounds when ``required``; returns the three errors."""
+    Raises past the bounds when ``required``; returns the three errors, and
+    first puts the gradients' into ``readings[key]`` when given."""
     e_loss = abs(got[0] - want[0]) / abs(want[0])
     grad_errs = sorted(((norm_err(a, b), name) for a, b, name in zip(got[1], want[1], got[4])
                         if b.abs().max() > 0), reverse=True)
@@ -868,6 +906,8 @@ def _compare_steps(got, want, what: str, loss_tol: float, tol: float,
           f"{worst}), parameters after the update {e_param:.3e}, normalised per parameter (<= "
           f"{tol}); zero gradients the same: {zero_same}"
           f"{'' if required else '  [not a bound: printed only]'}", flush=True)
+    if readings is not None:
+        readings[key] = e_grad
     if required:
         require(e_loss <= loss_tol and e_grad <= tol and zero_same and e_param <= tol,
                 f"step parity {what}")
@@ -1050,6 +1090,8 @@ def phase_gmm(dev: torch.device, gen: torch.Generator, seed: int) -> tuple[dict,
                     plain_ms=r["plain_ms"], library_ms=r["library_ms"], **bd,
                     graph_ms=r["graph_ms"], library_graph_ms=r["library_graph_ms"],
                     bound_share=bd["bound_ms"] / r["graph_ms"],
+                    bound_share_by_product={p: bd["bound_ms"] / v["graph_ms"]
+                                            for p, v in mine.items()},
                     deterministic=all(v["deterministic"] for v in mine.values()),
                     ms_by_product={p: v["ms"] for p, v in mine.items()},
                     graph_ms_by_product={p: v["graph_ms"] for p, v in mine.items()},
@@ -1059,8 +1101,34 @@ def phase_gmm(dev: torch.device, gen: torch.Generator, seed: int) -> tuple[dict,
     return entry("gmm", "gmm1 x @ wi"), entry("tgmm", "tgmm1 x^T dh")
 
 
-def _plain_ops() -> dict:
-    return dict(attention=attn_fast.mha_forward_reference, grouped_matmul=gmm_ops.gmm_reference)
+class _RoundedPlainMha(torch.autograd.Function):
+    """The plain versions of the ``dlsc_tpu_torch::mha`` op, rounding where
+    the TPU kernels round: the forward rounds P to the input type before
+    P·V (``mha_forward_reference(round_p=True)``), the backward P and dS
+    before their products (``mha_backward_reference``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_real):
+        out, lse = attn_fast.mha_forward_reference(q, k, v, n_real, round_p=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.n_real = n_real
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*attn_fast.mha_backward_reference(q, k, v, out, lse, dout.contiguous(),
+                                                  ctx.n_real), None)
+
+
+def _plain_ops(rounded: bool = False) -> dict:
+    """Plain attention and grouped matmul (autograd of plain ops); with
+    ``rounded``, the attention rounds where the TPU kernels round
+    (``_RoundedPlainMha``). The plain grouped products sum in f32 and round
+    their outputs, as the kernels do, either way."""
+    attention = _RoundedPlainMha.apply if rounded else attn_fast.mha_forward_reference
+    return dict(attention=attention, grouped_matmul=gmm_ops.gmm_reference)
 
 
 def phase_moe_slice(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
@@ -1134,10 +1202,53 @@ def phase_moe_slice(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
     return counts
 
 
-def phase_moe_train(dev: torch.device, seed: int, card: str) -> dict:
+class ExpertTokens:
+    """(token, choice) pairs routed to each (block, expert) whose output
+    reaches the loss, counted on the card through the model's ``topk`` hook
+    (``topk``); a forward pre-hook on each block's MoE layer names the block
+    that asks next, so a remat re-forward counts again for its own block.
+    Every real token's output reaches the loss through the later blocks'
+    attention, except in the last block, whose output the head reads only
+    at the CLS row: there only the CLS token counts (an expert that got
+    other tokens of the last block only has no gradient). Counts are only
+    read for "> 0"."""
+
+    def __init__(self, model, n_real: int):
+        self.n_real, self.last, self.block = n_real, len(model.blocks) - 1, 0
+        self.counts = torch.zeros(len(model.blocks), model.config["moe"]["n_experts"],
+                                  dtype=torch.int64, device=next(model.parameters()).device)
+        self.moe_blocks = [i for i, b in enumerate(model.blocks) if hasattr(b, "moe")]
+        self.hooks = [model.blocks[i].moe.register_forward_pre_hook(
+            functools.partial(self._enter, i)) for i in self.moe_blocks]
+
+    def _enter(self, i, *_):
+        self.block = i
+
+    def topk(self, gates: torch.Tensor, k: int):
+        vals, idx = torch.topk(gates, k, dim=-1, sorted=True)
+        rows = 1 if self.block == self.last else self.n_real
+        self.counts[self.block] += torch.bincount(idx[:, :rows].reshape(-1),
+                                                  minlength=self.counts.shape[1])
+        return vals, idx
+
+    def idle(self) -> list[tuple[int, int]]:
+        """The (block, expert) pairs of the MoE blocks that got no counted
+        token; removes the hooks."""
+        for h in self.hooks:
+            h.remove()
+        counts = self.counts.cpu()
+        return [(i, e) for i in self.moe_blocks for e in range(counts.shape[1])
+                if counts[i, e] == 0]
+
+
+def phase_moe_train(dev: torch.device, seed: int, card: str) -> tuple[dict, dict]:
     """AST-MoE training at ``scripts/bench.py --model ast_moe``'s
-    configuration, batch 64."""
-    step, state, ms, wave, labels = bench.build(TRAIN_BATCH, seed, dev, "ast_moe")
+    configuration, batch 64, with the routes counted per (block, expert)
+    (``ExpertTokens``): every parameter must change, and every expert that
+    got a token whose output reaches the loss."""
+    _, state, ms, wave, labels = bench.build(TRAIN_BATCH, seed, dev, "ast_moe")
+    routed = ExpertTokens(state.model, MOE_N_REAL)
+    step = make_train_step(bench.bench_pipeline(), CrossEntropyLoss(), topk=routed.topk)
     before = {k: p.detach().clone() for k, p in state.model.named_parameters()}
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -1151,13 +1262,22 @@ def phase_moe_train(dev: torch.device, seed: int, card: str) -> dict:
     peak_mem = torch.cuda.max_memory_allocated(dev) / 2**30
     named = dict(state.model.named_parameters())
     unchanged = [k for k, p in named.items() if torch.equal(before[k], p)]
-    # every expert of every block: each (E, ...) slice of the expert tensors
+    # every expert of every block that got a token whose output reaches the
+    # loss (ExpertTokens): each (E, ...) slice of the expert tensors; an
+    # expert that got none has no gradient
+    idle = routed.idle()
     experts = [(k, e) for k, p in named.items() if k.split(".")[-1] in ("wi", "bi", "wo", "bo")
-               for e in range(p.shape[0]) if torch.equal(before[k][e], p[e])]
+               for e in range(p.shape[0])
+               if (int(k.split(".")[1]), e) not in idle and torch.equal(before[k][e], p[e])]
     del before
+    print(f"AST-MoE routes over {n} steps (forward and remat re-forward; the last block's CLS "
+          f"token only): per block, fewest and most pairs an expert got "
+          f"{[(int(c.min()), int(c.max())) for c in routed.counts.cpu()]}; (block, expert) "
+          f"with none: {idle} ({len(idle)})", flush=True)
     prof = bench.profile_steps(step, state, ms, wave, labels)
     rec = bench.record(state.model, TRAIN_BATCH, step_s, losses, peak_mem, prof)
     means = {k: round(v.item(), 4) for k, v in ms.extra_means().items()}
+    rec["experts_without_tokens"] = len(idle)
     dec = rec["decomp"]
     print(f"train: AST-MoE bf16 remat attn_res dropout 0.1, batch {TRAIN_BATCH}, {WARMUP_STEPS} "
           f"warm-up + {TIMED_STEPS} timed steps: {rec['step_ms']:.3f} ms/step, "
@@ -1174,15 +1294,22 @@ def phase_moe_train(dev: torch.device, seed: int, card: str) -> dict:
     require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n, gmm=6 * DEPTH * n,
                               tgmm=2 * DEPTH * n),
             f"AST-MoE launch counts {counts} over {n} steps")
-    return counts
+    return counts, dict(experts_without_tokens=len(idle), idle_experts=idle)
 
 
-def phase_moe_parity(dev: torch.device, seed: int) -> None:
+def phase_moe_parity(dev: torch.device, seed: int, readings: dict | None = None) -> dict:
     """One AST-MoE train step at full width and batch 4, dropout 0.1 with one
-    seed on every side, SGD with momentum (see ``phase_parity``): f32 through
-    the kernels vs f32 plain ops, and bf16 through the kernels (remat
-    attn_res) vs f32 plain ops, each plain run replaying the routes of the
-    run it is compared with."""
+    seed on every side, SGD with momentum (see ``phase_parity``), each plain
+    run replaying the routes of the run it is compared with. Required: f32
+    through the kernels vs f32 plain ops, and bf16 through the kernels (remat
+    attn_res) vs bf16 plain ops (remat attn_res) whose attention rounds where
+    the TPU kernels round (``_RoundedPlainMha``). Printed only: the bf16
+    kernels and the bf16 plain run each against f32 plain ops on the same
+    routes (the second is the bf16 model's own noise), and the bf16 kernels
+    against f32 plain ops on the f32 run's routes. Returns (and fills
+    ``readings`` with, as they are taken) the worst gradient error of each
+    bf16 comparison on the same routes."""
+    readings = {} if readings is None else readings
     pipe = bench.bench_pipeline()
     rng = np.random.default_rng(seed + 2)
     wave = torch.from_numpy((rng.standard_normal((PARITY_BATCH, CLIP)) * 0.3)
@@ -1197,7 +1324,7 @@ def phase_moe_parity(dev: torch.device, seed: int) -> None:
         state = TrainState.create(model, sgd(lr=5e-4, momentum=0.9), None, 25,
                                   gradient_clip_val=1.0)
         step = make_train_step(pipe, CrossEntropyLoss(), topk=topk,
-                               **(_plain_ops() if plain else {}))
+                               **(_plain_ops(rounded=dtype == torch.bfloat16) if plain else {}))
         _reset_launches()
         _, _, loss = step(state, MetricState.create(AST_MOE["num_classes"], dev, MOE_METRICS),
                           wave, labels, draws, dropout_seed)
@@ -1210,21 +1337,31 @@ def phase_moe_parity(dev: torch.device, seed: int) -> None:
     k32 = one_step(torch.float32, False, False, r32.record)
     p32 = one_step(torch.float32, False, True, r32.replay(DEPTH))
     b16 = one_step(torch.bfloat16, True, False, r16.record)
+    # the remat re-forward asks the router again: every recorded call, in order
+    q16 = one_step(torch.bfloat16, True, True, r16.replay(len(r16.routes)))
     p16 = one_step(torch.float32, False, True, r16.replay(DEPTH))
     zero = _counts(k1=1)
     require(k32[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, gmm=4 * DEPTH, tgmm=2 * DEPTH)
             and b16[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, gmm=6 * DEPTH, tgmm=2 * DEPTH)
-            and p32[3] == zero and p16[3] == zero,
-            f"AST-MoE parity launches {k32[3]} {p32[3]} {b16[3]} {p16[3]}")
+            and p32[3] == zero and q16[3] == zero and p16[3] == zero,
+            f"AST-MoE parity launches {k32[3]} {p32[3]} {b16[3]} {q16[3]} {p16[3]}")
     flips = r16.flips(r32, MOE_N_REAL)
-    print(f"AST-MoE step parity: the bf16 run routes {flips[0]} of {flips[1]} real (token, "
-          f"choice) pairs otherwise than the f32 run", flush=True)
-    _compare_steps(k32, p32, "f32 kernels vs f32 plain attention and gmm, same routes "
-                   "(AST-MoE, dropout 0.1", STEP_F32_LOSS, STEP_F32_GRAD)
-    _compare_steps(b16, p16, "bf16 kernels (remat attn_res) vs f32 plain ops, same routes "
-                   "(AST-MoE, dropout 0.1", STEP_BF16_LOSS, STEP_BF16_GRAD)
+    print(f"AST-MoE step parity (seed {seed}): the bf16 run routes {flips[0]} of {flips[1]} real "
+          f"(token, choice) pairs otherwise than the f32 run", flush=True)
+    # the printed-only comparisons first, so that a sweep keeps every reading
+    _compare_steps(b16, p16, "bf16 kernels vs f32 plain ops, same routes (AST-MoE, dropout 0.1",
+                   STEP_BF16_LOSS, STEP_BF16_GRAD, False, readings, "kernels_bf16_vs_plain_f32")
+    _compare_steps(q16, p16, "bf16 plain ops vs f32 plain ops, same routes: the bf16 model's "
+                   "own noise (AST-MoE, dropout 0.1", STEP_BF16_LOSS, STEP_BF16_GRAD, False,
+                   readings, "plain_bf16_vs_plain_f32")
     _compare_steps(b16, p32, "bf16 kernels vs f32 plain ops on the f32 run's own routes "
                    "(AST-MoE, dropout 0.1", STEP_BF16_LOSS, STEP_BF16_GRAD, required=False)
+    _compare_steps(b16, q16, "bf16 kernels vs bf16 plain ops rounding as the TPU kernels do, "
+                   "both remat attn_res, same routes (AST-MoE, dropout 0.1", STEP_BF16_LOSS,
+                   STEP_BF16_GRAD, True, readings, "kernels_bf16_vs_plain_bf16")
+    _compare_steps(k32, p32, "f32 kernels vs f32 plain attention and gmm, same routes "
+                   "(AST-MoE, dropout 0.1", STEP_F32_LOSS, STEP_F32_GRAD)
+    return readings
 
 
 # --- phase 12: kernel K3 ----------------------------------------------------------
@@ -1622,9 +1759,31 @@ def phase_mini(dev: torch.device, seed: int, tmp: Path, card: str) -> tuple[dict
     return serve_counts, counts
 
 
+def moe_parity_sweep(dev: torch.device, seeds: str, card: str) -> None:
+    """Phase 11 at each seed of ``seeds`` ("A-B"), every reading kept: a
+    failing seed is recorded and the sweep goes on; raises at the end if
+    any seed failed."""
+    first, last = (int(x) for x in seeds.split("-"))
+    rows = []
+    for seed in range(first, last + 1):
+        readings, error = {}, None
+        try:
+            phase_moe_parity(dev, seed, readings)
+        except RuntimeError as e:
+            error = str(e)
+        rows.append(dict(seed=seed, passed=error is None, error=error, **readings))
+        torch.cuda.empty_cache()
+    print(json.dumps({"moe_parity_sweep": rows, "card": card}), flush=True)
+    failed = [r["seed"] for r in rows if not r["passed"]]
+    require(not failed, f"phase 11 failed at seeds {failed}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--moe-parity-seeds", default=None, metavar="A-B",
+                    help="run only phase 11 (after the build), once for each seed of A..B, "
+                         "and print its readings by seed; fails if any seed fails")
     args = ap.parse_args()
 
     # phase 0: start-up
@@ -1645,6 +1804,9 @@ def main() -> None:
           f"(nvcc: {', '.join(f'{k} {v:.2f} s' for k, v in _kernels.build_seconds.items())}) "
           f"torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
     peak_tflops(torch.cuda.get_device_name(dev))   # the MFU needs a known card: fail early
+    if args.moe_parity_seeds is not None:
+        moe_parity_sweep(dev, args.moe_parity_seeds, card)
+        return
 
     gen = torch.Generator().manual_seed(args.seed)
     k1 = phase_mel(dev, gen)
@@ -1665,7 +1827,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         moe_serve = phase_moe_slice(dev, args.seed, Path(tmp), card)
     torch.cuda.empty_cache()
-    moe_train = phase_moe_train(dev, args.seed, card)
+    moe_train, _ = phase_moe_train(dev, args.seed, card)
     torch.cuda.empty_cache()
     phase_moe_parity(dev, args.seed)
     torch.cuda.empty_cache()

@@ -54,14 +54,46 @@
 //    is read about once from HBM. Every CTA builds the group table (first
 //    tile, first row of each group) from group_sizes on the card; the host
 //    never reads the sizes, and no grid dimension caps the row tiles.
-// K4b bf16 (tgmm, mma.sync): one block per (column tile, k tile, group)
-// loops over the group's rows in 32-row chunks staged by cp.async, double
-// buffered, and keeps its sums in registers: no atomics, deterministic.
-// Under skewed routing the largest group sets the pace.
+// K4b bf16 (hopper.cuh; the numbers of `_tgmm_plan` in ops/gmm.py), out[g]
+// = lhs[rows of g]^T @ grad[rows of g]: the contraction runs over rows, the
+// outer dimension of both operands, so both are MN-major wgmma operands
+// read through the transpose bit, and the rows of one group are many
+// (~11 000 at the router draw) against a 128 x 128 output tile:
+//  - work split: each group's rows are cut into about equal slices of at
+//    most S rows (S a multiple of 64, chosen on the host from M, K, N, E and
+//    the SM count alone, so that the (group, slice, output tile) units
+//    number about TGMM_UNITS_PER_SM times the SMs; equal slices keep the
+//    units of a group alike, so the CTAs' shares of rows stay near the
+//    mean); a slice never straddles two groups, so there are at most
+//    ceil(M/S) + E slices, and under skewed routing the largest group's
+//    slices spread over every SM instead of setting the pace;
+//  - a unit's product: K4a's ring (5 slots on full/empty mbarriers, 2
+//    consumer warpgroups and a producer warp). Per 64-row stage each
+//    warpgroup reads its 64 lhs columns (one 64 x 64 box: an MN-major A) and
+//    the 128 grad columns (two 64-column panels: an MN-major B, LBO the
+//    panel stride) and runs m64n128k16 with both transpose bits set, f32
+//    accumulators in registers;
+//  - rows that are not the slice's: a TMA box starts at any row but cannot
+//    stop at the slice's end, so in a slice's last stage the consumers zero
+//    the staged rows at or past it in all four boxes (a 128-byte swizzle
+//    keeps each row whole), then fence.proxy.async before the wgmma reads
+//    them; rows past M read as zeros from TMA;
+//  - schedule: persistent, one CTA per SM, each walking the units u =
+//    blockIdx.x, + gridDim.x, ..., ordered by group, slice, then tile, so the
+//    CTAs resident together read the same rows and lhs and grad come from
+//    HBM about once. Every CTA builds the group/slice table from
+//    group_sizes on the card; the host never reads the sizes;
+//  - epilogue: a group with one slice owns its tiles and writes them in bf16
+//    by TMA store into a 3-D (N, K, E) map, so a tile past K never touches
+//    the next expert; a group with several slices writes f32 partial tiles
+//    into the workspace slot of each slice, and a second small kernel sums
+//    each tile's partials in slice order and writes bf16: no atomics, and
+//    reruns are bit-identical. That kernel also writes an empty group's
+//    zeros.
 // A scalar f32 path (64 x 64 tiles, 4 x 4 outputs a thread) serves the
 // tight-tolerance parity checks of both.
 // Operands are contiguous; in bf16, K and N are multiples of 8 (16-byte
-// rows for TMA and cp.async).
+// rows for TMA).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -87,43 +119,16 @@ constexpr int C_BYTES = 64 * GN * 2;     // one consumer warpgroup's output slic
 constexpr int MAX_GROUPS = 256;          // the group table's capacity
 constexpr int GMM_SMEM = 1024 + GSTAGES * (A_BYTES + B_BYTES) + 2 * C_BYTES +
                          2 * GSTAGES * 8 + 2 * (MAX_GROUPS + 1) * 4;
-// K4b bf16
-constexpr int BM = 128, BN = 128, BK = 32;  // block tile
-constexpr int THREADS = 256;                // 8 warps: 2 (rows) x 4 (columns)
-constexpr int PAD = 8;                      // bf16 row padding: ldmatrix without bank conflicts
-constexpr int TILE = BK * (BM + PAD);       // elements of one staged operand tile
-constexpr int FB = 64, FK = 16;             // f32 block tile and depth
-
-static_assert(BK * (BN + PAD) <= TILE, "staged tiles fit their buffers");
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// K4b bf16: the numbers of `_tgmm_plan` (ops/gmm.py); the output tile is
+// K4a's (GM x GN, the rows being lhs columns), a stage 64 rows of the
+// reduction: per warpgroup one 64 x 64 lhs box, and the two grad panels
+constexpr int TR = 64;                         // reduction rows of a stage
+constexpr int TSTAGE_BYTES = 4 * PANEL_BYTES;       // 2 lhs boxes, 2 grad panels
+constexpr int TGMM_SMEM = 1024 + GSTAGES * TSTAGE_BYTES + 2 * C_BYTES + 2 * GSTAGES * 8 +
+                          2 * (MAX_GROUPS + 1) * 4;
+constexpr int TGMM_UNITS_PER_SM = 4;           // the slice length's target (see the top)
+constexpr int PARTIAL = GM * GN;               // floats of one f32 partial tile
+constexpr int FB = 64, FK = 16;                // f32 block tile and depth
 
 // Row tile t of a grid whose row tiles of TM rows never straddle two
 // groups: its group g and its rows [row0, row1). False past the last tile.
@@ -146,79 +151,6 @@ __device__ __forceinline__ bool find_row_tile(const int* __restrict__ sizes, int
   return false;
 }
 
-// One 32-deep tgmm stage: the warp's 64 x 32 sub-tile accumulates A (64 x
-// 32) B (32 x 32), both staged with the reduction index slow: A [BK][BM],
-// B [BK][BN].
-__device__ __forceinline__ void mma_stage(float acc[4][4][4], const bf16* sA, const bf16* sB,
-                                          int wm, int wn, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t a[4][4], b[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m0 = wm * 64 + i * 16;
-      // matrix j = lane / 8: rows kk + (j / 2) * 8 .., columns m0 + (j % 2) * 8
-      ldsm_x4_t(a[i], sA + (kk + (lane & 7) + (lane >> 4) * 8) * (BM + PAD) + m0 +
-                          ((lane >> 3) & 1) * 8);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {  // two n8 tiles per ldmatrix.x4
-      const int n0 = wn * 32 + j * 16;
-      uint32_t r[4];
-      // matrices: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
-      ldsm_x4_t(r, sB + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * (BN + PAD) + n0 +
-                       (lane >> 4) * 8);
-      b[2 * j][0] = r[0];
-      b[2 * j][1] = r[1];
-      b[2 * j + 1][0] = r[2];
-      b[2 * j + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) mma_bf16_16816(acc[i][n], a[i], b[n]);
-  }
-}
-
-// Stage the tgmm operands of the rows [r, r + BK) ∩ [r, r1): A = lhs's
-// columns [i0, i0 + BM), staged [BK][BM]; B = grad's [n0, n0 + BN), [BK][BN].
-__device__ __forceinline__ void load_tgmm_stage(bf16* sA, bf16* sB, const bf16* lhs,
-                                                const bf16* grad, int r, int r1, int i0, int n0,
-                                                int K, int N, int tid) {
-#pragma unroll
-  for (int c = tid; c < BK * BM / 8; c += THREADS) {
-    const int rr = c / (BM / 8), col = (c % (BM / 8)) * 8;
-    const bool ok = r + rr < r1 && i0 + col < K;
-    cp_async16(sA + rr * (BM + PAD) + col, ok ? lhs + (size_t)(r + rr) * K + i0 + col : lhs, ok);
-  }
-#pragma unroll
-  for (int c = tid; c < BK * BN / 8; c += THREADS) {
-    const int rr = c / (BN / 8), col = (c % (BN / 8)) * 8;
-    const bool ok = r + rr < r1 && n0 + col < N;
-    cp_async16(sB + rr * (BN + PAD) + col, ok ? grad + (size_t)(r + rr) * N + n0 + col : grad,
-               ok);
-  }
-}
-
-// The warp's accumulators to out rows [.., row_end) and columns < N, bf16.
-__device__ __forceinline__ void store_tile(float acc[4][4][4], bf16* out, int row_base,
-                                           int row_end, int col_base, int N, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int r0 = row_base + i * 16 + g, col = col_base + n * 8 + 2 * t;
-      if (col >= N) continue;
-      if (r0 < row_end)
-        *reinterpret_cast<uint32_t*>(out + (size_t)r0 * N + col) =
-            hopper::pack_bf16(acc[i][n][0], acc[i][n][1]);
-      if (r0 + 8 < row_end)
-        *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + 8) * N + col) =
-            hopper::pack_bf16(acc[i][n][2], acc[i][n][3]);
-    }
-}
-
 // ---- K4a bf16: wgmma on a TMA ring, persistent ----
 
 // The row tile `rt` of the walk: its group g (carried forward, since a CTA
@@ -228,6 +160,23 @@ __device__ __forceinline__ void store_tile(float acc[4][4][4], bf16* out, int ro
 __device__ __forceinline__ int tile_group(const int* tstart, int rt, int g) {
   while (tstart[g + 1] <= rt) ++g;
   return g;
+}
+
+// A consumer warpgroup's 64 x 128 accumulator (m64n128k16 layout) as bf16 in
+// C: two 128-byte-swizzled 64-column panels, conflict-free from that layout.
+// The writes are then fenced for the async proxy (a TMA store reads C next).
+__device__ __forceinline__ void stage_bf16(const float (&acc)[64], uint8_t* C, int warp,
+                                           int lane) {
+  const int ra = warp * 16 + lane / 4, t = lane % 4;  // this thread's rows ra and ra + 8
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    uint8_t* panel = C + (j / 8) * PANEL_BYTES + 4 * t;
+    *reinterpret_cast<uint32_t*>(panel + hopper::sw128(ra, j % 8)) =
+        hopper::pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(panel + hopper::sw128(ra + 8, j % 8)) =
+        hopper::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  hopper::fence_async_smem();
 }
 
 // TRANS_B: rhs (E, N, K), a K-major B; else rhs (E, K, N), an MN-major B.
@@ -298,7 +247,7 @@ gmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_lhs,
   }
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
-  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const int warp = tid / 32, lane = tid % 32;
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
@@ -340,16 +289,7 @@ gmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_lhs,
     uint8_t* C = Cs + wg * C_BYTES;
     if (tid == 0) hopper::bulk_wait_read<0>();  // the last TMA store has read the stage
     hopper::named_barrier(1 + wg, 128);
-    const int ra = warp * 16 + lane / 4;  // this thread's rows ra and ra + 8 of the slice
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      uint8_t* panel = C + (j / 8) * PANEL_BYTES + 4 * t;
-      *reinterpret_cast<uint32_t*>(panel + hopper::sw128(ra, j % 8)) =
-          hopper::pack_bf16(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<uint32_t*>(panel + hopper::sw128(ra + 8, j % 8)) =
-          hopper::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-    hopper::fence_async_smem();
+    stage_bf16(acc, C, warp, lane);
     hopper::named_barrier(1 + wg, 128);
     if (min(lo + 64, M) <= row_end) {
       // every row of the slice below M is this group's: TMA stores, which
@@ -373,44 +313,206 @@ gmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_lhs,
   if (tid == 0) hopper::bulk_wait<0>();  // the stage stays until the last store is done
 }
 
-// ---- K4b bf16 ----
+// ---- K4b bf16: wgmma on a TMA ring over row slices, persistent ----
 
-__global__ void __launch_bounds__(THREADS)
-tgmm_bf16_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ grad,
-                 const int* __restrict__ sizes, bf16* __restrict__ out, int K, int N) {
-  __shared__ __align__(16) bf16 sA[2][TILE];
-  __shared__ __align__(16) bf16 sB[2][TILE];
-  const int g = blockIdx.z, n0 = blockIdx.x * BN, i0 = blockIdx.y * BM;
-  int r0 = 0;
-  for (int e = 0; e < g; ++e) r0 += sizes[e];
-  const int r1 = r0 + sizes[g];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wm = warp >> 2, wn = warp & 3;
+// The slice `sl` of the walk: its group g (carried forward, since a CTA
+// visits slices in increasing order) and its rows [r0, r1). sstart[e]: the
+// first slice of group e (sstart[E] = all slices); rstart[e]: its first row.
+// An empty group has sstart[e] == sstart[e + 1] and is stepped over. A
+// group of s rows has n = ceil(s / S) slices of L = ceil(s / n) rounded up
+// to the 64-row stage (so the slices of a group are about equal, and there
+// are still n of them: (n - 1) L <= (n - 1) S < s), the last one shorter.
+__device__ __forceinline__ int slice_rows(const int* sstart, const int* rstart, int sl, int S,
+                                          int& g, int& r1) {
+  while (sstart[g + 1] <= sl) ++g;
+  const int s = rstart[g + 1] - rstart[g], n = sstart[g + 1] - sstart[g];
+  const int L = ((s + n - 1) / n + TR - 1) / TR * TR;
+  const int r0 = rstart[g] + (sl - sstart[g]) * L;
+  r1 = min(r0 + L, rstart[g + 1]);
+  return r0;
+}
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
-
-  const int nk = (r1 - r0 + BK - 1) / BK;  // 0 for an empty group: zeros are stored
-  if (nk > 0) {
-    load_tgmm_stage(sA[0], sB[0], lhs, grad, r0, r1, i0, n0, K, N, tid);
-    cp_async_commit();
+// Group table of slices of at most S rows, built by one thread from the
+// sizes on the card: negative sizes read as 0, and rows past M are cut, so
+// there are never more than ceil(M/S) + E slices (the workspace's slots).
+__device__ __forceinline__ void slice_table(const int* __restrict__ sizes, int M, int E, int S,
+                                            int* sstart, int* rstart) {
+  int slices = 0, rows = 0;
+  for (int e = 0; e < E; ++e) {
+    const int s = min(max(sizes[e], 0), M - rows);
+    sstart[e] = slices;
+    rstart[e] = rows;
+    slices += (s + S - 1) / S;
+    rows += s;
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_tgmm_stage(sA[(kt + 1) & 1], sB[(kt + 1) & 1], lhs, grad, r0 + (kt + 1) * BK, r1, i0,
-                      n0, K, N, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  sstart[E] = slices;
+  rstart[E] = rows;
+}
+
+// lhs (M, K) and grad (M, N) through 2-D maps of 64 x 64 boxes; out (E, K, N)
+// through a 3-D map (N, K, E) of 64 x 64 x 1 boxes; ws: the f32 partial
+// tiles, slot sl * T + tile for slice sl (T tiles a group).
+__global__ void __launch_bounds__(G_THREADS, 1)
+tgmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_lhs,
+                       const __grid_constant__ CUtensorMap tm_grad,
+                       const __grid_constant__ CUtensorMap tm_out,
+                       const int* __restrict__ sizes, float* __restrict__ ws, int M, int K,
+                       int N, int E, int S) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = hopper::align1024(smem_raw);  // GSTAGES x (2 lhs boxes, 2 grad panels)
+  uint8_t* Cs = ring + GSTAGES * TSTAGE_BYTES;   // 2 x (64 x GN), two panels each
+  uint64_t* full = reinterpret_cast<uint64_t*>(Cs + 2 * C_BYTES);
+  uint64_t* empty = full + GSTAGES;
+  int* sstart = reinterpret_cast<int*>(empty + GSTAGES);  // E + 1
+  int* rstart = sstart + MAX_GROUPS + 1;                  // E + 1
+
+  if (threadIdx.x == 0) {
+    slice_table(sizes, M, E, S, sstart, rstart);
+    for (int s = 0; s < GSTAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
     }
-    __syncthreads();
-    mma_stage(acc, sA[kt & 1], sB[kt & 1], wm, wn, lane);
-    __syncthreads();
+    hopper::mbar_fence_init();
   }
-  store_tile(acc, out + (size_t)g * K * N, i0 + wm * 64, K, n0 + wn * 32, N, lane);
+  __syncthreads();
+
+  const int n_tiles = (N + GN - 1) / GN, T = ((K + GM - 1) / GM) * n_tiles;
+  const int total = sstart[E] * T;
+
+  if (threadIdx.x >= G_CONSUMERS) {  // the producer warp: one thread issues every load
+    if (threadIdx.x == G_CONSUMERS) {
+      int it = 0, g = 0, r1;
+      for (int u = blockIdx.x; u < total; u += gridDim.x) {
+        const int r0 = slice_rows(sstart, rstart, u / T, S, g, r1);
+        const int k0 = (u % T) / n_tiles * GM, n0 = (u % T) % n_tiles * GN;
+        const int a_boxes = k0 + 64 < K ? 2 : 1, b_boxes = n0 + 64 < N ? 2 : 1;  // not past K, N
+        const uint32_t bytes = (a_boxes + b_boxes) * PANEL_BYTES;
+        for (int row = r0; row < r1; row += TR, ++it) {
+          const int s = it % GSTAGES;
+          uint8_t* st = ring + s * TSTAGE_BYTES;
+          hopper::mbar_wait(&empty[s], ((it / GSTAGES) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], bytes);
+          for (int a = 0; a < a_boxes; ++a)
+            hopper::tma_load_2d(st + a * PANEL_BYTES, &tm_lhs, &full[s], k0 + 64 * a, row);
+          for (int b = 0; b < b_boxes; ++b)
+            hopper::tma_load_2d(st + (2 + b) * PANEL_BYTES, &tm_grad, &full[s], n0 + 64 * b,
+                                row);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int it = 0, g = 0, r1;
+  for (int u = blockIdx.x; u < total; u += gridDim.x) {
+    const int sl = u / T, tile = u % T;
+    const int r0 = slice_rows(sstart, rstart, sl, S, g, r1);
+    const int k0 = tile / n_tiles * GM, n0 = tile % n_tiles * GN;
+
+    for (int row = r0; row < r1; row += TR, ++it) {
+      const int s = it % GSTAGES;
+      uint8_t* st = ring + s * TSTAGE_BYTES;
+      hopper::mbar_wait(&full[s], (it / GSTAGES) & 1);
+      const int valid = r1 - row;
+      if (valid < TR) {
+        // the slice's last stage: zero the rows at or past its end in the
+        // four boxes (16-byte chunks over both warpgroups; a row is one whole
+        // 128-byte swizzle row), then hand them to the async proxy
+        const int chunks = (TR - valid) * 8;
+        for (int i = threadIdx.x; i < 4 * chunks; i += G_CONSUMERS)
+          *reinterpret_cast<uint4*>(st + (i / chunks) * PANEL_BYTES + valid * 128 +
+                                    (i % chunks) * 16) = make_uint4(0, 0, 0, 0);
+        hopper::fence_async_smem();
+        hopper::named_barrier(3, G_CONSUMERS);
+      }
+      const uint64_t a_desc = hopper::desc_mnmajor(st + wg * PANEL_BYTES);
+      const uint64_t b_desc = hopper::desc_mnmajor_panels(st + 2 * PANEL_BYTES, PANEL_BYTES);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k)  // MN-major both: a step of 16 rows is 128 x 16 bytes on
+        hopper::wgmma_m64n128k16_ss<1, 1>(acc, a_desc + 128 * k, b_desc + 128 * k,
+                                          row > r0 || k > 0);
+      hopper::wgmma_commit();
+      // keep this stage's products in flight; the previous stage's are done,
+      // so its slot goes back to the producer
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(acc);
+      if (row > r0 && tid == 0) hopper::mbar_arrive(&empty[(it - 1) % GSTAGES]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (tid == 0) hopper::mbar_arrive(&empty[(it - 1) % GSTAGES]);
+
+    const int lo = k0 + wg * 64;  // this warpgroup's first output row
+    if (lo >= K) continue;        // its rows are all past K
+    if (sstart[g + 1] - sstart[g] > 1) {
+      // one of several slices: the f32 partial tile into the slice's slot,
+      // 8-byte stores that fill whole 32-byte sectors (4 threads a row)
+      float* part = ws + ((size_t)sl * T + tile) * PARTIAL;
+      const int ra = wg * 64 + warp * 16 + lane / 4, t = lane % 4;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<float2*>(part + ra * GN + 8 * j + 2 * t) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<float2*>(part + (ra + 8) * GN + 8 * j + 2 * t) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      continue;
+    }
+    // the group's only slice: bf16 by TMA store, clipped at K and N
+    uint8_t* C = Cs + wg * C_BYTES;
+    if (tid == 0) hopper::bulk_wait_read<0>();  // the last TMA store has read the stage
+    hopper::named_barrier(1 + wg, 128);
+    stage_bf16(acc, C, warp, lane);
+    hopper::named_barrier(1 + wg, 128);
+    if (tid == 0) {
+      for (int p = 0; p < (n0 + 64 < N ? 2 : 1); ++p)
+        hopper::tma_store_3d(&tm_out, C + p * PANEL_BYTES, n0 + 64 * p, lo, g);
+      hopper::bulk_commit();
+    }
+  }
+  if (tid == 0) hopper::bulk_wait<0>();  // the stage stays until the last store is done
+}
+
+// K4b's second pass: one CTA per 8 rows of an output tile of a group, a
+// thread per 4 columns. A group of several slices: its partial tiles summed
+// in slice order, written in bf16; an empty group: zeros; a group of one
+// slice was written by the first pass.
+constexpr int REDUCE_ROWS = 256 * 4 / GN;  // rows of a tile per CTA
+
+__global__ void __launch_bounds__(256)
+tgmm_reduce_kernel(const float* __restrict__ ws, const int* __restrict__ sizes,
+                   bf16* __restrict__ out, int M, int K, int N, int E, int S) {
+  __shared__ int sstart[MAX_GROUPS + 1], rstart[MAX_GROUPS + 1];
+  if (threadIdx.x == 0) slice_table(sizes, M, E, S, sstart, rstart);
+  __syncthreads();
+  const int n_tiles = (N + GN - 1) / GN, T = ((K + GM - 1) / GM) * n_tiles;
+  const int tile = blockIdx.x / (GM / REDUCE_ROWS), g = blockIdx.y;
+  const int first = sstart[g], count = sstart[g + 1] - first;
+  const int r = blockIdx.x % (GM / REDUCE_ROWS) * REDUCE_ROWS + threadIdx.x / (GN / 4);
+  const int c = threadIdx.x % (GN / 4) * 4;
+  const int k0 = tile / n_tiles * GM, n0 = tile % n_tiles * GN;
+  if (count == 1 || k0 + r >= K || n0 + c >= N) return;
+  const float* part = ws + ((size_t)first * T + tile) * PARTIAL + r * GN + c;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int i = 0; i < count; ++i) {
+    const float4 p = *reinterpret_cast<const float4*>(part + (size_t)i * T * PARTIAL);
+    sum.x += p.x;
+    sum.y += p.y;
+    sum.z += p.z;
+    sum.w += p.w;
+  }
+  uint2 packed;
+  packed.x = hopper::pack_bf16(sum.x, sum.y);
+  packed.y = hopper::pack_bf16(sum.z, sum.w);
+  *reinterpret_cast<uint2*>(out + (size_t)g * K * N + (size_t)(k0 + r) * N + n0 + c) = packed;
 }
 
 // f32, scalar FMA: 64 x 64 output tile, 16 x 16 threads of 4 x 4 outputs.
@@ -572,23 +674,82 @@ extern "C" int dlsc_gmm(const void* lhs, const void* rhs, const int* group_sizes
   return cudaGetLastError();
 }
 
+// The slice length of K4b bf16 (`_tgmm_plan`): the units ((group, slice,
+// output tile); at most ceil(M/S) + E slices of T tiles) number about
+// TGMM_UNITS_PER_SM times the SMs; a multiple of the 64-row stage.
+static int tgmm_slice_rows(int M, int K, int N, int sms) {
+  const long long T = (long long)((K + GM - 1) / GM) * ((N + GN - 1) / GN);
+  const long long want = (M * T + (long long)TGMM_UNITS_PER_SM * sms - 1) /
+                         ((long long)TGMM_UNITS_PER_SM * sms);
+  const long long S = (want + TR - 1) / TR * TR;
+  return (int)(S < TR ? TR : S);
+}
+
 // K4b. lhs (M, K), grad (M, N), group_sizes (E,) int32 on the card; out
-// (E, K, N).
+// (E, K, N). bf16: `grid`, `threads`, `smem`, `stages`, `slice_rows` and
+// `slots` are the wrapper's `_tgmm_plan`, and the launch is refused unless
+// they are this kernel's own (grid: one CTA per SM, at most one per unit);
+// `workspace` holds `slots` x T f32 partial tiles of GM x GN (T the output
+// tiles of a group). Two kernels run: the sliced products, then the sum of
+// the partials of every group of several slices.
 extern "C" int dlsc_tgmm(const void* lhs, const void* grad, const int* group_sizes, void* out,
-                         int M, int K, int N, int E, int dtype, void* stream) {
+                         void* workspace, int M, int K, int N, int E, int dtype, int grid,
+                         int threads, int smem, int stages, int slice_rows, int slots,
+                         void* stream) {
   if (M < 0 || K <= 0 || N <= 0 || E <= 0 || E > 65535 || (dtype == 0 && (K % 8 || N % 8)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, E);
-    tgmm_bf16_kernel<<<grid, THREADS, 0, st>>>(static_cast<const bf16*>(lhs),
-                                               static_cast<const bf16*>(grad), group_sizes,
-                                               static_cast<bf16*>(out), K, N);
+    if (E > MAX_GROUPS) return cudaErrorInvalidValue;
+    int device = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    const int S = tgmm_slice_rows(M, K, N, sms);
+    const int T = ((K + GM - 1) / GM) * ((N + GN - 1) / GN);
+    const int own_slots = (M + S - 1) / S + E;
+    const long long max_units = (long long)own_slots * T;
+    const int ctas = (int)(max_units < sms ? max_units : sms);
+    if (grid != ctas || threads != G_THREADS || smem != TGMM_SMEM || stages != GSTAGES ||
+        slice_rows != S || slots != own_slots)
+      return cudaErrorInvalidConfiguration;
+    float* ws = static_cast<float*>(workspace);
+    if (M > 0) {
+      CUtensorMap tm_lhs, tm_grad, tm_out;
+      const uint32_t box[3] = {64, 64, 1};
+      const uint64_t a_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+      const uint64_t a_strides[1] = {static_cast<uint64_t>(K) * 2};
+      err = hopper::make_tensor_map(&tm_lhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, lhs, a_dims,
+                                    a_strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+      if (err != cudaSuccess) return err;
+      const uint64_t b_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(M)};
+      const uint64_t b_strides[1] = {static_cast<uint64_t>(N) * 2};
+      err = hopper::make_tensor_map(&tm_grad, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, grad, b_dims,
+                                    b_strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+      if (err != cudaSuccess) return err;
+      const uint64_t c_dims[3] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K),
+                                  static_cast<uint64_t>(E)};
+      const uint64_t c_strides[2] = {static_cast<uint64_t>(N) * 2,
+                                     static_cast<uint64_t>(N) * K * 2};
+      err = hopper::make_tensor_map(&tm_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, out, c_dims,
+                                    c_strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+      if (err != cudaSuccess) return err;
+      err = cudaFuncSetAttribute(tgmm_bf16_wgmma_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, TGMM_SMEM);
+      if (err != cudaSuccess) return err;
+      tgmm_bf16_wgmma_kernel<<<ctas, G_THREADS, TGMM_SMEM, st>>>(tm_lhs, tm_grad, tm_out,
+                                                                 group_sizes, ws, M, K, N, E, S);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    tgmm_reduce_kernel<<<dim3(T * (GM / REDUCE_ROWS), E), 256, 0, st>>>(
+        ws, group_sizes, static_cast<bf16*>(out), M, K, N, E, S);
   } else if (dtype == 1) {
-    const dim3 grid((N + FB - 1) / FB, (K + FB - 1) / FB, E);
-    tgmm_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(lhs),
-                                          static_cast<const float*>(grad), group_sizes,
-                                          static_cast<float*>(out), K, N);
+    const dim3 grid32((N + FB - 1) / FB, (K + FB - 1) / FB, E);
+    tgmm_f32_kernel<<<grid32, 256, 0, st>>>(static_cast<const float*>(lhs),
+                                            static_cast<const float*>(grad), group_sizes,
+                                            static_cast<float*>(out), K, N);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -12,13 +12,14 @@
 //    at the tile, SBO 1024 bytes (the next 8 rows); the k-th step of 16
 //    elements starts 32 bytes further (`desc + 2 * k`, in 16-byte units),
 //    the hardware applying the swizzle to the address it forms;
-//  - MN-major (the depth runs down the rows, the transpose bit set): the
-//    64-wide output dimension is the one 128-byte row, and the k-th step of
-//    16 rows starts 16 * 128 bytes further (`desc + 128 * k`); the two 8-row
-//    groups of a step are SBO = 1024 bytes apart. LBO is the stride between
-//    64-element panels of the output dimension: unused at width 64 (set to
-//    the same 1024), the panel's bytes for a wider product whose operand is
-//    stored as consecutive 64-column panels (`desc_mnmajor_panels`).
+//  - MN-major (the depth runs down the rows, the transpose bit set; an A or
+//    a B operand): the 64-wide output dimension is the one 128-byte row,
+//    and the k-th step of 16 rows starts 16 * 128 bytes further (`desc +
+//    128 * k`); the two 8-row groups of a step are SBO = 1024 bytes apart.
+//    LBO is the stride between 64-element panels of the output dimension:
+//    unused at width 64 (set to the same 1024), the panel's bytes for a
+//    wider product whose operand is stored as consecutive 64-column panels
+//    (`desc_mnmajor_panels`).
 // Accumulator layout of m64nNk16 (f32, N / 2 registers a thread): warp w of
 // the warpgroup owns rows 16 w .. 16 w + 15; lane (g = lane / 4, t = lane %
 // 4) holds d[4 j + e] at row 16 w + g + 8 (e >= 2), column 8 j + 2 t + (e & 1).
@@ -116,6 +117,14 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {

@@ -91,12 +91,23 @@ def _check_kernel_operands(what: str, q: torch.Tensor, *others: torch.Tensor) ->
 
 
 def mha_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          n_real: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain attention in f32: (out in q's dtype, lse f32)."""
+                          n_real: int, round_p: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain attention in f32: (out in q's dtype, lse f32).
+
+    ``round_p`` rounds where the TPU forward rounds (``dlsc_tpu/ops/
+    attn_fast.py:147-154``): P = exp(S - max) is cast to q's dtype before
+    P·V, and the f32 product is divided by the f32 row sum of the unrounded
+    P. Off (the default), P is normalised in f32 and never rounded."""
     N = q.shape[-2]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if n_real < N:
         s = s.masked_fill(torch.arange(N, device=q.device) >= n_real, float("-inf"))
+    if round_p:
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        out = torch.matmul(p.to(q.dtype).float(), v.float()) / l
+        return out.to(q.dtype), (m + torch.log(l))[..., 0]
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     return torch.matmul(p, v.float()).to(q.dtype), lse

@@ -13,7 +13,11 @@ moves it to the host.
   ``_gmm_plan`` is its launch, ``_row_tiles`` and ``_tile_walk`` mirror the
   tiles it computes and the order in which its CTAs visit them.
 - ``tgmm`` (K4b): out[g] = lhs[rows of g]^T @ grad[rows of g], (E, k, n);
-  an empty group gives zeros.
+  an empty group gives zeros. In bf16 a persistent wgmma kernel over row
+  slices of at most ``slice_rows`` rows, then a kernel that sums the f32
+  partial tiles of each group of several slices in slice order:
+  ``_tgmm_plan`` is the launch, ``_slices`` and ``_tile_walk`` mirror the
+  slices and the units' order, ``_tgmm_sliced`` the arithmetic.
 
 Both launch their kernel for CUDA tensors (bf16 or f32) and run their plain
 version, ``gmm_reference`` / ``tgmm_reference``, for CPU tensors; they never
@@ -41,6 +45,9 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 GMM_TILE_M, GMM_TILE_N, GMM_TILE_K, GMM_STAGES, GMM_THREADS = 128, 128, 64, 5, 288
 GMM_MAX_GROUPS = 256
 SMEM_LIMIT = 232_448
+# K4b bf16: units ((group, slice, output tile)) aimed at per SM, which sets
+# the slice length; a stage's rows; the output rows of a summing CTA
+TGMM_UNITS_PER_SM, TGMM_STAGE_ROWS, TGMM_REDUCE_ROWS = 4, 64, 8
 
 launches = 0        # K4a gmm launches since the last reset (see reset_launches)
 tgmm_launches = 0   # K4b tgmm launches
@@ -57,7 +64,7 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dlsc_gmm.argtypes = [p, p, p, p] + [i] * 10 + [p]
     lib.dlsc_gmm.restype = i
-    lib.dlsc_tgmm.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.dlsc_tgmm.argtypes = [p, p, p, p, p] + [i] * 11 + [p]
     lib.dlsc_tgmm.restype = i
     return lib
 
@@ -114,6 +121,73 @@ def _tile_walk(n_row_tiles: int, col_tiles: int, grid: int) -> list[list[tuple[i
     n_row_tiles x col_tiles (row tile, column tile) pairs, columns fastest."""
     total = n_row_tiles * col_tiles
     return [[divmod(t, col_tiles) for t in range(b, total, grid)] for b in range(grid)]
+
+
+def _tgmm_plan(M: int, K: int, N: int, E: int, sms: int = 132) -> dict:
+    """The launch of K4b's bf16 kernels (``csrc/gmm.cu`` computes the same by
+    the same formulas and refuses a launch whose numbers differ). Each
+    group's rows are cut into slices of at most ``slice_rows`` (a multiple
+    of the 64-row stage, from M, K, N and the SM count only: the units,
+    (group, slice, output tile) with ``tiles`` 128 x 128 tiles a group,
+    number about ``TGMM_UNITS_PER_SM`` times the SMs); there are at most
+    ``slots`` = ceil(M / slice_rows) + E slices. A persistent grid of one
+    CTA per SM, never more than the units there can be; ``workspace``: the
+    f32 floats of every slice's partial tiles; ``reduce_grid``: the second
+    kernel's CTAs, one per 8 rows of a tile of a group. ``smem`` is K4a's:
+    the ring (per stage two 64 x 64 lhs boxes and two grad panels), the
+    staged output tile, the mbarriers and the group table."""
+    k_tiles, n_tiles = -(-K // GMM_TILE_M), -(-N // GMM_TILE_N)
+    tiles = k_tiles * n_tiles
+    want = -(-M * tiles // (TGMM_UNITS_PER_SM * sms))
+    slice_rows = max(TGMM_STAGE_ROWS, -(-want // TGMM_STAGE_ROWS) * TGMM_STAGE_ROWS)
+    slots = -(-M // slice_rows) + E
+    return dict(
+        grid=min(sms, slots * tiles),
+        threads=GMM_THREADS,
+        stages=GMM_STAGES,
+        smem=_gmm_plan(M, K, N, E, False, sms)["smem"],
+        slice_rows=slice_rows,
+        slots=slots,
+        k_tiles=k_tiles,
+        n_tiles=n_tiles,
+        tiles=tiles,
+        max_units=slots * tiles,
+        workspace=slots * tiles * GMM_TILE_M * GMM_TILE_N,
+        reduce_grid=(tiles * GMM_TILE_M // TGMM_REDUCE_ROWS, E),
+    )
+
+
+def _slices(sizes, slice_rows: int, M: int | None = None) -> list[tuple[int, int, int]]:
+    """K4b's row slices as its bf16 kernel finds them, in its order: (group,
+    first row, end row), each within one group; a group of s rows has n =
+    ceil(s / slice_rows) slices of ceil(s / n) rows rounded up to the
+    64-row stage, the last one shorter. Negative sizes read as 0 and rows
+    past ``M`` (default: the sizes' sum) are cut, as the kernel's group
+    table does."""
+    M = sum(max(int(s), 0) for s in sizes) if M is None else M
+    out, start = [], 0
+    for g, size in enumerate(sizes):
+        size = min(max(int(size), 0), M - start)
+        if size:
+            per = -(-size // -(-size // slice_rows))   # ceil(size / n), n slices
+            length = -(-per // TGMM_STAGE_ROWS) * TGMM_STAGE_ROWS
+            out += [(g, r, min(r + length, start + size))
+                    for r in range(start, start + size, length)]
+        start += size
+    return out
+
+
+def _tgmm_sliced(lhs: torch.Tensor, grad: torch.Tensor, group_sizes: torch.Tensor,
+                 slice_rows: int) -> torch.Tensor:
+    """K4b bf16's arithmetic in torch: each group's slices' f32 partial
+    products added in slice order from zero (a group of one slice: its
+    product; an empty group: zeros), the result in lhs's dtype. (Inside a
+    slice the kernel's order over rows is its own.)"""
+    out = lhs.new_zeros((group_sizes.shape[0], lhs.shape[1], grad.shape[1]),
+                        dtype=torch.float32)
+    for g, r0, r1 in _slices(group_sizes.tolist(), slice_rows, lhs.shape[0]):
+        out[g] += lhs[r0:r1].float().T @ grad[r0:r1].float()
+    return out.to(lhs.dtype)
 
 
 def _check_sizes(what: str, lhs: torch.Tensor, group_sizes: torch.Tensor,
@@ -223,7 +297,10 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
 
 def tgmm(lhs: torch.Tensor, grad: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """Per-group transposed product (M, k), (M, n) → (E, k, n) (see the module
-    docstring). CUDA tensors: kernel K4b. CPU tensors: ``tgmm_reference``."""
+    docstring). CUDA tensors: kernel K4b (bf16: launched as ``_tgmm_plan``
+    says, at most ``GMM_MAX_GROUPS`` groups, with an f32 workspace from the
+    caching allocator; one launch counted for its two kernels). CPU
+    tensors: ``tgmm_reference``."""
     _check_sizes("tgmm", lhs, group_sizes)
     if grad.ndim != 2 or grad.shape[0] != lhs.shape[0]:
         raise ValueError(f"tgmm: lhs {tuple(lhs.shape)} and grad {tuple(grad.shape)} "
@@ -235,10 +312,22 @@ def tgmm(lhs: torch.Tensor, grad: torch.Tensor, group_sizes: torch.Tensor) -> to
     group_sizes = group_sizes.contiguous()
     (M, k), n, E = lhs.shape, grad.shape[1], group_sizes.shape[0]
     out = torch.empty((E, k, n), dtype=lhs.dtype, device=lhs.device)
+    launch, workspace = (0,) * 6, None   # the f32 kernel's grid is its own
+    if lhs.dtype == torch.bfloat16:
+        if E > GMM_MAX_GROUPS:
+            raise ValueError(f"tgmm: {E} groups, the kernel's table holds {GMM_MAX_GROUPS}")
+        sms = torch.cuda.get_device_properties(lhs.device).multi_processor_count
+        plan = _tgmm_plan(M, k, n, E, sms)
+        if plan["smem"] > SMEM_LIMIT:
+            raise ValueError(f"tgmm: shared memory {plan['smem']} over {SMEM_LIMIT}")
+        launch = (plan["grid"], plan["threads"], plan["smem"], plan["stages"],
+                  plan["slice_rows"], plan["slots"])
+        workspace = torch.empty(plan["workspace"], dtype=torch.float32, device=lhs.device)
     lib = _lib()
     with torch.cuda.device(lhs.device):
         err = lib.dlsc_tgmm(lhs.data_ptr(), grad.data_ptr(), group_sizes.data_ptr(),
-                            out.data_ptr(), M, k, n, E, _DTYPES[lhs.dtype],
+                            out.data_ptr(), 0 if workspace is None else workspace.data_ptr(),
+                            M, k, n, E, _DTYPES[lhs.dtype], *launch,
                             torch.cuda.current_stream().cuda_stream)
     _kernels.check(lib, err, "grouped transposed matmul kernel")
     global tgmm_launches

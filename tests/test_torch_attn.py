@@ -47,6 +47,28 @@ def test_lse_matches_numpy_logsumexp(n_real):
     np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n_real", [N, 200])
+def test_round_p_matches_pallas_kernel_bf16(n_real):
+    """``round_p`` rounds P to bf16 before P·V where the TPU forward does
+    (``p.astype(dtype)``, ``dlsc_tpu/ops/attn_fast.py:151``): against the
+    Pallas kernel in bf16 (interpret mode) on the same bf16 inputs, within
+    one bf16 rounding of the output (2^-8 of its max |value|); the default
+    path is untouched by the keyword."""
+    q, k, v = (torch.from_numpy(t).to(torch.bfloat16) for t in _qkv(seed=3))
+    kernel = make_fast_mha(H, N, DH, n_real, 128, 128, 128, "bfloat16", interpret=True)
+    want = np.asarray(kernel(*(jnp.asarray(t[0].float().numpy(), jnp.bfloat16)
+                               for t in (q, k, v))).astype(jnp.float32))
+    got, _ = A.mha_forward_reference(q, k, v, n_real, round_p=True)
+    err = np.abs(got[0, :, :n_real].float().numpy() - want[:, :n_real]).max()
+    assert err <= 2.0**-8 * np.abs(want[:, :n_real]).max()
+    plain, plain_lse = A.mha_forward_reference(q, k, v, n_real)
+    again, again_lse = A.mha_forward_reference(q, k, v, n_real, round_p=False)
+    assert torch.equal(plain, again) and torch.equal(plain_lse, again_lse)
+    rounded_lse = A.mha_forward_reference(q.float(), k.float(), v.float(), n_real,
+                                          round_p=True)[1]
+    np.testing.assert_allclose(rounded_lse.numpy(), plain_lse.numpy(), rtol=1e-5, atol=1e-5)
+
+
 def test_cpu_tensor_takes_plain_path():
     A.reset_launches()
     q, k, v = (torch.from_numpy(t) for t in _qkv(seed=2, b=2))

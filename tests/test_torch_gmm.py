@@ -59,6 +59,25 @@ def test_tgmm_matches_megablox(sizes):
             assert (got[g] == 0).all()
 
 
+@pytest.mark.parametrize("slice_rows", [64, 128])
+@pytest.mark.parametrize("sizes", SIZES + [(0, 300, 1, 131, 0)])
+def test_tgmm_sliced_sum_matches_megablox(sizes, slice_rows):
+    """K4b bf16's arithmetic (``_tgmm_sliced``: each group's rows cut into
+    slices, f32 partial products added in slice order) against megablox
+    ``tgmm`` in interpret mode and ``tgmm_reference``, in f32 (1e-5:
+    summation order only), with groups of one slice, of several and empty."""
+    lhs, _, grad, gs = _inputs(sizes, seed=3)
+    want = megablox_tgmm(jnp.asarray(lhs).swapaxes(0, 1), jnp.asarray(grad), jnp.asarray(gs),
+                         jnp.float32, TILING, None, None, None, True)
+    got = G._tgmm_sliced(torch.from_numpy(lhs), torch.from_numpy(grad), torch.from_numpy(gs),
+                         slice_rows)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    ref = G.tgmm_reference(*(torch.from_numpy(t) for t in (lhs, grad, gs)))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+    assert any(r1 - r0 < sizes[g] for g, r0, r1 in G._slices(sizes, slice_rows)) == (
+        max(sizes) > slice_rows)
+
+
 def test_grouped_matmul_vjp_matches_megablox():
     """dlhs and drhs of the custom op against ``jax.vjp`` of megablox gmm
     (its custom VJP: gmm with the transposed rhs, and tgmm)."""

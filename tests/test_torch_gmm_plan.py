@@ -1,10 +1,17 @@
-"""The bf16 grouped-matmul kernel's tile walk (``dlsc_tpu_torch/csrc/gmm.cu``),
-which no CPU run can execute, held to its contract through its Python
-mirrors ``_row_tiles``, ``_gmm_plan`` and ``_tile_walk`` under hypothesis,
-over group sizes with empty groups, one-row groups and one group holding
-every row: the row tiles partition [0, M) without straddling a group, there
-are at most ceil(M/128) + E of them, and the persistent walk visits each
-(row tile, column tile) pair once, whatever the SM count."""
+"""The bf16 grouped-matmul kernels' walks (``dlsc_tpu_torch/csrc/gmm.cu``),
+which no CPU run can execute, held to their contracts through their Python
+mirrors under hypothesis, over group sizes with empty groups, one-row groups
+and one group holding every row:
+
+- K4a (``_row_tiles``, ``_gmm_plan``, ``_tile_walk``): the row tiles
+  partition [0, M) without straddling a group, there are at most
+  ceil(M/128) + E of them, and the persistent walk visits each (row tile,
+  column tile) pair once, whatever the SM count;
+- K4b (``_tgmm_plan``, ``_slices``, ``_tile_walk``): the slices partition
+  [0, M) without straddling a group, none longer than the plan's slice
+  length, no more of them than the workspace's slots, and the walk of the
+  (slice, output tile) units covers every (group, row, output tile) once.
+"""
 
 import numpy as np
 import pytest
@@ -59,3 +66,50 @@ def test_persistent_walk_covers_each_tile_once(sizes, n, sms, transpose_rhs):
     assert sorted(seen) == [(r, c) for r in range(row_tiles) for c in range(plan["col_tiles"])]
     for cta in walk:   # a CTA's row tiles never go back: the kernel carries the group forward
         assert [r for r, _ in cta] == sorted(r for r, _ in cta)
+
+
+@settings(max_examples=300, deadline=None)
+@given(_sizes, st.sampled_from([(384, 1536), (1536, 384), (40, 136), (8, 8)]),
+       st.integers(1, 200))
+def test_tgmm_walk_covers_each_group_row_and_tile_once(sizes, kn, sms):
+    k, n = kn
+    M, E = sum(sizes), len(sizes)
+    plan = G._tgmm_plan(M, k, n, E, sms)
+    S = plan["slice_rows"]
+    assert S % 64 == 0 and S >= 64
+    assert plan["tiles"] == -(-k // 128) * -(-n // 128) == plan["k_tiles"] * plan["n_tiles"]
+    slices = G._slices(sizes, S)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    for g, r0, r1 in slices:
+        assert 0 < r1 - r0 <= S
+        assert starts[g] <= r0 < r1 <= starts[g + 1]   # inside one group, never straddling
+    assert len(slices) <= plan["slots"] == -(-M // S) + E
+    assert plan["workspace"] == plan["slots"] * plan["tiles"] * 128 * 128
+    assert plan["reduce_grid"] == (plan["tiles"] * 128 // 8, E)   # 8 output rows a CTA
+    assert 1 <= plan["grid"] <= min(sms, plan["max_units"])
+    assert plan["max_units"] >= len(slices) * plan["tiles"]
+    walk = G._tile_walk(len(slices), plan["tiles"], plan["grid"])
+    seen = sorted((slices[s][0], row, tile) for cta in walk for s, tile in cta
+                  for row in range(slices[s][1], slices[s][2]))
+    assert seen == sorted((g, row, tile) for g in range(E)
+                          for row in range(starts[g], starts[g + 1])
+                          for tile in range(plan["tiles"]))
+    for cta in walk:   # a CTA's slices never go back: the kernel carries the group forward
+        assert [s for s, _ in cta] == sorted(s for s, _ in cta)
+
+
+@pytest.mark.parametrize("sizes", [(0, 5, 0), (0, 0, 700), (700, 0, 0), (700,), (0,), (64, 64)])
+def test_tgmm_slices_at_the_edges(sizes):
+    """Empty first and last groups, one group, no rows at all: the slices
+    are the nonempty groups' rows, cut at the slice length; rows past M (a
+    size sum above M) are cut as the kernel cuts them."""
+    M = sum(sizes)
+    plan = G._tgmm_plan(M, 384, 1536, len(sizes), 132)
+    S = plan["slice_rows"]
+    slices = G._slices(sizes, S)
+    assert {g for g, _, _ in slices} == {g for g, s in enumerate(sizes) if s}
+    assert sum(r1 - r0 for _, r0, r1 in slices) == M
+    assert [r0 for _, r0, _ in slices] == sorted(r0 for _, r0, _ in slices)
+    assert plan["grid"] >= 1 and len(slices) <= plan["slots"]
+    if M:
+        assert sum(r1 - r0 for _, r0, r1 in G._slices(sizes, S, M - 1)) == M - 1

@@ -13,8 +13,10 @@ bf16 2e-2 normalised by the max |gradient| (the same reasons; the plain
 version rounds P and dS where the kernel does), and two bf16 K2b calls
 bit-identical; the small AST model in f32 through the kernels vs plain ops
 1e-4 on its sigmoid outputs, and one f32 train step 1e-4 on the loss
-(relative) and on each parameter's gradient (normalised); K4a/K4b f32 1e-5 normalised (summation order only), bf16
-1e-2 (bf16 output rounding, f32 sums on both sides); K3f/K3b: r exact
+(relative) and on each parameter's gradient (normalised); K4a/K4b f32 1e-5
+normalised (summation order only), bf16 1e-2 (bf16 output rounding, f32
+sums on both sides), two bf16 K4b calls bit-identical; K1 also at n_fft 256,
+512 and 2048, and two calls bit-identical; K3f/K3b: r exact
 in both types (both round one f32 sum), y, dx, dgamma and dbeta 1e-5
 normalised in f32 (summation order only) and 1e-2 in bf16 (the outputs
 stored in bf16); the small AST-Small train step with ``ln_fused`` through
@@ -73,6 +75,50 @@ def test_mel_kernel_matches_plain(hop, win, n, cuda_device):
     want = M.mel_spectrogram(w, cfg)
     assert got.shape == want.shape
     assert _norm_err(got, want) < 1e-4
+
+
+def _wave(b, n, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal((b, n)) * 0.3).astype(np.float32)).to(device)
+
+
+# n_fft 256 .. 2048 (the last radix 2, 4, 8, 2), a window shorter than n_fft
+# and one as long
+_FFT_CONFIGS = [M.MelConfig(n_fft=256, hop_length=80, win_length=200),
+                M.MelConfig(n_fft=512, hop_length=160, win_length=400),
+                M.MelConfig(),
+                M.MelConfig(n_fft=2048, hop_length=512, win_length=2048)]
+
+
+@pytest.mark.parametrize("cfg", _FFT_CONFIGS, ids=lambda c: f"n_fft{c.n_fft}")
+@pytest.mark.parametrize("b,n", [(1, 44_100), (2, None)], ids=["batch1", "just_past_half"])
+def test_mel_kernel_at_every_fft_size(cfg, b, n, cuda_device):
+    """K1 at every n_fft it takes, at batch 1 and at a clip one sample past
+    n_fft/2 (the shortest the reflect padding allows), against its plain
+    version (normalised < 1e-4)."""
+    w = _wave(b, cfg.n_fft // 2 + 1 if n is None else n, cfg.n_fft + b, cuda_device)
+    got = MK.mel_power(w, cfg)
+    want = M.mel_spectrogram(w, cfg)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert _norm_err(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("cfg", [_FFT_CONFIGS[2], M.MelConfig(hop_length=512, win_length=1024)])
+def test_mel_kernel_is_deterministic(cfg, cuda_device):
+    """Two K1 calls on the same clips give the same bits: each frame is
+    one thread group's, each band summed in bin order."""
+    w = _wave(8, 220_500, 9, cuda_device)
+    assert torch.equal(MK.mel_power(w, cfg), MK.mel_power(w, cfg))
+
+
+def test_mel_kernel_rejects_unsupported(cuda_device):
+    w = _wave(2, 4_000, 0, cuda_device)
+    for cfg in (M.MelConfig(n_fft=1000), M.MelConfig(n_mels=64), M.MelConfig(n_fft=4096)):
+        with pytest.raises(ValueError, match="n_fft"):
+            MK.mel_power(w, cfg)
+    with pytest.raises(ValueError, match="reflect padding"):
+        MK.mel_power(w[:, :512], M.MelConfig())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
@@ -317,14 +363,49 @@ def test_gmm_bf16_at_ast_moe_widths(sizes, k, n, transpose_rhs, cuda_device):
 
 
 def test_gmm_bf16_runs_on_wgmma(cuda_device):
-    """K4a's bf16 kernels (both rhs layouts) hold HGMMA and no HMMA in
-    their SASS; K4b's tgmm, in the same library, is still mma.sync."""
+    """K4a's bf16 kernels (both rhs layouts) and K4b's hold HGMMA and no
+    HMMA in their SASS."""
     functions = _kernels.sass_functions("gmm")
-    k4a = _hgmma_hmma(functions, "gmm_bf16_wgmma")
+    k4a = {f: c for f, c in _hgmma_hmma(functions, "gmm_bf16_wgmma").items() if "tgmm" not in f}
     assert len(k4a) == 2
     assert all(hgmma > 0 and hmma == 0 for hgmma, hmma in k4a.values()), k4a
-    k4b = _hgmma_hmma(functions, "tgmm_bf16")
-    assert len(k4b) == 1 and all(hmma > 0 for _, hmma in k4b.values()), k4b
+    k4b = _hgmma_hmma(functions, "tgmm_bf16_wgmma")
+    assert len(k4b) == 1
+    assert all(hgmma > 0 and hmma == 0 for hgmma, hmma in k4b.values()), k4b
+
+
+# K4b at AST-MoE's widths: empty first and last groups, groups of fewer than
+# 64 rows, M 947 (no multiple of 64); one group; one group over many slices;
+# the skewed sizes of chip_smoke.py (88 192 rows, one expert with half)
+_TGMM_SIZES = [(0, 300, 1, 517, 129, 0), (947,), (0, 20_000, 0, 37),
+               (45_001, 0, 12_345, 9_999, 7_777, 6_543, 4_321, 2_206)]
+
+
+@pytest.mark.parametrize("sizes", _TGMM_SIZES, ids=["ragged", "one", "many_slices", "skewed"])
+@pytest.mark.parametrize("k,n", [(384, 1536), (1536, 384)])
+def test_tgmm_bf16_at_ast_moe_widths(sizes, k, n, cuda_device):
+    """K4b bf16 against its plain version (1e-2 normalised), one launch
+    counted for its two kernels, an empty group exactly 0, two calls the
+    same bits; the plan's slices (some groups span several) as the sizes
+    say."""
+    lhs, _, gs = _gmm_inputs(sizes, k, 8, torch.bfloat16, cuda_device, k + len(sizes))
+    grad = _gmm_inputs(sizes, n, 8, torch.bfloat16, cuda_device, n)[0]
+    before = G.tgmm_launches
+    got = G.tgmm(lhs, grad, gs)
+    again = G.tgmm(lhs, grad, gs)
+    torch.cuda.synchronize()
+    assert G.tgmm_launches == before + 2
+    want = G.tgmm_reference(lhs, grad, gs)
+    assert got.shape == want.shape == (len(sizes), k, n)
+    assert torch.isfinite(got).all()
+    assert _norm_err(got.float(), want.float()) <= 1e-2
+    assert torch.equal(got, again)
+    for g, size in enumerate(sizes):
+        if size == 0:
+            assert (got[g] == 0).all()
+    plan = G._tgmm_plan(sum(sizes), k, n, len(sizes),
+                        torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    assert len(G._slices(sizes, plan["slice_rows"])) <= plan["slots"]
 
 
 def test_grouped_matmul_gradient_matches_autograd_of_plain(cuda_device):

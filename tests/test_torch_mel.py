@@ -7,8 +7,13 @@ Pallas kernel in interpret mode) and through ``dlsc_tpu_torch.ops.mel`` /
 - plain port vs plain JAX: both f32 rfft; normalised mel error < 1e-5, dB
   max-abs < 1e-3, AST features max-abs < 1e-4;
 - port vs the Pallas kernel: the bars of tests/test_mel_pallas.py
-  (normalised < 1e-4, dB < 1e-2, AST features < 1e-3).
+  (normalised < 1e-4, dB < 1e-2, AST features < 1e-3);
+- K1's arithmetic (``_mirror_mel_power``, a numpy mirror of the CUDA
+  kernel's FFT, split and sparse bands over its own tables) vs the plain mel:
+  normalised < 1e-5; vs the Pallas kernel: < 1e-4.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -78,27 +83,131 @@ def test_plain_mel_matches_pallas_kernel(name):
     assert np.abs(got_ast - np.asarray(JM.ast_normalize(jnp.asarray(want_db)))).max() < 1e-3
 
 
+def _mirror_mel_power(wave: np.ndarray, cfg) -> np.ndarray:
+    """K1's arithmetic in numpy (float64 over the kernel's f32 tables): the
+    frames read through the reflect index, only on the window's support;
+    the n_fft/2-point complex Stockham FFT of the sample pairs with the
+    kernel's passes and their twiddle tables; the real-FFT split from the
+    split twiddles; the power of bins 1..n_fft/2; the sparse bands summed in
+    bin order."""
+    c = MK.fft_mel_constants(cfg)
+    nc, hop = cfg.n_fft // 2, cfg.hop_length
+    B, T = wave.shape
+    n_frames = cfg.num_frames(T)
+    tw = c.twiddles[:, 0].astype(np.float64) + 1j * c.twiddles[:, 1]
+    j = np.arange(n_frames)[:, None] * hop + np.arange(c.ws, c.we)[None, :] - nc
+    j = np.where(j < 0, -j, np.where(j >= T, 2 * (T - 1) - j, j))
+    xw = np.zeros((B, n_frames, cfg.n_fft))
+    xw[:, :, c.ws:c.we] = wave[:, j].astype(np.float64) * c.window
+    z = xw[..., 0::2] + 1j * xw[..., 1::2]
+    ns, offsets = 1, {ns: off for _, ns, off in MK._pass_twiddles(nc)}
+    for R in MK._fft_passes(nc):
+        jj = np.arange(nc // R)
+        k = jj % ns
+        v = np.stack([z[..., jj + r * (nc // R)] for r in range(R)], -1)
+        if ns > 1:   # the pass's own table: e^(-2πi k r / (ns R)) at (r - 1) ns + k
+            v[..., 1:] *= tw[offsets[ns] + (np.arange(1, R)[None, :] - 1) * ns + k[:, None]]
+        v = v @ np.exp(-2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R)
+        out = np.empty_like(z)
+        for r in range(R):
+            out[..., (jj // ns) * ns * R + k + r * ns] = v[..., r]
+        z, ns = out, ns * R
+    k = np.arange(1, nc)   # the split twiddles e^(-2πik/n_fft) lead the table
+    a, b = z[..., k], np.conj(z[..., nc - k])
+    x = (a + b) / 2 + tw[k] * (a - b) / 2j
+    power = np.concatenate([np.abs(x) ** 2, (z[..., :1].real - z[..., :1].imag) ** 2], -1)
+    mel = np.zeros((B, n_frames, cfg.n_mels))
+    for m in range(cfg.n_mels):
+        o0, o1 = c.band_off[m], c.band_off[m + 1]
+        for o in range(o0, o1):   # bin order; power[..., i] is bin i + 1
+            mel[..., m] += c.band_w[o] * power[..., c.band_first[m] + o - o0 - 1]
+    return np.swapaxes(mel, 1, 2)
+
+
+# n_fft 256 .. 2048 beside the two configs of CONFIGS
+_FFT_CONFIGS = [M.MelConfig(n_fft=256, hop_length=80, win_length=200),
+                M.MelConfig(n_fft=512, hop_length=160, win_length=400),
+                M.MelConfig(n_fft=2048, hop_length=512, win_length=2048)]
+
+
+@pytest.mark.parametrize("n", [44_100, 2_000])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_kernel_constants_reproduce_plain_mel(name):
-    """K1's arithmetic on the CPU: the trimmed windowed-DFT rows, the DC-less
-    filterbank and the framing ``chunk[i * hop + lo + n]`` give the plain mel
-    (normalised < 1e-5; f64 here, so only the f32 constants differ)."""
+def test_kernel_constants_reproduce_plain_mel(name, n):
+    """K1's arithmetic on the CPU (``_mirror_mel_power``: the reflect index,
+    the window's support, the FFT and real-FFT split from the twiddle
+    table, the sparse bands) gives the plain mel (normalised < 1e-5; f64
+    here, so only the f32 tables differ), on a 1-s clip and on one shorter
+    than a CTA's 32-frame tile."""
     cfg, _ = CONFIGS[name]
-    lo, cos_w, sin_w, fb = MK.dft_mel_constants(cfg)
-    L = cos_w.shape[0]
+    c = MK.fft_mel_constants(cfg)
     win = M.hann_window_np(cfg.win_length, cfg.n_fft)
-    assert L % 32 == 0 and lo % 32 == 0
-    assert not win[:lo].any() and not win[lo + L:].any()  # only zero rows dropped
-    w = _wave(3)
-    pad = cfg.n_fft // 2
-    padded = np.pad(w.astype(np.float64), ((0, 0), (pad, pad)), mode="reflect")
-    n_frames = cfg.num_frames(w.shape[1])
-    idx = np.arange(n_frames)[:, None] * cfg.hop_length + lo + np.arange(L)[None, :]
-    frames = padded[:, idx]                                   # (B, n_frames, L)
-    power = (frames @ cos_w.astype(np.float64)) ** 2 + (frames @ sin_w.astype(np.float64)) ** 2
-    got = np.swapaxes(power @ fb.astype(np.float64), 1, 2)
+    assert not win[:c.ws].any() and not win[c.we:].any()   # only the window's zeros dropped
+    assert MK._mel_plan(cfg, 2, n)["n_frames"] == cfg.num_frames(n)
+    w = _wave(3, n)
     want = M.mel_spectrogram(torch.from_numpy(w), cfg).numpy()
+    got = _mirror_mel_power(w, cfg)
+    assert got.shape == want.shape
     assert norm_err(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("cfg", [c for c, _ in CONFIGS.values()] + _FFT_CONFIGS)
+def test_sparse_bands_give_back_filterbank(cfg):
+    """The bands (first bin, weights in bin order) are ``mel_filterbank_np``
+    exactly: scattered back, bin by bin, they rebuild it bit for bit."""
+    c = MK.fft_mel_constants(cfg)
+    fb = np.zeros_like(M.mel_filterbank_np(cfg))
+    for m in range(cfg.n_mels):
+        o0, o1 = c.band_off[m], c.band_off[m + 1]
+        fb[c.band_first[m]:c.band_first[m] + o1 - o0, m] = c.band_w[o0:o1]
+    np.testing.assert_array_equal(fb, M.mel_filterbank_np(cfg))
+    assert c.band_first.min() >= 1 and c.band_off[-1] == np.count_nonzero(fb)
+
+
+@pytest.mark.parametrize("cfg", _FFT_CONFIGS)
+def test_mirror_matches_plain_mel_at_other_ffts(cfg):
+    """The mirror at n_fft 256, 512 and 2048 (2, 4 and 2 as the last radix)."""
+    w = _wave(6, 3_000)
+    assert norm_err(_mirror_mel_power(w, cfg),
+                    M.mel_spectrogram(torch.from_numpy(w), cfg).numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_mirror_matches_pallas_kernel(name):
+    """The mirror against the TPU kernel in interpret mode at a short clip
+    (normalised < 1e-4, the bar of tests/test_mel_pallas.py)."""
+    cfg, jcfg = CONFIGS[name]
+    w = _wave(7, 4_000)
+    want = np.asarray(mel_power_pallas(jnp.asarray(w), jcfg, interpret=True))
+    assert norm_err(_mirror_mel_power(w, cfg), want) < 1e-4
+
+
+@pytest.mark.parametrize("cfg", [c for c, _ in CONFIGS.values()] + _FFT_CONFIGS)
+def test_mel_plan(cfg):
+    """The kernel's launch: 256 threads in n_fft/16-thread groups, one a
+    frame in flight; passes whose radices multiply to n_fft/2; frame tiles
+    whose staged span fits; shared memory within a block's 227 KB, and at
+    the AST front-end small enough for 3 CTAs an SM (228 KB, 1 KB each
+    reserved)."""
+    plan = MK._mel_plan(cfg, 8, 220_500)
+    assert plan["threads"] == plan["frames_in_flight"] * cfg.n_fft // 16 == 256
+    assert np.prod(plan["passes"]) == cfg.n_fft // 2 and set(plan["passes"][:2]) == {8}
+    c = MK.fft_mel_constants(cfg)
+    ft = plan["frames_per_cta"]
+    assert 1 <= ft <= 32 and (ft - 1) * cfg.hop_length + c.we - c.ws <= 16384
+    assert plan["grid"] == (-(-cfg.num_frames(220_500) // ft), 8)
+    assert plan["smem"] <= 232_448
+    if cfg == M.MelConfig():
+        assert 3 * (plan["smem"] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("changes", [dict(n_fft=1000), dict(n_fft=4096), dict(n_mels=64),
+                                     dict(win_length=2048)])
+def test_kernel_refuses_configs_it_does_not_take(changes):
+    cfg = dataclasses.replace(M.MelConfig(), **changes)
+    with pytest.raises(ValueError, match="n_fft"):
+        MK.fft_mel_constants(cfg)
+    with pytest.raises(ValueError, match="n_fft"):
+        MK._mel_plan(cfg, 1, 44_100)
 
 
 def test_cpu_tensor_takes_plain_path():

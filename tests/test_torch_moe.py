@@ -251,6 +251,29 @@ def test_dropout_and_remat_give_the_same_gradients():
         assert torch.equal(model(feats), model(feats, dropout_seed=99))
 
 
+def test_expert_token_count_names_the_experts_without_gradient():
+    """``chip_smoke.ExpertTokens`` (phase 10's count of the routed tokens
+    whose outputs reach the loss, remat re-forward included): the experts it
+    finds without such a token are exactly those whose zero-initialised
+    biases get no gradient, as the last block's experts that no CLS token
+    chose; at batch 1 some of them exist."""
+    import chip_smoke
+
+    model = ASTMoE(**SMALL, dtype=torch.float32, remat=True,
+                   generator=torch.Generator().manual_seed(0))
+    model.train()
+    routed = chip_smoke.ExpertTokens(model, N_TOKENS)
+    out, aux, _ = model(torch.from_numpy(_features(4, b=1)), dropout_seed=5, topk=routed.topk,
+                        return_aux=True)
+    (out.square().sum() + aux).backward()
+    idle = routed.idle()
+    assert idle and all(i == SMALL["depth"] - 1 for i, _ in idle)
+    for i, blk in enumerate(model.blocks):
+        for e in range(SMALL["n_experts"]):
+            no_grad = not blk.moe.bi.grad[e].any() and not blk.moe.bo.grad[e].any()
+            assert no_grad == ((i, e) in idle), (i, e)
+
+
 # ---- the train step -------------------------------------------------------------
 
 def test_train_step_matches_jax():
