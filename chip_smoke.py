@@ -63,14 +63,22 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 11. AST-MoE card parity of one train step at batch 4, dropout 0.1 with one
     seed: f32 kernels vs f32 plain ops, and bf16 kernels (remat
     ``attn_res``) vs bf16 plain ops that round where the TPU kernels round
-    (``_RoundedPlainMha``), each pair on the same routes; the bf16 runs
-    against f32 plain ops are printed, not bounds (``--moe-parity-seeds A-B``
-    runs this phase alone over seeds);
-12. kernels K3f and K3b (fused residual add + LayerNorm) against their plain
+    (``_RoundedPlainMha``), each pair on the same routes; there a router
+    weight's gradient error is divided by the size of its sum's terms,
+    c max(|G|^T |X|) (``RouterTerms``), every other parameter's by its
+    max |ref|; the bf16 runs against f32 plain ops are printed, not bounds
+    (``--moe-parity-seeds A-B`` runs this phase alone over seeds, and
+    ``--moe-parity-fault NAME`` with it plants a fault in the bf16 kernels'
+    run: ``MOE_PARITY_FAULTS``);
+12. kernels K3f and K3b (fused residual add + LayerNorm): registers and no
+    spill in any K3 kernel (``-Xptxas -v``, printed); against their plain
     versions at the three widths of the models' training batch 64 (AST-Small
     49 152 x 384, AST-Base 106 496 x 768, AST-Mini 106 496 x 192) in bf16,
-    and in f32 at AST-Small's, beside the unfused site they replace (the
-    add, then LayerNorm in f32, and its autograd backward);
+    and in f32 at AST-Small's, two K3b calls bit-identical at each, beside
+    the unfused site they replace (the add, then LayerNorm in f32, and its
+    autograd backward) and PyTorch's own LayerNorm forward and backward on
+    the stored r (``aten.native_layer_norm``, ``_backward``), with K3b's two
+    kernels timed apart (profiler);
 13. kernels K2f and K2b at the shapes that only the JAX package's library
     attention kernels K5 (generic splash) and K6 (flash) reached, now
     served by K2: the longest sequence the models admit (AST-Base on a 10-s
@@ -110,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import functools
 import http.client
 import json
@@ -286,6 +295,12 @@ def norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| / max |want|, in f32."""
     got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def router_err(got: torch.Tensor, want: torch.Tensor, scale: float) -> float:
+    """max |got - want| / scale, in f32: a router weight's gradient error in
+    units of the size of its sum's terms (``RouterTerms.scale``)."""
+    return ((got.float() - want.float()).abs().max() / scale).item()
 
 
 def _reset_launches() -> None:
@@ -530,21 +545,28 @@ KERNEL_NAMES = {
     "gmm": ("gmm_bf16_wgmma_kernel", "tgmm_bf16_wgmma_kernel", "tgmm_reduce_kernel",
             "gmm_f32_kernel", "tgmm_f32_kernel"),
     "mel_power": ("mel_power_kernel",),
+    "ln_fused": ("add_ln_fwd_kernel", "add_ln_bwd_kernel", "add_ln_bwd_reduce_kernel"),
 }
 WGMMA_KERNELS = {"attn_fwd": ("attn_fwd_bf16_kernel",),
                  "attn_bwd": ("attn_bwd_dq_bf16_kernel", "attn_bwd_dkv_bf16_kernel"),
                  "gmm": ("gmm_bf16_wgmma_kernel", "tgmm_bf16_wgmma_kernel"),
-                 "mel_power": ()}
+                 "mel_power": (), "ln_fused": ()}
+_TEMPLATE_ARGS = {"13__nv_bfloat16": "bf16", "f": "f32"}
 
 
 def _kernel_name(mangled: str, lib: str) -> str:
-    """The kernel of ``lib`` that a mangled symbol names, with its bool or
-    int template argument (``<0>``, ``<1>``, ``<512>``) where it has one."""
+    """The kernel of ``lib`` that a mangled symbol names, with its template
+    arguments where it has them: bool or int (``<0>``, ``<512>``) and the
+    element type (``<bf16,3>``, ``<f32,3>``)."""
     for k in KERNEL_NAMES[lib]:
         i = mangled.find(f"{len(k)}{k}")
         if i >= 0:
-            m = re.match(r"IL[bi](\d+)E", mangled[i + len(str(len(k))) + len(k):])
-            return k + (f"<{m.group(1)}>" if m else "")
+            m = re.match(r"I((?:13__nv_bfloat16|f|L[bi]\d+E)+)E",
+                         mangled[i + len(str(len(k))) + len(k):])
+            if not m:
+                return k
+            args = re.findall(r"13__nv_bfloat16|L[bi]\d+E|f", m.group(1))
+            return k + "<" + ",".join(_TEMPLATE_ARGS.get(a) or a[2:-1] for a in args) + ">"
     raise RuntimeError(f"chip_smoke: {mangled} is none of {KERNEL_NAMES[lib]}")
 
 
@@ -579,8 +601,9 @@ def _build_report(lib: str) -> dict:
     return dict(sass=counts, registers=regs, spill_store_bytes=spills)
 
 
-def _k2b_split_ms(fn) -> dict:
-    """Device ms per call of each bf16 K2b kernel (dQ, dK/dV), from
+def _split_ms(fn, kernels: dict, what: str) -> dict:
+    """Device ms per call of each kernel of a wrapper, by name: ``kernels``
+    maps a name to a pattern of its kernel's symbol; from
     ``torch.profiler``'s kernel records over 10 calls of ``fn``."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
@@ -588,10 +611,10 @@ def _k2b_split_ms(fn) -> dict:
         torch.cuda.synchronize()
     split = {}
     for e in prof.key_averages():
-        m = re.search(r"attn_bwd_(dq|dkv)_bf16_kernel", e.key)
-        if m:
-            split[m.group(1)] = e.device_time_total / e.count / 1e3
-    require(set(split) == {"dq", "dkv"}, f"K2b profile: kernels {split}")
+        for name, pattern in kernels.items():
+            if re.search(pattern, e.key):
+                split[name] = e.device_time_total / e.count / 1e3
+    require(set(split) == set(kernels), f"{what} profile: kernels {split}")
     return split
 
 
@@ -666,7 +689,8 @@ def phase_attn_bwd(dev: torch.device, gen: torch.Generator) -> dict:
     # the kernels alone: 20 calls replayed from a CUDA graph (the wrapper's
     # Python, which CUDA events around one call include, is left out)
     dev_ms = graph_ms(lambda: attn_fast.fast_mha_backward(qd, kd, vd, out, lse, dod, n_real))
-    split = _k2b_split_ms(lambda: attn_fast.fast_mha_backward(qd, kd, vd, out, lse, dod, n_real))
+    split = _split_ms(lambda: attn_fast.fast_mha_backward(qd, kd, vd, out, lse, dod, n_real),
+                      dict(dq=r"attn_bwd_dq_bf16_kernel", dkv=r"attn_bwd_dkv_bf16_kernel"), "K2b")
     first = attn_fast.fast_mha_backward(qd, kd, vd, out, lse, dod, n_real)
     second = attn_fast.fast_mha_backward(qd, kd, vd, out, lse, dod, n_real)
     deterministic = all(torch.equal(a, b) for a, b in zip(first, second))
@@ -887,27 +911,49 @@ def phase_parity(dev: torch.device, seed: int) -> None:
 
 def _compare_steps(got, want, what: str, loss_tol: float, tol: float,
                    required: bool = True, readings: dict | None = None,
-                   key: str = "") -> tuple[float, float, float]:
+                   key: str = "", scales: dict | None = None) -> tuple[float, float, float]:
     """Loss (relative), gradients (momentum buffers) and parameters after the
     update (normalised per parameter) of two one-step runs; a gradient that
-    is exactly 0 on the reference side must be exactly 0 on the other.
-    Raises past the bounds when ``required``; returns the three errors, and
-    first puts the gradients' into ``readings[key]`` when given."""
+    is exactly 0 on the reference side must be exactly 0 on the other. The
+    gradients named in ``scales`` are divided by their scale instead of their
+    max |ref| (``router_err``); their max-normalised reading is printed
+    beside it, and bounds nothing. Raises past the bounds when ``required``;
+    returns the three errors, and first puts them into ``readings`` when
+    given (the gradients' under ``key``, the loss's and the parameters' under
+    ``key`` + ``_loss``, ``_params``; with ``scales``, also the scaled names'
+    readings both ways and every other parameter's under ``key`` +
+    ``_router``, ``_router_max_normalised``, ``_other``)."""
+    scales = scales or {}
+
+    def grad_err(a, b, name):
+        return router_err(a, b, scales[name]) if name in scales else norm_err(a, b)
+
     e_loss = abs(got[0] - want[0]) / abs(want[0])
-    grad_errs = sorted(((norm_err(a, b), name) for a, b, name in zip(got[1], want[1], got[4])
+    grad_errs = sorted(((grad_err(a, b, name), name) for a, b, name in zip(got[1], want[1], got[4])
                         if b.abs().max() > 0), reverse=True)
     e_grad = grad_errs[0][0]
     zero_same = all((a == 0).all().item() for a, b in zip(got[1], want[1])
                     if b.abs().max() == 0)
     e_param = max(norm_err(a, b) for a, b in zip(got[2], want[2]))
     worst = ", ".join(f"{name} {e:.2e}" for e, name in grad_errs[:3])
+    note = '' if required else '  [not a bound: printed only]'
     print(f"step parity, {what}, batch {PARITY_BATCH}, one SGD step): loss {got[0]:.6f} vs "
           f"{want[0]:.6f}, rel {e_loss:.3e} (<= {loss_tol}); gradients {e_grad:.3e} (largest: "
           f"{worst}), parameters after the update {e_param:.3e}, normalised per parameter (<= "
-          f"{tol}); zero gradients the same: {zero_same}"
-          f"{'' if required else '  [not a bound: printed only]'}", flush=True)
+          f"{tol}); zero gradients the same: {zero_same}{note}", flush=True)
+    if scales:
+        named = dict(zip(got[4], zip(got[1], want[1])))
+        router = max(e for e, name in grad_errs if name in scales)
+        old = max(norm_err(*named[name]) for name in scales)
+        other = max(e for e, name in grad_errs if name not in scales)
+        print(f"  router weights, max |diff| / (c max(|G|^T |X|)): {router:.3e} (<= {tol}); the "
+              f"same divided by max |ref|: {old:.3e}  [printed only]; every other parameter "
+              f"(max-normalised): {other:.3e} (<= {tol}){note}", flush=True)
+        if readings is not None:
+            readings.update({f"{key}_router": router, f"{key}_router_max_normalised": old,
+                             f"{key}_other": other})
     if readings is not None:
-        readings[key] = e_grad
+        readings.update({key: e_grad, f"{key}_loss": e_loss, f"{key}_params": e_param})
     if required:
         require(e_loss <= loss_tol and e_grad <= tol and zero_same and e_param <= tol,
                 f"step parity {what}")
@@ -1297,18 +1343,118 @@ def phase_moe_train(dev: torch.device, seed: int, card: str) -> tuple[dict, dict
     return counts, dict(experts_without_tokens=len(idle), idle_experts=idle)
 
 
-def phase_moe_parity(dev: torch.device, seed: int, readings: dict | None = None) -> dict:
+class RouterTerms:
+    """Each MoE block's router input X (f32, tokens x D) and the gradient G of
+    its logits (tokens x E) in one run, taken through the layers'
+    ``router_hook``: a tensor hook on each call's logits, so that only the
+    call whose logits receive the gradient reports (a remat re-forward asks
+    the router again, and its logits get none). G is the logits' whole
+    gradient, the aux and z-losses' included; the router weight's gradient
+    is G^T X, a sum over every token whose terms largely cancel."""
+
+    def __init__(self, model):
+        self.x, self.g = {}, {}
+        self.layers = {i: b.moe for i, b in enumerate(model.blocks) if hasattr(b, "moe")}
+        for i, moe in self.layers.items():
+            moe.router_hook = functools.partial(self._forward, i)
+
+    def _forward(self, i, x, logits):
+        if logits.requires_grad:
+            logits.register_hook(functools.partial(self._backward, i, x.detach()))
+
+    def _backward(self, i, x, g):
+        self.x[i], self.g[i] = x.reshape(-1, x.shape[-1]), g.reshape(-1, g.shape[-1])
+
+    def remove(self) -> None:
+        for moe in self.layers.values():
+            moe.router_hook = None
+
+    def scale(self, i: int, grad: torch.Tensor) -> float:
+        """c max(|G|^T |X|) of block i's router: the size of its gradient's
+        terms, times the clip factor c = |grad| / |G^T X| that ``grad`` (the
+        momentum buffer after one step: the clipped gradient) carries."""
+        x, g = self.x[i], self.g[i]
+        c = grad.float().norm() / (g.T @ x).norm()
+        return (c * (g.abs().T @ x.abs()).max()).item()
+
+    def scales(self, named_grads: dict) -> dict:
+        """``scale`` of every router weight, by parameter name."""
+        return {name: self.scale(i, named_grads[name])
+                for i in self.layers for name in [f"blocks.{i}.moe.router.weight"]}
+
+
+# Faults that phase 11's sweep can plant in the bf16 kernels' run, a negative
+# control of its gate (``--moe-parity-fault``); never on the default path.
+MOE_PARITY_FAULTS = ("gate_detached", "tgmm_short", "gmm_scale")
+
+
+def _second_gate_detached(topk):
+    """``topk`` whose second choice's gate value is detached from the graph:
+    the forward is unchanged, the router's gradient loses that term."""
+    def detached(gates, k):
+        vals, idx = topk(gates, k)
+        return torch.cat([vals[..., :1], vals[..., 1:2].detach(), vals[..., 2:]], -1), idx
+    return detached
+
+
+def _first_group(group_sizes: torch.Tensor, rows: int) -> tuple[int, int]:
+    """(start, end) of the first group of at least ``rows`` rows."""
+    sizes = group_sizes.tolist()
+    g = next(i for i, n in enumerate(sizes) if n >= rows)
+    start = sum(sizes[:g])
+    return start, start + sizes[g]
+
+
+@contextlib.contextmanager
+def _planted(fault: str | None):
+    """Plants ``fault`` in the grouped products while it is open:
+    ``tgmm_short`` leaves the last 64 rows of the first group of 64 or more
+    out of K4b's input (its lhs rows zeroed); ``gmm_scale`` scales the first
+    group's rows of every forward K4a output by 1 + 2^-5."""
+    real_gmm, real_tgmm = gmm_ops.gmm, gmm_ops.tgmm
+
+    def tgmm_short(lhs, grad, group_sizes):
+        _, end = _first_group(group_sizes, 64)
+        lhs = lhs.clone()
+        lhs[end - 64:end] = 0
+        return real_tgmm(lhs, grad, group_sizes)
+
+    def gmm_scale(lhs, rhs, group_sizes, transpose_rhs=False):
+        out = real_gmm(lhs, rhs, group_sizes, transpose_rhs=transpose_rhs)
+        if not transpose_rhs:
+            start, end = _first_group(group_sizes, 1)
+            out[start:end] *= 1 + 2**-5
+        return out
+
+    if fault == "tgmm_short":
+        gmm_ops.tgmm = tgmm_short
+    elif fault == "gmm_scale":
+        gmm_ops.gmm = gmm_scale
+    try:
+        yield
+    finally:
+        gmm_ops.gmm, gmm_ops.tgmm = real_gmm, real_tgmm
+
+
+def phase_moe_parity(dev: torch.device, seed: int, readings: dict | None = None,
+                     fault: str | None = None) -> dict:
     """One AST-MoE train step at full width and batch 4, dropout 0.1 with one
     seed on every side, SGD with momentum (see ``phase_parity``), each plain
     run replaying the routes of the run it is compared with. Required: f32
     through the kernels vs f32 plain ops, and bf16 through the kernels (remat
     attn_res) vs bf16 plain ops (remat attn_res) whose attention rounds where
-    the TPU kernels round (``_RoundedPlainMha``). Printed only: the bf16
-    kernels and the bf16 plain run each against f32 plain ops on the same
-    routes (the second is the bf16 model's own noise), and the bf16 kernels
-    against f32 plain ops on the f32 run's routes. Returns (and fills
-    ``readings`` with, as they are taken) the worst gradient error of each
-    bf16 comparison on the same routes."""
+    the TPU kernels round (``_RoundedPlainMha``). In that bf16 comparison a
+    router weight's gradient error is divided by the size of its sum's terms,
+    c max(|G|^T |X|) (``RouterTerms``, from the bf16 plain run), not by its
+    max |ref|: G^T X cancels, so its max |ref| is far below its terms, whose
+    rounding sets the error (the max-normalised reading is printed). Every
+    other parameter, and the f32 comparison, keep the max-normalised error.
+    Printed only: the bf16 kernels and the bf16 plain run each against f32
+    plain ops on the same routes (the second is the bf16 model's own noise),
+    and the bf16 kernels against f32 plain ops on the f32 run's routes.
+    ``fault`` (``MOE_PARITY_FAULTS``) is planted in the bf16 kernels' run.
+    Returns (and fills ``readings`` with, as they are taken) the worst
+    gradient error of each bf16 comparison on the same routes."""
     readings = {} if readings is None else readings
     pipe = bench.bench_pipeline()
     rng = np.random.default_rng(seed + 2)
@@ -1318,9 +1464,10 @@ def phase_moe_parity(dev: torch.device, seed: int, readings: dict | None = None)
     draws = pipe.draw(PARITY_BATCH, CLIP, rng)
     dropout_seed = int(rng.integers(2**62))
 
-    def one_step(dtype, remat, plain, topk):
+    def one_step(dtype, remat, plain, topk, terms=False):
         model = ASTMoE(**AST_MOE, dtype=dtype, remat=remat, device=dev,
                        generator=torch.Generator().manual_seed(seed))
+        router = RouterTerms(model) if terms else None
         state = TrainState.create(model, sgd(lr=5e-4, momentum=0.9), None, 25,
                                   gradient_clip_val=1.0)
         step = make_train_step(pipe, CrossEntropyLoss(), topk=topk,
@@ -1330,15 +1477,21 @@ def phase_moe_parity(dev: torch.device, seed: int, readings: dict | None = None)
                           wave, labels, draws, dropout_seed)
         torch.cuda.synchronize()
         names, params = zip(*model.named_parameters())
-        return (loss.item(), [state.optimizer.state[p]["momentum_buffer"] for p in params],
-                [p.detach() for p in params], _launch_counts(), names)
+        grads = [state.optimizer.state[p]["momentum_buffer"] for p in params]
+        run = (loss.item(), grads, [p.detach() for p in params], _launch_counts(), names)
+        if router is None:
+            return run
+        router.remove()
+        return run, router.scales(dict(zip(names, grads)))
 
     r32, r16 = RouteLog(), RouteLog()
     k32 = one_step(torch.float32, False, False, r32.record)
     p32 = one_step(torch.float32, False, True, r32.replay(DEPTH))
-    b16 = one_step(torch.bfloat16, True, False, r16.record)
+    with _planted(fault):
+        b16 = one_step(torch.bfloat16, True, False, _second_gate_detached(r16.record)
+                       if fault == "gate_detached" else r16.record)
     # the remat re-forward asks the router again: every recorded call, in order
-    q16 = one_step(torch.bfloat16, True, True, r16.replay(len(r16.routes)))
+    q16, scales = one_step(torch.bfloat16, True, True, r16.replay(len(r16.routes)), terms=True)
     p16 = one_step(torch.float32, False, True, r16.replay(DEPTH))
     zero = _counts(k1=1)
     require(k32[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, gmm=4 * DEPTH, tgmm=2 * DEPTH)
@@ -1346,19 +1499,20 @@ def phase_moe_parity(dev: torch.device, seed: int, readings: dict | None = None)
             and p32[3] == zero and q16[3] == zero and p16[3] == zero,
             f"AST-MoE parity launches {k32[3]} {p32[3]} {b16[3]} {q16[3]} {p16[3]}")
     flips = r16.flips(r32, MOE_N_REAL)
-    print(f"AST-MoE step parity (seed {seed}): the bf16 run routes {flips[0]} of {flips[1]} real "
-          f"(token, choice) pairs otherwise than the f32 run", flush=True)
+    print(f"AST-MoE step parity (seed {seed}{f', fault {fault} planted' if fault else ''}): the "
+          f"bf16 run routes {flips[0]} of {flips[1]} real (token, choice) pairs otherwise than "
+          f"the f32 run", flush=True)
     # the printed-only comparisons first, so that a sweep keeps every reading
     _compare_steps(b16, p16, "bf16 kernels vs f32 plain ops, same routes (AST-MoE, dropout 0.1",
                    STEP_BF16_LOSS, STEP_BF16_GRAD, False, readings, "kernels_bf16_vs_plain_f32")
     _compare_steps(q16, p16, "bf16 plain ops vs f32 plain ops, same routes: the bf16 model's "
                    "own noise (AST-MoE, dropout 0.1", STEP_BF16_LOSS, STEP_BF16_GRAD, False,
-                   readings, "plain_bf16_vs_plain_f32")
+                   readings, "plain_bf16_vs_plain_f32", scales)
     _compare_steps(b16, p32, "bf16 kernels vs f32 plain ops on the f32 run's own routes "
                    "(AST-MoE, dropout 0.1", STEP_BF16_LOSS, STEP_BF16_GRAD, required=False)
     _compare_steps(b16, q16, "bf16 kernels vs bf16 plain ops rounding as the TPU kernels do, "
                    "both remat attn_res, same routes (AST-MoE, dropout 0.1", STEP_BF16_LOSS,
-                   STEP_BF16_GRAD, True, readings, "kernels_bf16_vs_plain_bf16")
+                   STEP_BF16_GRAD, True, readings, "kernels_bf16_vs_plain_bf16", scales)
     _compare_steps(k32, p32, "f32 kernels vs f32 plain attention and gmm, same routes "
                    "(AST-MoE, dropout 0.1", STEP_F32_LOSS, STEP_F32_GRAD)
     return readings
@@ -1380,15 +1534,28 @@ def _ln_bytes(rows: int, d: int, elem: int) -> int:
     return 4 * rows * d * elem + 2 * rows * 4 + 2 * d * 4
 
 
+def _library_ln(r, mu, rsig, gamma, beta, dy):
+    """PyTorch's own LayerNorm backward on the stored r and statistics
+    (``aten.native_layer_norm_backward``): dy → (d r, dgamma, dbeta), all of
+    K3b's work but the dr add. gamma and beta in r's type, as the CUDA op
+    reads its weight in its input's type."""
+    return torch.ops.aten.native_layer_norm_backward(
+        dy, r, (r.shape[-1],), mu, rsig, gamma.to(r.dtype), beta.to(r.dtype), [True] * 3)
+
+
 def phase_ln(dev: torch.device, gen: torch.Generator) -> tuple[dict, dict]:
     """K3f and K3b against their plain versions at the training batch's
     three widths in bf16 and at AST-Small's in f32, each beside the unfused
     site (forward, and autograd's backward: its forward and backward less
-    its forward). Times are device times (``graph_ms``): a K3 call is
+    its forward) and PyTorch's own LayerNorm (``aten.native_layer_norm`` on
+    r, ``aten.native_layer_norm_backward``, ``_library_ln``); two K3b calls
+    bit-identical at each. Registers and no spill in any K3 kernel
+    (``-Xptxas -v``). Times are device times (``graph_ms``): a K3 call is
     shorter than its Python.
     Bounds by bytes; operations counted as 8 f32 operations per element
     forward (add, two sums, centre, square, scale, gamma, beta) and 12
     backward."""
+    build = _build_report("ln_fused")
     g = torch.Generator(dev).manual_seed(int(torch.randint(2**31, (1,), generator=gen)))
     cases = [(shape, torch.bfloat16) for shape in LN_SHAPES] + [(LN_SHAPES[0], torch.float32)]
     fwd, bwd = {}, {}
@@ -1409,51 +1576,71 @@ def phase_ln(dev: torch.device, gen: torch.Generator) -> tuple[dict, dict]:
         b_errs = [norm_err(a, b) for a, b in zip(bgot, bwant)]         # dx, dgamma, dbeta
         b_abs = max((a.float() - b.float()).abs().max().item() for a, b in zip(bgot, bwant))
         finite = all(torch.isfinite(t).all().item() for t in (*got, *bgot))
-        del got, want, bgot, bwant
+        rerun = ln_fused.fused_add_ln_backward(r, mu, rsig, gamma, dr, dy)
+        det = all(torch.equal(a, b) for a, b in zip(bgot, rerun))
+        del got, want, bgot, bwant, rerun
         leaves = [t.detach().requires_grad_() for t in (x, delta, gamma, beta)]
         fns = dict(
             f=lambda: ln_fused.fused_add_ln_forward(x, delta, gamma, beta),
             f_plain=lambda: ln_fused.add_ln_reference(x, delta, gamma, beta),
             f_unf=lambda: _unfused_add_ln(x, delta, gamma, beta),
+            f_lib=lambda: torch.ops.aten.native_layer_norm(r, (d,), gamma.to(dtype),
+                                                           beta.to(dtype), ln_fused.EPS),
             b=lambda: ln_fused.fused_add_ln_backward(r, mu, rsig, gamma, dr, dy),
             b_plain=lambda: ln_fused.add_ln_backward_reference(r, mu, rsig, gamma, dr, dy),
+            b_lib=lambda: _library_ln(r, mu, rsig, gamma, beta, dy),
             fb_unf=lambda: torch.autograd.grad(_unfused_add_ln(*leaves), leaves, (dr, dy)))
         # device time of each (graph replays); CUDA events per call for the kernels beside it
         t = {k: graph_ms(fn) for k, fn in fns.items()}
         t["b_unf"] = t.pop("fb_unf") - t["f_unf"]   # autograd's backward of the unfused site
         f_call, b_call = (float(np.median(cuda_times(fns[k]))) for k in ("f", "b"))
+        split = _split_ms(fns["b"], dict(rows=r"add_ln_bwd_kernel",
+                                         reduce=r"add_ln_bwd_reduce_kernel"), "K3b")
         del leaves
         nbytes = _ln_bytes(rows, d, x.element_size())
         bf = bound(LN_FWD_OPS * rows * d, F32_FLOPS, nbytes)
         bb = bound(LN_BWD_OPS * rows * d, F32_FLOPS, nbytes)
         dt = str(dtype).removeprefix("torch.")
         key = f"{name} ({rows}, {d}) {dt}"
+        plan = ln_fused._bwd_plan(rows, d, torch.cuda.get_device_properties(dev)
+                                  .multi_processor_count, x.element_size())
         print(f"K3 add_ln at {key}: r exact {r_exact}; forward y {f_errs[0]:.3e} mu "
               f"{f_errs[1]:.3e} rsig {f_errs[2]:.3e}, backward dx {b_errs[0]:.3e} dgamma "
-              f"{b_errs[1]:.3e} dbeta {b_errs[2]:.3e} normalised (<= {tol}); device ms "
-              f"(graph replays): K3f {t['f']:.4f} (plain {t['f_plain']:.4f}, unfused site "
-              f"{t['f_unf']:.4f}), K3b {t['b']:.4f} (plain {t['b_plain']:.4f}, unfused autograd "
-              f"{t['b_unf']:.4f}); per call (CUDA events) K3f {f_call:.4f}, K3b {b_call:.4f}; "
-              f"bound {bf['bound_ms']:.4f} ms ({bf['bound_by']}, {nbytes / 1e6:.1f} MB): K3f at "
-              f"{bf['bound_ms'] / t['f']:.1%}, K3b at {bb['bound_ms'] / t['b']:.1%} of it",
-              flush=True)
+              f"{b_errs[1]:.3e} dbeta {b_errs[2]:.3e} normalised (<= {tol}); K3b reruns "
+              f"bit-identical {det}; device ms (graph replays): K3f {t['f']:.4f} (plain "
+              f"{t['f_plain']:.4f}, unfused site {t['f_unf']:.4f}, native_layer_norm "
+              f"{t['f_lib']:.4f}), K3b {t['b']:.4f} (plain {t['b_plain']:.4f}, unfused autograd "
+              f"{t['b_unf']:.4f}, native_layer_norm_backward {t['b_lib']:.4f}); per call (CUDA "
+              f"events) K3f {f_call:.4f}, K3b {b_call:.4f}; K3b's kernels (profiler): rows "
+              f"{split['rows']:.4f}, sum of the partials {split['reduce']:.4f}; bound {bf['bound_ms']:.4f} ms "
+              f"({bf['bound_by']}, {nbytes / 1e6:.1f} MB): K3f at {bf['bound_ms'] / t['f']:.1%}, "
+              f"K3b at {bb['bound_ms'] / t['b']:.1%} of it; K3b plan: tiles of "
+              f"{plan['tile_rows']} rows, {plan['lanes']} lanes a row, {plan['stages']} stages "
+              f"of {plan['stage_bytes']} B, grid {plan['grid']}", flush=True)
         require(r_exact and finite and max(f_errs) <= tol and max(b_errs) <= tol,
                 f"K3 disagrees with its plain version at {key}")
+        require(det, f"K3b reruns differ at {key}")
         fwd[key] = dict(max_abs_err=f_abs, ms=t["f"], call_ms=f_call, plain_ms=t["f_plain"],
-                        unfused_ms=t["f_unf"], **bf)
+                        library_ms=t["f_lib"], unfused_ms=t["f_unf"], **bf)
         bwd[key] = dict(max_abs_err=b_abs, ms=t["b"], call_ms=b_call, plain_ms=t["b_plain"],
-                        unfused_ms=t["b_unf"], **bb)
+                        library_ms=t["b_lib"], unfused_ms=t["b_unf"], deterministic=det,
+                        kernels_ms=split, **bb)
         del x, delta, dr, dy, r, mu, rsig
 
-    def entry(results):
+    def entry(results, kernels):
         main = results[f"{LN_SHAPES[0][0]} ({LN_SHAPES[0][1]}, {LN_SHAPES[0][2]}) bfloat16"]
         return dict(max_abs_err=max(v["max_abs_err"] for v in results.values()),
                     ms=main["ms"], call_ms=main["call_ms"], plain_ms=main["plain_ms"],
-                    bound_ms=main["bound_ms"],
-                    bound_by=main["bound_by"], library_ms=None, unfused_ms=main["unfused_ms"],
+                    bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                    library_ms=main["library_ms"], unfused_ms=main["unfused_ms"],
+                    registers={k: v for k, v in build["registers"].items()
+                               if k.split("<")[0] in kernels},
+                    spill_store_bytes={k: v for k, v in build["spill_store_bytes"].items()
+                                       if k.split("<")[0] in kernels},
                     by_shape=results)
 
-    return entry(fwd), entry(bwd)
+    return (entry(fwd, ("add_ln_fwd_kernel",)),
+            entry(bwd, ("add_ln_bwd_kernel", "add_ln_bwd_reduce_kernel")))
 
 
 # --- phase 13: K2 at the shapes of K5 and K6 ------------------------------------------
@@ -1759,23 +1946,26 @@ def phase_mini(dev: torch.device, seed: int, tmp: Path, card: str) -> tuple[dict
     return serve_counts, counts
 
 
-def moe_parity_sweep(dev: torch.device, seeds: str, card: str) -> None:
-    """Phase 11 at each seed of ``seeds`` ("A-B"), every reading kept: a
-    failing seed is recorded and the sweep goes on; raises at the end if
-    any seed failed."""
+def moe_parity_sweep(dev: torch.device, seeds: str, card: str, fault: str | None = None
+                     ) -> None:
+    """Phase 11 at each seed of ``seeds`` ("A-B"), every reading kept, with
+    ``fault`` planted in the bf16 kernels' run if given: a failing seed is
+    recorded and the sweep goes on; raises at the end if any seed failed
+    (with a fault planted, that is what the gate should do)."""
     first, last = (int(x) for x in seeds.split("-"))
     rows = []
     for seed in range(first, last + 1):
         readings, error = {}, None
         try:
-            phase_moe_parity(dev, seed, readings)
+            phase_moe_parity(dev, seed, readings, fault)
         except RuntimeError as e:
             error = str(e)
         rows.append(dict(seed=seed, passed=error is None, error=error, **readings))
         torch.cuda.empty_cache()
-    print(json.dumps({"moe_parity_sweep": rows, "card": card}), flush=True)
+    print(json.dumps({"moe_parity_sweep": rows, "fault": fault, "card": card}), flush=True)
     failed = [r["seed"] for r in rows if not r["passed"]]
-    require(not failed, f"phase 11 failed at seeds {failed}")
+    require(not failed, f"phase 11 failed at seeds {failed}"
+            + (f" with {fault} planted" if fault else ""))
 
 
 def main() -> None:
@@ -1784,7 +1974,12 @@ def main() -> None:
     ap.add_argument("--moe-parity-seeds", default=None, metavar="A-B",
                     help="run only phase 11 (after the build), once for each seed of A..B, "
                          "and print its readings by seed; fails if any seed fails")
+    ap.add_argument("--moe-parity-fault", default=None, choices=MOE_PARITY_FAULTS,
+                    help="with --moe-parity-seeds: plant this fault in the bf16 kernels' "
+                         "run, a negative control of phase 11's gate")
     args = ap.parse_args()
+    if args.moe_parity_fault and args.moe_parity_seeds is None:
+        ap.error("--moe-parity-fault needs --moe-parity-seeds")
 
     # phase 0: start-up
     if not torch.cuda.is_available():
@@ -1805,7 +2000,7 @@ def main() -> None:
           f"torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
     peak_tflops(torch.cuda.get_device_name(dev))   # the MFU needs a known card: fail early
     if args.moe_parity_seeds is not None:
-        moe_parity_sweep(dev, args.moe_parity_seeds, card)
+        moe_parity_sweep(dev, args.moe_parity_seeds, card, args.moe_parity_fault)
         return
 
     gen = torch.Generator().manual_seed(args.seed)

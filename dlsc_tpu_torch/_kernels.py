@@ -35,9 +35,9 @@ _BUILD = Path(__file__).resolve().parent.parent / "build" / "dlsc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # flags of one library beside NVCC_FLAGS (part of its hash): the registers
-# and spills of the wgmma kernels' libraries and K1's, which chip_smoke.py
-# prints
-EXTRA_FLAGS = {name: ("-Xptxas", "-v") for name in ("attn_fwd", "attn_bwd", "gmm", "mel_power")}
+# and spills of every library's kernels, which chip_smoke.py prints
+EXTRA_FLAGS = {name: ("-Xptxas", "-v")
+               for name in ("attn_fwd", "attn_bwd", "gmm", "mel_power", "ln_fused")}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

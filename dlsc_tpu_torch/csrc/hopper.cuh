@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: TMA tile
-// loads that complete on an mbarrier, TMA tile stores, the mbarrier itself,
-// and bf16 wgmma on 128-byte-swizzled shared-memory tiles with A from shared
-// memory (SS) or from registers (RS). Inline PTX only, so a source that
-// includes this header still builds in seconds.
+// loads and 1-D bulk copies that complete on an mbarrier, TMA tile stores,
+// the mbarrier itself, and bf16 wgmma on 128-byte-swizzled shared-memory
+// tiles with A from shared memory (SS) or from registers (RS). Inline PTX
+// only, so a source that includes this header still builds in seconds.
 //
 // Tiles: every operand tile here is rows of 64 bf16 (128 bytes: one swizzle
 // row), written by TMA with CU_TENSOR_MAP_SWIZZLE_128B at a 1024-byte
@@ -103,6 +103,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A 1-D bulk copy (no tensor map): `bytes` contiguous bytes from global memory
+// to shared memory, credited to `bar` on arrival. Both addresses and the size
+// must be multiples of 16 bytes.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

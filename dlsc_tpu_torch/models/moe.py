@@ -157,6 +157,9 @@ class MoeMlp(nn.Module):
     transposed), ``wi`` (E, D, F), ``bi`` (E, F), ``wo`` (E, F, D), ``bo``
     (E, D), F = ratio · D. ``forward`` returns (y, aux, stats): y like x,
     the pre-weighted aux loss (f32 scalar) and the (drop_frac, util) pair.
+    ``router_hook``, None unless set, is called on every forward with the
+    router's f32 input and its logits, and computes nothing of the output
+    (a check reads the logits' gradient through it).
     """
 
     def __init__(self, dim: int, spec: MoeSpec | dict, ratio: float = 4.0,
@@ -170,6 +173,7 @@ class MoeMlp(nn.Module):
         self.bi = nn.Parameter(torch.empty(E, F_))
         self.wo = nn.Parameter(torch.empty(E, F_, dim))
         self.bo = nn.Parameter(torch.empty(E, dim))
+        self.router_hook: Callable[[torch.Tensor, torch.Tensor], None] | None = None
 
     def forward(self, x: torch.Tensor, n_real: int | None = None,
                 grouped_matmul: GroupedMatmulFn = gmm_op, topk: TopkFn = topk_routes,
@@ -181,7 +185,10 @@ class MoeMlp(nn.Module):
         valid = torch.arange(N, device=x.device) < n_real            # (N,)
 
         # --- router (f32) and the aux losses over real tokens ---------------
-        logits = F.linear(x.float(), self.router.weight)              # (B, N, E)
+        xf = x.float()
+        logits = F.linear(xf, self.router.weight)                     # (B, N, E)
+        if self.router_hook is not None:
+            self.router_hook(xf, logits)
         gates = torch.softmax(logits, dim=-1)
         z2 = torch.logsumexp(logits, dim=-1).square() * valid
         aux = self.spec.router_z_weight * z2.sum() / nv

@@ -14,9 +14,15 @@ last axis d of x and delta (same shape and dtype; gamma and beta (d,) f32):
   mean(dy*gamma*xhat)), xhat = (r - mu) * rsig, which is the gradient of
   both x and delta; dgamma = sum(dy * xhat), dbeta = sum(dy) over the rows.
 
-d is a multiple of 8 up to 1024 (16-byte row chunks, a row in one warp's
-registers); any other d raises ``ValueError`` on every device. Any row
+d is a multiple of 8 up to 1024 (16-byte row chunks, at most 4 a lane);
+any other d raises ``ValueError`` on every device. Any row
 count >= 1 (the JAX kernel's rows % 8 is a TPU sublane grain).
+
+K3b is a persistent grid of ``_bwd_plan(...)["grid"]`` CTAs that walk tiles
+of ``tile_rows`` contiguous rows (CTA b the tiles ``_bwd_tiles(plan, b)``),
+bulk-copied into a ring of shared-memory stages, and a second kernel that
+sums the CTAs' dgamma / dbeta partials in a fixed order; ``csrc/ln_fused.cu``
+computes the same plan and refuses any other launch.
 
 - ``fused_add_ln_forward`` / ``fused_add_ln_backward`` launch the CUDA
   kernels for CUDA tensors and run ``add_ln_reference`` /
@@ -39,8 +45,17 @@ from dlsc_tpu_torch import _kernels
 
 EPS = 1e-6          # the LayerNorm epsilon of the ViT blocks
 MAX_D = 1024
-BWD_MAX_BLOCKS = 512   # the backward's grid (and dgamma/dbeta partial rows) at most
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# K3b (csrc/ln_fused.cu, which uses the same numbers): consumer warps (and a
+# producer warp), resident CTAs an SM, ring stages at most, the bytes of a
+# stage aimed at; a block's shared memory (H100: 227 KB), of which each of the
+# resident CTAs may use its share less the system's 1 KB; the mbarriers' bytes
+BWD_WARPS, BWD_CTAS_PER_SM, BWD_MAX_STAGES, BWD_STAGE_TARGET = 4, 2, 4, 24 * 1024
+BWD_THREADS = 32 * (BWD_WARPS + 1)
+SMEM_LIMIT = 232_448
+BWD_SMEM_BUDGET = SMEM_LIMIT // BWD_CTAS_PER_SM - 1024
+BWD_BAR_BYTES = 16 * BWD_MAX_STAGES
+REDUCE_SPLIT = 32   # warps of a summing CTA: warp w sums the CTAs w, w + 32, ...
 
 launches = 0      # forward kernel launches since the last reset (see reset_launches)
 bwd_launches = 0  # backward kernel launches
@@ -57,7 +72,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dlsc_add_ln_fwd.argtypes = [p] * 8 + [i, i, f, i, p]
     lib.dlsc_add_ln_fwd.restype = i
-    lib.dlsc_add_ln_bwd.argtypes = [p] * 9 + [i, i, i, i, p]
+    lib.dlsc_add_ln_bwd.argtypes = [p] * 10 + [i] * 8 + [p]
     lib.dlsc_add_ln_bwd.restype = i
     return lib
 
@@ -152,10 +167,43 @@ def fused_add_ln_forward(x: torch.Tensor, delta: torch.Tensor, weight: torch.Ten
     return r, y, mu, rsig
 
 
-def backward_blocks(rows: int) -> int:
-    """The backward kernel's grid: 8 rows in flight per block, at most
-    ``BWD_MAX_BLOCKS`` blocks, fixed by the row count alone."""
-    return min(-(-rows // 8), BWD_MAX_BLOCKS)
+def _bwd_plan(rows: int, d: int, n_sm: int, elem: int = 2) -> dict:
+    """K3b's launch for ``rows`` rows of width ``d`` in ``elem``-byte elements
+    on a card of ``n_sm`` SMs (``csrc/ln_fused.cu`` computes the same by the
+    same formulas and refuses a launch whose numbers differ).
+
+    A row takes ``lanes`` lanes (the fewest powers of two with at most 4
+    16-byte chunks each: ``chunks``), so a consumer warp holds
+    ``rows_per_warp`` = 32 / lanes rows at once; a tile holds a row for every
+    slot of every consumer warp (times the ``BWD_STAGE_TARGET`` fit, at least
+    once): ``tile_rows``, a multiple of 4, so that every tile's mu / rsig span
+    starts on 16 bytes. A stage holds the tile's r, dy, dr and its mu, rsig;
+    ``stages`` as many as the CTA's share of shared memory holds, at most
+    ``BWD_MAX_STAGES``. The grid: ``BWD_CTAS_PER_SM`` CTAs an SM, never more
+    than the tiles; ``workspace``: the CTAs' (2, grid, d) f32 partials;
+    ``reduce_grid``: the summing kernel's CTAs (32 columns each, dgamma and
+    dbeta)."""
+    row_chunks = d // 8
+    lanes = 1
+    while lanes * 4 < row_chunks:
+        lanes *= 2
+    base = BWD_WARPS * (32 // lanes)
+    base_bytes = 3 * base * d * elem + 8 * base
+    k = max(1, BWD_STAGE_TARGET // base_bytes)
+    stage_bytes = base_bytes * k
+    stages = min(BWD_MAX_STAGES, (BWD_SMEM_BUDGET - BWD_BAR_BYTES) // stage_bytes)
+    tiles = -(-rows // (base * k))
+    grid = min(n_sm * BWD_CTAS_PER_SM, tiles)
+    return dict(lanes=lanes, chunks=-(-row_chunks // lanes), rows_per_warp=32 // lanes,
+                tile_rows=base * k, stage_bytes=stage_bytes, stages=stages,
+                smem=BWD_BAR_BYTES + stages * stage_bytes, tiles=tiles, grid=grid,
+                threads=BWD_THREADS, workspace=2 * grid * d, reduce_grid=(-(-d // 32), 2))
+
+
+def _bwd_tiles(plan: dict, cta: int) -> range:
+    """The tiles that CTA ``cta`` of K3b takes, in its order; tile t holds
+    rows [t * tile_rows, min((t + 1) * tile_rows, rows))."""
+    return range(cta, plan["tiles"], plan["grid"])
 
 
 def fused_add_ln_backward(r: torch.Tensor, mu: torch.Tensor, rsig: torch.Tensor,
@@ -164,9 +212,11 @@ def fused_add_ln_backward(r: torch.Tensor, mu: torch.Tensor, rsig: torch.Tensor,
     """(stored r (..., d), mu, rsig (...) f32, gamma (d,) f32, dr, dy (..., d))
     → (dx, dgamma, dbeta); dx is the gradient of both x and delta.
 
-    CUDA tensors: kernel K3b, whose per-block dgamma/dbeta partials are
-    summed here. CPU tensors: ``add_ln_backward_reference``. ``dr`` and
-    ``dy`` may be strided: they are made contiguous here.
+    CUDA tensors: kernel K3b (launched as ``_bwd_plan`` says, with an f32
+    workspace for its CTAs' dgamma / dbeta partials from the caching
+    allocator; one launch counted for its two kernels). CPU tensors:
+    ``add_ln_backward_reference``. ``dr`` and ``dy`` may be strided: they are
+    made contiguous here.
     """
     d = r.shape[-1]
     _check_width("fused_add_ln_backward", d)
@@ -182,20 +232,23 @@ def fused_add_ln_backward(r: torch.Tensor, mu: torch.Tensor, rsig: torch.Tensor,
     _check_kernel_operands("fused_add_ln_backward", r, dr, dy)
     _check_kernel_operands("fused_add_ln_backward", mu, rsig, weight)   # all float32
     rows = r.numel() // d
-    n_blocks = backward_blocks(rows)
+    sms = torch.cuda.get_device_properties(r.device).multi_processor_count
+    plan = _bwd_plan(rows, d, sms, r.element_size())
     dx = torch.empty_like(r)
-    dg_part, db_part = (torch.empty((n_blocks, d), dtype=torch.float32, device=r.device)
-                        for _ in range(2))
+    dgamma, dbeta = (torch.empty(d, dtype=torch.float32, device=r.device) for _ in range(2))
+    workspace = torch.empty(plan["workspace"], dtype=torch.float32, device=r.device)
     lib = _lib()
     with torch.cuda.device(r.device):
         err = lib.dlsc_add_ln_bwd(
             r.data_ptr(), mu.data_ptr(), rsig.data_ptr(), weight.data_ptr(), dr.data_ptr(),
-            dy.data_ptr(), dx.data_ptr(), dg_part.data_ptr(), db_part.data_ptr(), rows, d,
-            n_blocks, _DTYPES[r.dtype], torch.cuda.current_stream().cuda_stream)
+            dy.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+            workspace.data_ptr(), rows, d, _DTYPES[r.dtype], plan["grid"], plan["threads"],
+            plan["smem"], plan["stages"], plan["tile_rows"],
+            torch.cuda.current_stream().cuda_stream)
     _kernels.check(lib, err, "add + LayerNorm backward kernel")
     global bwd_launches
     bwd_launches += 1
-    return dx, dg_part.sum(0), db_part.sum(0)
+    return dx, dgamma, dbeta
 
 
 @torch.library.custom_op("dlsc_tpu_torch::add_ln", mutates_args=())

@@ -19,7 +19,8 @@ sums on both sides), two bf16 K4b calls bit-identical; K1 also at n_fft 256,
 512 and 2048, and two calls bit-identical; K3f/K3b: r exact
 in both types (both round one f32 sum), y, dx, dgamma and dbeta 1e-5
 normalised in f32 (summation order only) and 1e-2 in bf16 (the outputs
-stored in bf16); the small AST-Small train step with ``ln_fused`` through
+stored in bf16), two K3b calls bit-identical, no K3 kernel spilling, and a
+K3b launch other than ``_bwd_plan``'s refused; the small AST-Small train step with ``ln_fused`` through
 K2 and K3 vs plain ops 1e-4, as the AST step.
 """
 
@@ -481,12 +482,13 @@ def test_small_ast_moe_train_step_through_kernels_matches_plain(cuda_device):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("d", [192, 384, 768, 1024, 8])
-@pytest.mark.parametrize("rows", [5003, 3])
+@pytest.mark.parametrize("rows", [5003, 3, 1])
 def test_add_ln_kernels_match_plain(dtype, tol, d, rows, cuda_device):
     """K3f and K3b against their plain versions on the same inputs: r
     exact, y/mu/rsig and dx/dgamma/dbeta within the bar, one launch each.
-    5003 rows: a ragged last block, and more rows than the backward's grid
-    has warps (each warp walks several)."""
+    5003 rows: a short last tile of K3b (no multiple of its 4, 8 or 16
+    rows, nor of 4: the last stats are plain loads); 3 and 1 rows: one
+    short tile, one CTA."""
     rng = np.random.default_rng(d + rows)
     x, delta, dr, dy = (torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32))
                         .to(cuda_device, dtype) for _ in range(4))
@@ -510,6 +512,52 @@ def test_add_ln_kernels_match_plain(dtype, tol, d, rows, cuda_device):
         assert torch.isfinite(g).all(), name
         assert _norm_err(g.float(), w.float()) <= tol, name
     assert (LN.launches, LN.bwd_launches) == (1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,rows", [(192, 106_496), (384, 49_152), (768, 20_003)])
+def test_add_ln_backward_is_deterministic(dtype, d, rows, cuda_device):
+    """Two K3b calls give the same bits (dgamma / dbeta summed in a fixed
+    order, no atomics), at the models' widths with every CTA walking many
+    tiles (20 003: a short last tile)."""
+    g = torch.Generator(cuda_device).manual_seed(d)
+    r, dr, dy = (torch.randn(rows, d, generator=g, device=cuda_device).to(dtype)
+                 for _ in range(3))
+    mu, rsig = r.float().mean(-1), 1 + torch.rand(rows, generator=g, device=cuda_device)
+    gamma = 1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)
+    a = LN.fused_add_ln_backward(r, mu, rsig, gamma, dr, dy)
+    b = LN.fused_add_ln_backward(r, mu, rsig, gamma, dr, dy)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_add_ln_kernels_spill_nothing(cuda_device):
+    """Every K3 kernel (each type and chunk count, and K3b's summing kernel)
+    spills nothing (``-Xptxas -v``, a build flag of the library)."""
+    log = _kernels.build_log("ln_fused")
+    entries = re.findall(r"Compiling entry function '(\S+)'", log)
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
+    assert len(entries) == 17 and len(spills) >= len(entries) and not any(spills)
+
+
+def test_add_ln_backward_refuses_another_plan(cuda_device):
+    """The C entry point launches only ``_bwd_plan``'s grid and tiles."""
+    rows, d = 4096, 384
+    t = torch.zeros(rows, d, device=cuda_device, dtype=torch.bfloat16)
+    f = torch.zeros(rows, device=cuda_device)
+    w = torch.ones(d, device=cuda_device)
+    plan = LN._bwd_plan(rows, d, torch.cuda.get_device_properties(cuda_device)
+                        .multi_processor_count)
+    ws = torch.empty(plan["workspace"] + 2 * d, device=cuda_device)
+    lib = LN._lib()
+    for bad in (dict(grid=plan["grid"] + 1), dict(tile_rows=plan["tile_rows"] * 2),
+                dict(stages=plan["stages"] - 1)):
+        p = {**plan, **bad}
+        err = lib.dlsc_add_ln_bwd(t.data_ptr(), f.data_ptr(), f.data_ptr(), w.data_ptr(),
+                                  t.data_ptr(), t.data_ptr(), t.data_ptr(), w.data_ptr(),
+                                  w.data_ptr(), ws.data_ptr(), rows, d, 0, p["grid"],
+                                  p["threads"], p["smem"], p["stages"], p["tile_rows"],
+                                  torch.cuda.current_stream().cuda_stream)
+        assert err != 0, bad
 
 
 def test_add_ln_op_gradient_matches_autograd_of_plain(cuda_device):

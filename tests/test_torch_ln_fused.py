@@ -12,7 +12,12 @@ Tolerances, each with its reason:
 - the four gradients in f32: 1e-5 normalised by the largest |gradient|
   (dgamma and dbeta are sums over every row: summation order only);
 - y in bf16: one bf16 rounding step of |y| (2^-7 relative, at |y| up to ~4),
-  since a last-bit difference in the f32 value can round either way.
+  since a last-bit difference in the f32 value can round either way;
+- dgamma / dbeta summed as K3b sums them (``_mirror_bwd_sums``, a numpy
+  mirror of its order: each thread's rows in walk order, a CTA's (warp, row
+  slot) sums in order, the CTAs' partials in the summing kernel's order)
+  against the plain backward and the Pallas kernel: 1e-6 normalised (f32
+  sums of the same terms in other orders).
 """
 
 import jax
@@ -129,4 +134,91 @@ def test_any_row_count_and_no_launch_on_the_cpu():
     r, y, _, _ = L.add_ln(*(torch.from_numpy(t) for t in (x, delta, gamma, beta)))
     assert r.shape == y.shape == (7, 3, 24)
     assert (L.launches, L.bwd_launches) == (0, 0)
-    assert L.backward_blocks(7 * 3) == 3 and L.backward_blocks(10**6) == L.BWD_MAX_BLOCKS
+    # K3b's grid is fixed by the shape and the SM count: one tile, one CTA here
+    plan = L._bwd_plan(7 * 3, 24, 132)
+    assert (plan["tiles"], plan["grid"]) == (1, 1)
+    assert L._bwd_plan(10**6, 24, 132)["grid"] == 132 * L.BWD_CTAS_PER_SM
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to f32, as the card's FFMA (the f64 product of
+    two f32 values is exact)."""
+    return (a.astype(np.float64) * b.astype(np.float64) + c).astype(np.float32)
+
+
+def _mirror_bwd_sums(r, mu, rsig, dy, plan):
+    """dgamma, dbeta (f32) summed in K3b's order (``csrc/ln_fused.cu``): the
+    thread of (CTA, warp, slot) adds dy * xhat and dy of its rows in walk
+    order (its CTA's tiles, ``_bwd_tiles``; in a tile the row groups warp,
+    warp + 4, ...; in a group row slot), with xhat = (r - mu) * rsig in f32;
+    the CTA adds its (warp, slot) sums in that order; the summing kernel's
+    warp s adds the CTAs s, s + 32, ... and its warp 0 the 32 sums in order."""
+    rows, d = dy.shape
+    R, rpw, W, grid = plan["tile_rows"], plan["rows_per_warp"], L.BWD_WARPS, plan["grid"]
+    xh = (r - mu[:, None]) * rsig[:, None]
+    zero = np.zeros(d, np.float32)
+    parts = []
+    for cta in range(grid):
+        sums = []
+        for w in range(W):
+            for slot in range(rpw):
+                pg, pb = zero.copy(), zero.copy()
+                for t in L._bwd_tiles(plan, cta):
+                    for grp in range(w, R // rpw, W):
+                        row = t * R + grp * rpw + slot
+                        if row < rows:
+                            pg = _fma(dy[row], xh[row], pg)
+                            pb = pb + dy[row]
+                sums.append((pg, pb))
+        cta_sum = sums[0]
+        for pg, pb in sums[1:]:
+            cta_sum = (cta_sum[0] + pg, cta_sum[1] + pb)
+        parts.append(cta_sum)
+    out = []
+    for which in range(2):
+        acc = []
+        for s in range(L.REDUCE_SPLIT):
+            a = zero.copy()
+            for b in range(s, grid, L.REDUCE_SPLIT):
+                a = a + parts[b][which]
+            acc.append(a)
+        total = acc[0]
+        for a in acc[1:]:
+            total = total + a
+        out.append(total)
+    return out
+
+
+@pytest.mark.parametrize("rows,d,n_sm", [(1003, 384, 4), (517, 768, 3), (1001, 192, 2),
+                                         (1, 384, 132), (37, 8, 1)])
+def test_kernel_summation_order_matches_plain_backward(rows, d, n_sm):
+    """K3b's dgamma / dbeta order (``_mirror_bwd_sums``) against the plain
+    backward, at a few SMs so that every CTA walks several tiles and the last
+    tile is short (1003 rows are 125 tiles of 8 and one of 3 rows)."""
+    rng = np.random.default_rng(rows + d)
+    x, delta, gamma, beta = _inputs(rows, (rows, d))
+    dr, dy = (rng.standard_normal((rows, d)).astype(np.float32) for _ in range(2))
+    r, _, mu, rsig = L.add_ln_reference(*(torch.from_numpy(t) for t in (x, delta, gamma, beta)))
+    _, dgamma, dbeta = L.add_ln_backward_reference(r, mu, rsig, torch.from_numpy(gamma),
+                                                   torch.from_numpy(dr), torch.from_numpy(dy))
+    plan = L._bwd_plan(rows, d, n_sm)
+    assert plan["grid"] == min(n_sm * L.BWD_CTAS_PER_SM, plan["tiles"])
+    got = _mirror_bwd_sums(r.numpy(), mu.numpy(), rsig.numpy(), dy, plan)
+    for g, w in zip(got, (dgamma.numpy(), dbeta.numpy())):
+        assert np.abs(g - w).max() <= 1e-6 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("rows,d", [(1000, 192), (256, 384)])
+def test_kernel_summation_order_matches_jax(rows, d):
+    """The same order against dgamma / dbeta of the Pallas kernel's VJP
+    (interpret mode) for the same cotangents (dr, dy)."""
+    rng = np.random.default_rng(d)
+    x, delta, gamma, beta = _inputs(d, (rows, d))
+    dr, dy = (rng.standard_normal((rows, d)).astype(np.float32) for _ in range(2))
+    _, vjp = jax.vjp(lambda *a: jax_fused_add_ln(*a, interpret=True),
+                     *(jnp.asarray(t) for t in (x, delta, gamma, beta)))
+    _, _, jg, jb = vjp((jnp.asarray(dr), jnp.asarray(dy)))
+    r, _, mu, rsig = L.add_ln_reference(*(torch.from_numpy(t) for t in (x, delta, gamma, beta)))
+    got = _mirror_bwd_sums(r.numpy(), mu.numpy(), rsig.numpy(), dy, L._bwd_plan(rows, d, 3))
+    for g, w in zip(got, (np.asarray(jg), np.asarray(jb))):
+        assert np.abs(g - w).max() <= 1e-6 * np.abs(w).max()

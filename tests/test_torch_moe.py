@@ -274,6 +274,84 @@ def test_expert_token_count_names_the_experts_without_gradient():
             assert no_grad == ((i, e) in idle), (i, e)
 
 
+def _router_run(remat: bool):
+    """A tiny f32 AST-MoE forward and backward with ``chip_smoke.RouterTerms``
+    installed: (terms, model, loss, every router call's (x, logits) of the
+    forward, the count of reported gradients per block)."""
+    import chip_smoke
+
+    model = ASTMoE(**SMALL, dtype=torch.float32, remat=remat,
+                   generator=torch.Generator().manual_seed(0))
+    model.train()
+    terms = chip_smoke.RouterTerms(model)
+    reported = {}
+    record = terms._backward
+
+    def counted(i, x, g):
+        reported[i] = reported.get(i, 0) + 1
+        record(i, x, g)
+
+    terms._backward = counted
+    calls = []
+    for moe in terms.layers.values():
+        moe.router_hook = (lambda hook: lambda x, logits: (calls.append((x, logits)),
+                                                           hook(x, logits)))(moe.router_hook)
+    out, aux, _ = model(torch.from_numpy(_features(6)), dropout_seed=3, return_aux=True)
+    loss = out.square().sum() + aux
+    return terms, model, loss, calls, reported
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_router_terms_match_autograd(remat):
+    """Phase 11's router metric (``chip_smoke.RouterTerms``): the captured
+    logits' gradient G and router input X give |G|^T |X| equal to its
+    recomputation from autograd's own gradient of the logits, and G^T X the
+    router weight's gradient; under remat the re-forward asks the router
+    again, and exactly one call a block reports (1e-6 normalised: the same
+    f32 sums in another order)."""
+    terms, model, loss, calls, reported = _router_run(remat)
+    first = calls[:len(terms.layers)]   # the forward's calls; a re-forward comes later
+    routers = [moe.router.weight for moe in terms.layers.values()]
+    # one backward (a remat region takes no second): autograd's own gradients
+    # of the logits and of the router weights, the hooks reporting meanwhile
+    want = torch.autograd.grad(loss, [logits for _, logits in first] + routers)
+    want_g, want_w = want[:len(first)], want[len(first):]
+    assert reported == {i: 1 for i in terms.layers}
+    assert len(calls) == len(terms.layers) * (1 + remat)
+    for i, (x, _), g, w in zip(terms.layers, first, want_g, want_w):
+        x, g = x.reshape(-1, x.shape[-1]), g.reshape(-1, g.shape[-1])
+        assert torch.equal(terms.x[i], x.detach())
+        for got, want in ((terms.g[i].abs().T @ terms.x[i].abs(), g.abs().T @ x.abs()),
+                          (terms.g[i].T @ terms.x[i], w)):
+            assert ((got - want).abs().max() / want.abs().max()).item() < 1e-6
+    terms.remove()
+    assert all(moe.router_hook is None for moe in terms.layers.values())
+
+
+def test_router_reading_is_the_error_over_the_terms_size():
+    """``RouterTerms.scale`` is c max(|G|^T |X|) with c the clip factor the
+    given gradient carries; ``router_err`` reads 0 between identical runs and
+    eps / scale for an error eps planted in one entry."""
+    import chip_smoke
+
+    terms, model, loss, _, _ = _router_run(False)
+    loss.backward()
+    grads = {f"blocks.{i}.moe.router.weight": 0.25 * moe.router.weight.grad
+             for i, moe in terms.layers.items()}   # clipped by 1/4
+    scales = terms.scales(grads)
+    for i in terms.layers:
+        name = f"blocks.{i}.moe.router.weight"
+        size = (terms.g[i].abs().T @ terms.x[i].abs()).max().item()
+        assert scales[name] == pytest.approx(0.25 * size, rel=1e-6)
+        grad = grads[name]
+        assert chip_smoke.router_err(grad, grad.clone(), scales[name]) == 0.0
+        eps = 1e-3 * grad.abs().max().item()
+        planted = grad.clone()
+        planted[1, 2] += eps
+        assert chip_smoke.router_err(planted, grad, scales[name]) == pytest.approx(
+            eps / scales[name], rel=1e-3)
+
+
 # ---- the train step -------------------------------------------------------------
 
 def test_train_step_matches_jax():
