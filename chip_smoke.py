@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small and AST-Mini serving and training on one GPU.
+"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small and AST-Mini serving and training, and its training entry point, on one GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -100,7 +100,21 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     bf16 through the kernels (remat ``attn_res``) vs the f32 plain step;
 17. AST-Mini with ``ln_fused``: one served batch of 8 (K2 at 3 heads, K3 at
     width 192) held against plain f32 ops, then 2 train steps at batch 64
-    with every parameter changed.
+    with every parameter changed;
+18. the trainer slice (``phase_trainer``), AST-Base at full width and depth
+    through the port's CLIs: synthetic shards in ESC-50's layout (5 folds,
+    50 classes, 4 clips a class a fold, 5 s, PCM16, seeded); ``scripts/
+    train.py model=ast`` in bf16 at batch 64 for 2 epochs of 11 steps from
+    the device-resident pool (K1 = steps + eval batches, K2f 12x that, K2b
+    12 x steps), every epoch's loss finite, a best and a ``last``
+    checkpoint, test metrics in [0, 1]; the test fold from the pool and from
+    host batches (equal confusion matrices, losses within 1e-5);
+    ``scripts/evaluate.py`` on the best checkpoint (the train run's test);
+    ``predict`` by checkpoint and by an exported artifact on a 5-s, a 12-s
+    and a 2-s file (the same top-1, probabilities within 1e-2); an
+    ``auto_resume`` run that continues from step 22 for one epoch. Prints the
+    trainer's epoch clips/s beside phase 5's bench clips/s, the fit's wall
+    time, checkpoint writes and the data's generation time.
 
 Routes: a near-tie between two router gates flips a token's expert under a
 perturbation as small as bf16 rounding, and a flipped route moves a whole
@@ -111,7 +125,8 @@ free run would flip, and what that does to the outputs.
 
 The last two lines are a JSON object with each kernel's launches, error,
 times and bound, and ``{"ok": true, "device": {...}}``. Needs no network
-and one card; ``model=ast_small``'s export goes through the CLI, so pyyaml.
+and one card; ``model=ast_small``'s export and phase 18 go through the
+CLIs, so pyyaml.
 """
 
 from __future__ import annotations
@@ -122,6 +137,7 @@ import contextlib
 import functools
 import http.client
 import json
+import os
 import re
 import subprocess
 import tempfile
@@ -831,9 +847,9 @@ def phase_slice(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
     return counts
 
 
-def phase_train(dev: torch.device, seed: int, card: str) -> tuple[dict, float]:
+def phase_train(dev: torch.device, seed: int, card: str) -> tuple[dict, dict]:
     """The training slice at the bench's configuration, batch 64: (launch
-    counts, ms per step)."""
+    counts, the bench's record)."""
     step, state, ms, wave, labels = bench.build(TRAIN_BATCH, seed, dev)
     before = [p.detach().clone() for p in state.model.parameters()]
     torch.cuda.reset_peak_memory_stats(dev)
@@ -864,7 +880,7 @@ def phase_train(dev: torch.device, seed: int, card: str) -> tuple[dict, float]:
     require(not unchanged, f"{len(unchanged)} of {len(params)} parameters did not change")
     require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n),
             f"launch counts {counts} over {n} steps")
-    return counts, rec["step_ms"]
+    return counts, rec
 
 
 def phase_parity(dev: torch.device, seed: int) -> None:
@@ -1946,6 +1962,160 @@ def phase_mini(dev: torch.device, seed: int, tmp: Path, card: str) -> tuple[dict
     return serve_counts, counts
 
 
+# --- phase 18: the trainer slice (the train, evaluate, predict and export CLIs) --------
+
+TRAINER_CLASSES, TRAINER_CLIPS, TRAINER_FOLDS = 50, 4, 5   # ESC-50's layout, 1000 clips
+TRAINER_EPOCHS = 2
+TEST_LOSS_REL = 1e-5    # the same weights and clips through the same kernels: the pool's
+                        # gather against host batches changes no arithmetic
+PREDICT_PROB_ERR = 1e-2  # bf16 model: the checkpoint mode runs its 6 windows as one
+                         # batch, the artifact in padded batches of 8, so GEMM tiling differs
+
+
+def _trainer_shapes(n_train_pool: int, n_test: int, batch: int) -> dict:
+    """Steps and eval batches of one fit + test of the train CLI: the val
+    split is ceil(10%) of the pool (``_stratified_split``), train batches
+    drop the last partial one, eval batches keep it."""
+    n_val = -(-n_train_pool // 10)
+    steps = (n_train_pool - n_val) // batch
+    val_batches = -(-n_val // batch)
+    test_batches = -(-n_test // batch)
+    return dict(steps=steps, val_batches=val_batches, test_batches=test_batches)
+
+
+def _dir_mb(path: Path) -> float:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e6
+
+
+def phase_trainer(dev: torch.device, seed: int, tmp: Path, card: str,
+                  bench_clips_s: float | None = None) -> dict:
+    """The training entry point end to end at AST-Base's full width and
+    depth: synthetic ESC-50-layout shards, ``scripts/train.py`` (2 epochs,
+    bf16, batch 64, the device pool), test from the pool and from host
+    batches, ``scripts/evaluate.py`` on the best checkpoint, ``predict`` in
+    checkpoint and artifact modes, and an ``auto_resume`` run. Returns the
+    train CLI's launch counts."""
+    from dlsc_tpu_torch.config import compose
+    from dlsc_tpu_torch.data.synthetic import make_synthetic_dataset, synth_clip
+    from dlsc_tpu_torch.scripts import evaluate, export, predict
+    from dlsc_tpu_torch.scripts import train as train_cli
+    from dlsc_tpu_torch.train.loop import Trainer
+
+    os.environ["DLSC_TRACKING_DIR"] = str(tmp / "runs")
+    t0 = time.perf_counter()
+    make_synthetic_dataset(tmp / "data", num_classes=TRAINER_CLASSES,
+                           clips_per_class_per_fold=TRAINER_CLIPS, n_folds=TRAINER_FOLDS,
+                           clip_samples=CLIP, seed=seed)
+    data_s = time.perf_counter() - t0
+    per_fold = TRAINER_CLASSES * TRAINER_CLIPS
+    print(f"trainer: {TRAINER_FOLDS * per_fold} synthetic clips ({TRAINER_FOLDS} folds, "
+          f"{TRAINER_CLASSES} classes, 5 s, PCM16, {_dir_mb(tmp / 'data'):.0f} MB) written in "
+          f"{data_s:.2f} s  [{card}]", flush=True)
+    common = [f"dataset.root={tmp / 'data'}", "dataset.fold=0", "trainer.precision=bf16-mixed",
+              f"batch_size={TRAIN_BATCH}", f"checkpoint.dirpath={tmp / 'ckpt'}",
+              "+checkpoint.save_last=true", f"hydra.run.dir={tmp / 'run'}", f"seed={seed}"]
+    shapes = _trainer_shapes((TRAINER_FOLDS - 1) * per_fold, per_fold, TRAIN_BATCH)
+    steps = TRAINER_EPOCHS * shapes["steps"]
+    evals = TRAINER_EPOCHS * shapes["val_batches"] + shapes["test_batches"]
+
+    # --- the main path: only these launches are counted ---------------------
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = train_cli.main(["model=ast", *common, f"trainer.max_epochs={TRAINER_EPOCHS}"])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = _launch_counts()
+    # --------------------------------------------------------------------------
+    trainer = res.pop("trainer")
+    hist = trainer.history
+    best = trainer.ckpt_manager.best_path
+    last = best.parent / "last"
+    require([h["epoch"] for h in hist] == list(range(TRAINER_EPOCHS)),
+            f"trainer epochs {[h['epoch'] for h in hist]}")
+    require(all(np.isfinite(h["train/loss"]) and "val/acc" in h for h in hist),
+            f"trainer epoch metrics {hist}")
+    require(best.is_dir() and (best / "state.pt").exists() and (last / "state.pt").exists(),
+            f"checkpoints {best}, {last}")
+    require(trainer._use_device_data, "the device-resident pool was not used")
+    require(all(np.isfinite(res[k]) for k in ("test/acc", "test/f1", "test/auroc", "test/loss"))
+            and all(0.0 <= res[k] <= 1.0 for k in ("test/acc", "test/f1", "test/auroc")),
+            f"test metrics {res}")
+    require(counts == _counts(k1=steps + evals, k2f=DEPTH * (steps + evals), k2b=DEPTH * steps),
+            f"trainer launch counts {counts}: {steps} train steps, {evals} eval batches")
+    clips_s = hist[-1]["perf/clips_per_sec_per_chip"]
+    ratio = "" if bench_clips_s is None else (
+        f"; phase 5's bench {bench_clips_s:.2f} clips/s, ratio {clips_s / bench_clips_s:.4f}")
+    ckpt_mb = _dir_mb(last)
+    print(f"trainer: AST-Base bf16 batch {TRAIN_BATCH}, {TRAINER_EPOCHS} epochs x "
+          f"{shapes['steps']} steps (device pool): fit {trainer.fit_seconds:.2f} s, train "
+          f"CLI (fit + test) {main_s:.2f} s; epoch {TRAINER_EPOCHS - 1} "
+          f"{clips_s:.2f} clips/s{ratio}; epoch 0 {hist[0]['perf/clips_per_sec_per_chip']:.2f}"
+          f" clips/s; checkpoint writes {len(trainer.ckpt_manager.write_seconds)} x "
+          f"{ckpt_mb:.0f} MB in {', '.join(f'{t:.2f}' for t in trainer.ckpt_manager.write_seconds)}"
+          f" s; train/loss {[round(h['train/loss'], 4) for h in hist]}, val/acc "
+          f"{[round(h['val/acc'], 4) for h in hist]}; test acc {res['test/acc']:.4f} F1 "
+          f"{res['test/f1']:.4f} AUROC {res['test/auroc']:.4f} loss {res['test/loss']:.4f}; "
+          f"launches {counts}  [{card}]", flush=True)
+
+    # --- the test fold from the pool and from host batches, on the best checkpoint
+    cfg = compose(*train_cli.parse_cli(["model=ast", *common]))
+    dm = train_cli.build_datamodule(cfg)
+    from_pool = trainer.test(dm, state=trainer.state, ckpt=best)
+    host = Trainer(**cfg.trainer.to_dict(), enable_checkpointing=False, device_data=False,
+                   seed=seed)
+    from_host = host.test(dm, state=trainer.state, ckpt=best)
+    require(not host._use_device_data, "the host-streamed test used the pool")
+    loss_rel = abs(from_host["test/loss"] - from_pool["test/loss"]) / abs(from_pool["test/loss"])
+    require(np.array_equal(from_pool["confmat"], from_host["confmat"])
+            and loss_rel <= TEST_LOSS_REL,
+            f"pool vs host test: loss {from_pool['test/loss']} vs {from_host['test/loss']}")
+
+    # --- evaluate on the best checkpoint ---------------------------------------
+    ev = evaluate.main(["model=ast", *common, f"+ckpt_path={best}"])
+    ev_rel = abs(ev["test/loss"] - res["test/loss"]) / abs(res["test/loss"])
+    require(np.array_equal(ev["confmat"], res["confmat"]) and ev_rel <= TEST_LOSS_REL,
+            f"evaluate: loss {ev['test/loss']} vs the train run's {res['test/loss']}")
+    print(f"trainer: test from the pool and from host batches agree (loss rel {loss_rel:.2e}, "
+          f"confusion matrices equal); evaluate +ckpt_path=best agrees with the train run's "
+          f"test (loss rel {ev_rel:.2e})", flush=True)
+
+    # --- predict: checkpoint mode and an exported artifact ----------------------
+    rng = np.random.default_rng(seed + 18)
+    files = []
+    for seconds, label in ((5, 3), (12, 17), (2, 41)):
+        p = tmp / f"clip_{seconds}s.wav"
+        W.write_wav(p, synth_clip(rng, label, seconds * 44_100), 44_100)
+        files.append(str(p))
+    files_arg = "+files=[" + ",".join(files) + "]"
+    by_ckpt = predict.main(["model=ast", *common, f"+ckpt_path={best}", files_arg])
+    art = export.main(["model=ast", f"+ckpt_path={best}", f"+out={tmp / 'art'}",
+                       "+dtype=bfloat16", f"+batch={SERVE_BATCH}", f"+clip_samples={CLIP}"])
+    by_art = predict.main([f"+artifact={art}", files_arg])
+    diffs = []
+    for a, b in zip(by_ckpt, by_art, strict=True):
+        pa, pb = dict(a["top_k"]), dict(b["top_k"])
+        diffs.append(max(abs(pa[c] - pb[c]) for c in pa.keys() & pb.keys()))
+        require(a["top_k"][0][0] == b["top_k"][0][0] and diffs[-1] <= PREDICT_PROB_ERR,
+                f"predict modes disagree on {a['file']}: {a['top_k']} vs {b['top_k']}")
+    print(f"trainer: predict top-1 by checkpoint {[r['top_k'][0] for r in by_ckpt]}, by "
+          f"artifact {[r['top_k'][0] for r in by_art]}; top-1 margins "
+          f"{[round(r['top_k'][0][1] - r['top_k'][1][1], 6) for r in by_ckpt]}, largest "
+          f"probability difference per file {[f'{d:.2e}' for d in diffs]}", flush=True)
+
+    # --- resume from 'last' for one more epoch -----------------------------------
+    step0 = torch.load(last / "state.pt", map_location="cpu", weights_only=True)["step"]
+    again = train_cli.main(["model=ast", *common, f"trainer.max_epochs={TRAINER_EPOCHS + 1}",
+                            "+trainer.auto_resume=true"])
+    resumed = again.pop("trainer")
+    step1 = torch.load(last / "state.pt", map_location="cpu", weights_only=True)["step"]
+    require(step0 == steps and [h["epoch"] for h in resumed.history] == [TRAINER_EPOCHS]
+            and step1 == steps + shapes["steps"],
+            f"resume: step {step0} → {step1}, epochs {[h['epoch'] for h in resumed.history]}")
+    print(f"trainer: auto_resume from 'last' at step {step0} ran epoch {TRAINER_EPOCHS} "
+          f"to step {step1}  [{card}]", flush=True)
+    return counts
+
+
 def moe_parity_sweep(dev: torch.device, seeds: str, card: str, fault: str | None = None
                      ) -> None:
     """Phase 11 at each seed of ``seeds`` ("A-B"), every reading kept, with
@@ -2011,7 +2181,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_slice(dev, args.seed, Path(tmp), card)
     torch.cuda.empty_cache()
-    train, base_step_ms = phase_train(dev, args.seed, card)
+    train, bench_rec = phase_train(dev, args.seed, card)
     torch.cuda.empty_cache()
     phase_parity(dev, args.seed)
     torch.cuda.empty_cache()
@@ -2033,18 +2203,22 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         small_serve = phase_small_slice(dev, args.seed, Path(tmp), card)
     torch.cuda.empty_cache()
-    small_train = phase_small_train(dev, args.seed, card, base_step_ms)
+    small_train = phase_small_train(dev, args.seed, card, bench_rec["step_ms"])
     torch.cuda.empty_cache()
     phase_small_parity(dev, args.seed)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         mini_serve, mini_train = phase_mini(dev, args.seed, Path(tmp), card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer_run = phase_trainer(dev, args.seed, Path(tmp), card, bench_rec["value"])
 
-    # launches: the training runs'; launches_serving: the serving runs';
+    # launches: the training runs' (ast_trainer: the train CLI's fit, its
+    # validation and its test); launches_serving: the serving runs';
     # launches_by_path: each main path's run, counted from 0 (ast_mini: its
     # served batch and its 2 train steps)
     train_runs = dict(ast_train=train, ast_moe_train=moe_train, ast_small_train=small_train,
-                      ast_mini_train=mini_train)
+                      ast_mini_train=mini_train, ast_trainer=trainer_run)
     serve_runs = dict(ast_serve=serve, ast_moe_serve=moe_serve, ast_small_serve=small_serve,
                       ast_mini_serve=mini_serve)
 

@@ -1,1 +1,2 @@
-"""Serving-side data helpers of the port: WAV I/O and the eval pipeline."""
+"""Data layer of the port: WAV I/O, fold shards, datamodules, the host
+prefetcher and the device pipeline."""

@@ -3,7 +3,9 @@
 The port's copy of ``dlsc_tpu/data/wav.py``, re-homed so that the serving
 path imports no jax (``dlsc_tpu.data`` pulls jax in through its package
 ``__init__``). Same semantics: decode → mono mean → resample → peak
-normalize.
+normalize (``standardize``). The JAX package's optional C++ decoder
+(``dlsc_tpu/native``) is not ported (ROADMAP §1 M9a): ``standardize`` is its
+Python path, the one the JAX package falls back to.
 """
 
 from __future__ import annotations
@@ -77,3 +79,9 @@ def peak_normalize(data: np.ndarray, eps: float = 1e-9) -> np.ndarray:
     """Divide by peak magnitude (reference: prepare_esc50.py:98-101)."""
     peak = np.abs(data).max()
     return data / peak if peak > eps else data
+
+
+def standardize(path: str | Path | BinaryIO, target_sr: int) -> np.ndarray:
+    """Full prep chain for one file: decode → mono → resample → peak-norm."""
+    data, sr = read_wav(path)
+    return peak_normalize(resample(to_mono(data), sr, target_sr)).astype(np.float32)

@@ -12,10 +12,17 @@ The moves: conv kernel HWIO → OIHW; Dense kernel (in, out) → Linear weight
 what the port's packed-qkv split and head merge expect. An MoE block's
 ``moe/router/kernel`` is a Dense kernel like any other; its stacked expert
 tensors ``wi``, ``bi``, ``wo`` and ``bo`` keep their layout.
+
+``params_from_npz`` reads that tree from an ``.npz`` of the flattened
+``params`` collection (keys joined by ``/``, e.g.
+``blocks_0/attn/qkv/kernel``), the form in which a JAX-trained trunk
+reaches the port (``scripts/export.py +params_npz=``, the Trainer's
+``pretrained_path``).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Mapping
 
 import numpy as np
@@ -74,3 +81,21 @@ def params_from_jax(params_np: Mapping[str, Any], model: nn.Module) -> dict[str,
             raise ValueError(f"{k}: JAX shape {sd[k].shape} vs model {tuple(ref.shape)}")
         out[k] = torch.tensor(sd[k], dtype=torch.float32)  # a copy, writable
     return out
+
+
+def unflatten(npz: Mapping[str, np.ndarray]) -> dict:
+    """``{"a/b/c": x}`` → ``{"a": {"b": {"c": x}}}``."""
+    tree: dict = {}
+    for key in npz.keys():
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = npz[key]
+    return tree
+
+
+def params_from_npz(path: str | Path, model: nn.Module) -> dict[str, torch.Tensor]:
+    """``params_from_jax`` of the flattened Flax ``params`` tree in ``path``."""
+    with np.load(str(path)) as npz:
+        return params_from_jax(unflatten(npz), model)

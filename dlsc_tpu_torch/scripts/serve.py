@@ -12,7 +12,7 @@ from __future__ import annotations
 import sys
 
 from dlsc_tpu_torch.config import compose
-from dlsc_tpu_torch.scripts.export import parse_cli
+from dlsc_tpu_torch.scripts.train import parse_cli
 from dlsc_tpu_torch.server import ModelServer
 
 

@@ -1,1 +1,2 @@
-"""Training: losses, optimizers, metrics, state and the train/eval steps."""
+"""Training: losses, optimizers, metrics, state, the train/eval steps,
+checkpoints and the Trainer (``loop.py``)."""

@@ -17,7 +17,8 @@ at lr(0), as optax's ``scale_by_schedule`` does. ``clip_by_global_norm_``
 is optax's clip (scale by max_norm / norm only when norm >= max_norm), not
 ``torch.nn.utils.clip_grad_norm_`` (which divides by norm + 1e-6); it runs
 first, ahead of the L2 term. ``TrainState.apply_gradients`` does the three
-in that order. The SWA schedule wrap waits for the trainer (ROADMAP M9).
+in that order. ``swa_lr_wrap`` bakes SWA's annealing phase into the
+schedule, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -89,10 +90,33 @@ def lr_schedule(optim: OptimizerSpec, sched: SchedulerSpec | None,
     return fn
 
 
+def swa_lr_wrap(base: Callable[[int], float], *, swa_lr: float, start_epoch: int,
+                annealing_epochs: int, steps_per_epoch: int) -> Callable[[int], float]:
+    """SWA's learning rate (torch ``SWALR``, as Lightning's SWA callback
+    runs it): from ``start_epoch`` the LR cosine-anneals from the scheduled
+    value at SWA's start down to ``swa_lr`` over ``annealing_epochs``
+    epochs, then holds ``swa_lr``; before it, ``base``."""
+    spe = max(steps_per_epoch, 1)
+    lr0 = float(base(start_epoch * spe))
+    ann = max(int(annealing_epochs), 1)
+
+    def fn(step: int) -> float:
+        epoch = step // spe
+        if epoch < start_epoch:
+            return base(step)
+        t = min(1.0, (epoch - start_epoch + 1) / ann)
+        return swa_lr + (lr0 - swa_lr) * 0.5 * (1.0 + math.cos(math.pi * t))
+
+    return fn
+
+
 def build_optimizer(params: Iterable[torch.nn.Parameter], optim: OptimizerSpec,
-                    sched: SchedulerSpec | None, steps_per_epoch: int
+                    sched: SchedulerSpec | None, steps_per_epoch: int,
+                    swa: dict | None = None
                     ) -> tuple[torch.optim.Optimizer, Callable[[int], float]]:
-    """(the ``torch.optim`` optimizer over ``params``, the per-step LR)."""
+    """(the ``torch.optim`` optimizer over ``params``, the per-step LR).
+    ``swa``: optional {"swa_lr", "start_epoch", "annealing_epochs"}, SWA's
+    phase of the schedule (``swa_lr_wrap``)."""
     params = list(params)
     if optim.name == "adam":
         opt = torch.optim.Adam(params, lr=optim.lr, betas=optim.betas, eps=optim.eps,
@@ -105,7 +129,13 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], optim: OptimizerSpec,
                               weight_decay=optim.weight_decay)
     else:
         raise ValueError(f"Unknown optimizer {optim.name}")
-    return opt, lr_schedule(optim, sched, steps_per_epoch)
+    lr_fn = lr_schedule(optim, sched, steps_per_epoch)
+    if swa and swa.get("swa_lr") is not None:
+        lr_fn = swa_lr_wrap(lr_fn, swa_lr=float(swa["swa_lr"]),
+                            start_epoch=int(swa["start_epoch"]),
+                            annealing_epochs=int(swa.get("annealing_epochs", 10)),
+                            steps_per_epoch=steps_per_epoch)
+    return opt, lr_fn
 
 
 @torch.no_grad()

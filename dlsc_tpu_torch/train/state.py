@@ -35,8 +35,8 @@ class TrainState:
     @classmethod
     def create(cls, model: nn.Module, optim: OptimizerSpec, sched: SchedulerSpec | None,
                steps_per_epoch: int, gradient_clip_val: float | None = None,
-               seed: int = 0) -> "TrainState":
-        opt, lr_fn = build_optimizer(model.parameters(), optim, sched, steps_per_epoch)
+               seed: int = 0, swa: dict | None = None) -> "TrainState":
+        opt, lr_fn = build_optimizer(model.parameters(), optim, sched, steps_per_epoch, swa)
         return cls(model, opt, lr_fn, torch.Generator().manual_seed(seed),
                    float(gradient_clip_val) if gradient_clip_val else None)
 

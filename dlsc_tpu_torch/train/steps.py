@@ -1,19 +1,28 @@
 """Train and eval steps, AST mode.
 
-Counterpart of ``dlsc_tpu/train/steps.py`` ``make_train_step`` (accum 1)
-and ``make_eval_step``. One call of the train step runs: waveform batch →
-``DevicePipeline.train_batch`` (log-mel on kernel K1, SpecAugment, Mixup;
-outside the autograd graph, the JAX step's ``stop_gradient``) → forward in
-train mode (kernel K2f in each block, remat as the model is configured) →
-soft-label loss plus the MoE blocks' aux loss → backward (kernel K2b; K4
-in MoE blocks; K3 with ``ln_fused``) → global-norm clip → optimizer update at this step's LR →
-metric update with the pre-update outputs and the MoE stats (the metric
-state's extras, when it was created with ``MOE_METRICS``).
+Counterpart of ``dlsc_tpu/train/steps.py``. One call of the train step
+runs: waveform batch → ``DevicePipeline.train_batch`` (log-mel on kernel
+K1, SpecAugment, Mixup; outside the autograd graph, the JAX step's
+``stop_gradient``) → forward in train mode (kernel K2f in each block, remat
+as the model is configured) → soft-label loss plus the MoE blocks' aux loss
+→ backward (kernel K2b; K4 in MoE blocks; K3 with ``ln_fused``) →
+global-norm clip → optimizer update at this step's LR → metric update with
+the pre-update outputs and the MoE stats (the metric state's extras, when
+it was created with ``MOE_METRICS``).
+
+``accum`` > 1 is gradient accumulation (``_make_train_step_accum`` there):
+the batch is split into ``accum`` micro-batches run one after the other,
+each with its own draws and dropout seed and its own metric update, and the
+optimizer updates once with the mean of their gradients. As in the JAX
+package the wire batch is the global batch, so Lightning's
+``accumulate_grad_batches=M`` over loader batches is batch_size x M here.
 
 The step's random draws, and the seed of its dropout masks, come from
 ``state.step_rng()`` unless ``draws=`` and ``dropout_seed=`` hand them in
-(tests give both packages the same draws). Gradient accumulation waits for
-the trainer that uses it (ROADMAP M9).
+(tests give both packages the same draws); with ``accum`` > 1 they are
+sequences, one entry per micro-batch. The ``*_indexed`` steps take the
+waveforms from a pool on the device (the Trainer's device-resident
+dataset) by an index vector.
 """
 
 from __future__ import annotations
@@ -22,38 +31,62 @@ from typing import Callable
 
 import torch
 
-from dlsc_tpu_torch.data.pipeline import DevicePipeline, TrainDraws
+from dlsc_tpu_torch.data.pipeline import DevicePipeline
 from dlsc_tpu_torch.ops.augment import one_hot
 from dlsc_tpu_torch.train.metrics import MetricState
 from dlsc_tpu_torch.train.state import TrainState
 
 
-def make_train_step(pipeline: DevicePipeline, criterion: Callable, **ops) -> Callable:
+def make_train_step(pipeline: DevicePipeline, criterion: Callable, accum: int = 1,
+                    **ops) -> Callable:
     """``train_step(state, ms, wave, labels, draws=None, dropout_seed=None)
-    -> (state, ms, loss)``; ``state`` is updated in place and returned.
-    ``ops`` that are not None replace the model's (``ASTViT.forward``'s
-    ``attention``, ``grouped_matmul``, ``topk``, ``add_ln``: e.g. the plain
+    -> (state, ms, loss)``; ``state`` is updated in place and returned, and
+    ``loss`` is the mean over the micro-batches. ``ops`` that are not None
+    replace the model's (``ASTViT.forward``'s ``attention``,
+    ``grouped_matmul``, ``topk``, ``add_ln``: e.g. the plain
     ``mha_forward_reference``, ``gmm_reference`` and ``add_ln_reference``
     under autograd, or a router choice replayed from another run)."""
     ops = {k: v for k, v in ops.items() if v is not None}
 
     def train_step(state: TrainState, ms: MetricState, wave: torch.Tensor,
-                   labels: torch.Tensor, draws: TrainDraws | None = None,
-                   dropout_seed: int | None = None):
+                   labels: torch.Tensor, draws=None, dropout_seed=None):
+        if wave.shape[0] % accum:
+            raise ValueError(f"batch size {wave.shape[0]} not divisible by "
+                             f"accumulate_grad_batches={accum}")
+        mb = wave.shape[0] // accum
         rng = state.step_rng() if draws is None or dropout_seed is None else None
-        if draws is None:
-            draws = pipeline.draw(wave.shape[0], wave.shape[-1], rng)
-        if dropout_seed is None:
-            dropout_seed = int(rng.integers(2**62))
-        x, y = pipeline.train_batch(wave, labels, draws)
+        if accum == 1:
+            draws, dropout_seed = [draws], [dropout_seed]
         model = state.model.train()
-        logits, aux, stats = model(x, dropout_seed=dropout_seed, return_aux=True, **ops)
-        loss = criterion(logits, y) + aux
-        loss.backward()
+        loss_sum = 0.0
+        for i in range(accum):
+            w, lab = wave[i * mb:(i + 1) * mb], labels[i * mb:(i + 1) * mb]
+            d = pipeline.draw(mb, w.shape[-1], rng) if draws is None or draws[i] is None \
+                else draws[i]
+            seed = int(rng.integers(2**62)) if dropout_seed is None or dropout_seed[i] is None \
+                else dropout_seed[i]
+            x, y = pipeline.train_batch(w, lab, d)
+            logits, aux, stats = model(x, dropout_seed=seed, return_aux=True, **ops)
+            loss = criterion(logits, y) + aux
+            (loss / accum).backward()   # accum 1: the same gradients, bit for bit
+            loss = loss.detach()
+            ms = ms.update(logits.detach(), y.argmax(-1), loss).add_extras(stats)
+            loss_sum = loss_sum + loss
         state.apply_gradients()
-        loss = loss.detach()
-        ms = ms.update(logits.detach(), y.argmax(-1), loss).add_extras(stats)
-        return state, ms, loss
+        return state, ms, loss_sum / accum
+
+    return train_step
+
+
+def make_train_step_indexed(pipeline: DevicePipeline, criterion: Callable, accum: int = 1,
+                            **ops) -> Callable:
+    """``train_step(state, ms, pool, idx, labels, ...)``: the train step on
+    the rows ``idx`` of ``pool`` (N, T), gathered on the pool's device."""
+    base = make_train_step(pipeline, criterion, accum, **ops)
+
+    def train_step(state: TrainState, ms: MetricState, pool: torch.Tensor,
+                   idx: torch.Tensor, labels: torch.Tensor, **kw):
+        return base(state, ms, pool.index_select(0, idx), labels, **kw)
 
     return train_step
 
@@ -71,5 +104,16 @@ def make_eval_step(pipeline: DevicePipeline, criterion: Callable) -> Callable:
             logits = model(x)
             loss = criterion(logits, y, mask=mask.to(x.device, torch.float32))
             return ms.update(logits, y.argmax(-1), loss, mask=mask), logits
+
+    return eval_step
+
+
+def make_eval_step_indexed(pipeline: DevicePipeline, criterion: Callable) -> Callable:
+    """``eval_step(state, ms, pool, idx, labels, mask) -> (ms, logits)``."""
+    base = make_eval_step(pipeline, criterion)
+
+    def eval_step(state: TrainState, ms: MetricState, pool: torch.Tensor,
+                  idx: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+        return base(state, ms, pool.index_select(0, idx), labels, mask)
 
     return eval_step

@@ -182,10 +182,18 @@ def test_export_cli_with_jax_params(slice_pair, tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, loads nothing of jax,
-    flax or the JAX package ``dlsc_tpu`` (not even its jax-free modules). A
-    subprocess, because this test process imported jax in conftest."""
+    flax, optax or the JAX package ``dlsc_tpu`` (not even its jax-free
+    modules), nor scikit-learn, orbax or tqdm. Those three and matplotlib
+    are missing on the card's machine, so the subprocess refuses to import
+    them, as that machine does (torch itself tries tqdm and goes on without
+    it); a subprocess, because this test process imported jax in conftest."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "class Missing:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('sklearn', 'orbax', 'tqdm', 'matplotlib'):\n"
+        "            raise ImportError(f'{name} is not installed on the card machine')\n"
+        "sys.meta_path.insert(0, Missing())\n"
         "import dlsc_tpu_torch, chip_smoke\n"
         "names = [m.name for m in pkgutil.walk_packages(dlsc_tpu_torch.__path__,\n"
         "                                                'dlsc_tpu_torch.')]\n"
@@ -196,9 +204,16 @@ def test_port_imports_no_jax():
         "        'dlsc_tpu_torch.ops.gmm', 'dlsc_tpu_torch.models.moe',\n"
         "        'dlsc_tpu_torch.models.ast_moe', 'dlsc_tpu_torch.ops.ln_fused',\n"
         "        'dlsc_tpu_torch.models.ast_small',\n"
-        "        'dlsc_tpu_torch.models.ast_mini'} <= set(names)\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'flax', 'dlsc_tpu'))\n"
+        "        'dlsc_tpu_torch.models.ast_mini', 'dlsc_tpu_torch.data.prepare',\n"
+        "        'dlsc_tpu_torch.data.synthetic', 'dlsc_tpu_torch.data.datamodule',\n"
+        "        'dlsc_tpu_torch.data.esc50', 'dlsc_tpu_torch.data.us8k',\n"
+        "        'dlsc_tpu_torch.data.loader', 'dlsc_tpu_torch.config.instantiate',\n"
+        "        'dlsc_tpu_torch.tracking.tracker', 'dlsc_tpu_torch.utils.profiling',\n"
+        "        'dlsc_tpu_torch.train.checkpoint', 'dlsc_tpu_torch.train.loop',\n"
+        "        'dlsc_tpu_torch.scripts.train', 'dlsc_tpu_torch.scripts.evaluate',\n"
+        "        'dlsc_tpu_torch.scripts.predict'} <= set(names)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'flax', 'optax', 'dlsc_tpu', 'sklearn', 'orbax', 'tqdm'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
