@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small and AST-Mini serving and training, and its training entry point, on one GPU.
+"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small, AST-Mini, EnvNet-v2, the spectrogram CNN and LEAF serving and training, and its training entry point, on one GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -9,10 +9,10 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    off for matmuls and cuDNN, build the five kernel sources from csrc/ (one
    nvcc each, all at once);
 1. kernel K1 (mel power, an FFT in shared memory): registers and no spill
-   (``-Xptxas -v``, printed); against its plain version, both mel configs at
-   the serving batch 8 and the AST config at the training batch 64, each
-   also by graph replay with its share of the bound, two calls of each
-   bit-identical;
+   (``-Xptxas -v``, printed); against its plain version, both mel configs
+   (AST 1024/160/400, CNN 1024/512/1024) at the serving batch 8 and at the
+   training batch 64, each also by graph replay with its share of the
+   bound, two calls of each bit-identical;
 2. kernel K2f (attention forward): its bf16 kernel's own SASS must hold
    HGMMA (wgmma) and no HMMA, and it spills nothing (``-Xptxas -v``,
    printed with its registers); against its plain version, f32 and bf16 at
@@ -114,7 +114,26 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     and a 2-s file (the same top-1, probabilities within 1e-2); an
     ``auto_resume`` run that continues from step 22 for one epoch. Prints the
     trainer's epoch clips/s beside phase 5's bench clips/s, the fit's wall
-    time, checkpoint writes and the data's generation time.
+    time, checkpoint writes and the data's generation time;
+19. EnvNet-v2, the CNN and LEAF (n_filters 128) at full width on 5-s clips,
+    seeded weights and randomised BatchNorm statistics: the card's eval
+    forward in f32 with TF32 off against the CPU's f32 forward on the same
+    inputs (normalised 1e-4), the error with cuDNN's TF32 on printed;
+20. their train steps at batch 64 through ``scripts/bench.py``'s functions
+    (f32, EnvNet-v2 with BC mixing and KLDiv), cuDNN at PyTorch's default
+    (TF32 on), 2 warm-up and 10 timed steps and two profiled: every loss
+    finite, every parameter and BatchNorm statistic changed, K1 once a CNN
+    step; the bench's record each;
+21. one f32 step of each (TF32 off, the same draws, dropout off) on the
+    card against the same step on the CPU: loss, gradients, parameters and
+    BatchNorm statistics within 1e-4;
+22. each family exported by ``scripts/export.py`` and serving a batch of 8
+    (K1 once for the CNN), EnvNet-v2 with ten test crops over HTTP, then
+    every row of ``scripts/bench_infer.py`` (the AST family's and these);
+23. EnvNet-v2 through the train CLI on phase 18's shards (2 epochs, f32,
+    batch 64, BC mixing + KLDiv, ten crops for val and test, SWA from epoch
+    1 with the BatchNorm refresh, the best checkpoint only) and
+    ``evaluate`` on its best checkpoint (the test's confusion matrix).
 
 Routes: a near-tie between two router gates flips a token's expert under a
 perturbation as small as bf16 rounding, and a flipped route moves a whole
@@ -134,6 +153,8 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import copy
+import dataclasses
 import functools
 import http.client
 import json
@@ -155,17 +176,19 @@ from dlsc_tpu_torch.data.pipeline import DevicePipeline, PipelineConfig
 from dlsc_tpu_torch.models.ast import ASTModel
 from dlsc_tpu_torch.models.ast_mini import ASTMiniViT
 from dlsc_tpu_torch.models.ast_moe import ASTMoE
+from dlsc_tpu_torch.models import cnn_esc50, leaf
 from dlsc_tpu_torch.models.ast_small import ASTViTSmall
+from dlsc_tpu_torch.models.layers import BatchNorm
 from dlsc_tpu_torch.models.moe import MOE_METRICS
 from dlsc_tpu_torch.models.vit import ASTViT
 from dlsc_tpu_torch.ops import attn_fast, mel_kernel
 from dlsc_tpu_torch.ops import gmm as gmm_ops
 from dlsc_tpu_torch.ops import ln_fused
 from dlsc_tpu_torch.ops import mel as M
-from dlsc_tpu_torch.scripts import bench
+from dlsc_tpu_torch.scripts import bench, bench_infer
 from dlsc_tpu_torch.server import ModelServer
 from dlsc_tpu_torch.serving import export_model, load_exported, make_infer
-from dlsc_tpu_torch.train.losses import CrossEntropyLoss
+from dlsc_tpu_torch.train.losses import CrossEntropyLoss, KLDivLoss
 from dlsc_tpu_torch.train.metrics import MetricState
 from dlsc_tpu_torch.train.optim import sgd
 from dlsc_tpu_torch.train.state import TrainState
@@ -198,6 +221,7 @@ LN_SHAPES = (("AST-Small", TRAIN_BATCH * MOE_N_PAD, 384),
              ("AST-Mini", TRAIN_BATCH * MINI_N_PAD, 192))
 LN_FWD_OPS, LN_BWD_OPS = 8, 12   # f32 operations per element (see phase_ln)
 LONG_N_PAD, LONG_N_REAL = 3328, 3301   # AST-Base on a 10-s clip: 12 x 275 patches + CLS
+CNN_MEL = PipelineConfig().cnn_mel_config()   # the CNN's front end: 1024/512/1024
 
 # The card's peaks (NVIDIA H100 SXM data sheet, 700 W): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over the
@@ -412,21 +436,24 @@ def _mel_case(wave: torch.Tensor, cfg: M.MelConfig) -> dict:
 def phase_mel(dev: torch.device, gen: torch.Generator) -> dict:
     """K1: what it compiled to (``_build_report``: registers, no spill);
     against its plain version (``_mel_case``) for both mel configs at the
-    serving batch 8, and for the AST config at the training batch 64."""
+    serving batch 8 and at the training batch 64."""
     build = _build_report("mel_power")
     wave = (torch.randn(SERVE_BATCH, CLIP, generator=gen) * 0.3).to(dev)
     ast = _mel_case(wave, M.MelConfig())   # the slice's config
-    cnn = _mel_case(wave, M.MelConfig(n_fft=1024, hop_length=512, win_length=1024))
+    cnn = _mel_case(wave, CNN_MEL)
     # the training slice's shape: the whole batch of 64 clips in one launch
     wave = (torch.randn(TRAIN_BATCH, CLIP, generator=gen) * 0.3).to(dev)
     train = _mel_case(wave, M.MelConfig())
+    # the CNN's train batch (phase 20): 1024/512/1024, 431 frames
+    cnn64 = _mel_case(wave, CNN_MEL)
+    cases = (ast, cnn, train, cnn64)
+    keys = ("ms", "plain_ms", "graph_ms", "bound_ms", "bound_share")
     # no single PyTorch call computes a mel power spectrogram
     return dict(ast, library_ms=None,
-                max_abs_err=max(ast["max_abs_err"], cnn["max_abs_err"], train["max_abs_err"]),
-                deterministic=ast["deterministic"] and cnn["deterministic"]
-                and train["deterministic"],
-                **{f"{k}_batch64": train[k] for k in ("ms", "plain_ms", "graph_ms", "bound_ms",
-                                                      "bound_share")}, **build)
+                max_abs_err=max(c["max_abs_err"] for c in cases),
+                deterministic=all(c["deterministic"] for c in cases),
+                **{f"{k}_batch64": train[k] for k in keys},
+                **{f"{k}_cnn_batch64": cnn64[k] for k in keys}, **build)
 
 
 def _key_mask(n: int, n_real: int, dev: torch.device) -> torch.Tensor:
@@ -927,7 +954,10 @@ def phase_parity(dev: torch.device, seed: int) -> None:
 
 def _compare_steps(got, want, what: str, loss_tol: float, tol: float,
                    required: bool = True, readings: dict | None = None,
-                   key: str = "", scales: dict | None = None) -> tuple[float, float, float]:
+                   key: str = "", scales: dict | None = None,
+                   batch: int = PARITY_BATCH, param_scales: dict | None = None,
+                   scaled: str = "router weights, max |diff| / (c max(|G|^T |X|))"
+                   ) -> tuple[float, float, float]:
     """Loss (relative), gradients (momentum buffers) and parameters after the
     update (normalised per parameter) of two one-step runs; a gradient that
     is exactly 0 on the reference side must be exactly 0 on the other. The
@@ -938,8 +968,10 @@ def _compare_steps(got, want, what: str, loss_tol: float, tol: float,
     given (the gradients' under ``key``, the loss's and the parameters' under
     ``key`` + ``_loss``, ``_params``; with ``scales``, also the scaled names'
     readings both ways and every other parameter's under ``key`` +
-    ``_router``, ``_router_max_normalised``, ``_other``)."""
-    scales = scales or {}
+    ``_router``, ``_router_max_normalised``, ``_other``). The parameters
+    named in ``param_scales`` are divided by their scale, the others by their
+    max |ref|; ``scaled`` labels the scaled names' line."""
+    scales, param_scales = scales or {}, param_scales or {}
 
     def grad_err(a, b, name):
         return router_err(a, b, scales[name]) if name in scales else norm_err(a, b)
@@ -950,10 +982,11 @@ def _compare_steps(got, want, what: str, loss_tol: float, tol: float,
     e_grad = grad_errs[0][0]
     zero_same = all((a == 0).all().item() for a, b in zip(got[1], want[1])
                     if b.abs().max() == 0)
-    e_param = max(norm_err(a, b) for a, b in zip(got[2], want[2]))
+    e_param = max(router_err(a, b, param_scales[name]) if name in param_scales
+                  else norm_err(a, b) for a, b, name in zip(got[2], want[2], got[4]))
     worst = ", ".join(f"{name} {e:.2e}" for e, name in grad_errs[:3])
     note = '' if required else '  [not a bound: printed only]'
-    print(f"step parity, {what}, batch {PARITY_BATCH}, one SGD step): loss {got[0]:.6f} vs "
+    print(f"step parity, {what}, batch {batch}, one SGD step): loss {got[0]:.6f} vs "
           f"{want[0]:.6f}, rel {e_loss:.3e} (<= {loss_tol}); gradients {e_grad:.3e} (largest: "
           f"{worst}), parameters after the update {e_param:.3e}, normalised per parameter (<= "
           f"{tol}); zero gradients the same: {zero_same}{note}", flush=True)
@@ -962,7 +995,7 @@ def _compare_steps(got, want, what: str, loss_tol: float, tol: float,
         router = max(e for e, name in grad_errs if name in scales)
         old = max(norm_err(*named[name]) for name in scales)
         other = max(e for e, name in grad_errs if name not in scales)
-        print(f"  router weights, max |diff| / (c max(|G|^T |X|)): {router:.3e} (<= {tol}); the "
+        print(f"  {scaled}: {router:.3e} (<= {tol}); the "
               f"same divided by max |ref|: {old:.3e}  [printed only]; every other parameter "
               f"(max-normalised): {other:.3e} (<= {tol}){note}", flush=True)
         if readings is not None:
@@ -2115,6 +2148,455 @@ def phase_trainer(dev: torch.device, seed: int, tmp: Path, card: str,
           f"to step {step1}  [{card}]", flush=True)
     return counts
 
+# --- phases 19-23: EnvNet-v2, the spectrogram CNN and LEAF ----------------------------
+
+FAMILIES = bench.FAMILIES     # ("envnet_v2", "cnn_esc50", "leaf"), f32 with BatchNorm
+FAMILY_NAMES = {"envnet_v2": "EnvNet-v2", "cnn_esc50": "CNN", "leaf": "LEAF"}
+FAMILY_FWD_ERR = 1e-4   # card f32 (TF32 off) vs CPU f32, normalised by max |ref|: the
+                        # convolution algorithms' summation orders only
+FAMILY_HOLD_BATCH = {"envnet_v2": 4, "cnn_esc50": 8, "leaf": 2}
+# Phase 21's batches, and LEAF's window: its step on the card machine's CPU took 253 s
+# at 5 s and batch 8 (the Gabor conv), and its MLP BatchNorms over B rows need B well
+# above 2 (over 2 rows each normalised value is ±1, and the gradient through them is
+# ill-conditioned: 10% card vs CPU at batch 2)
+FAMILY_PARITY_BATCH = {"envnet_v2": 4, "cnn_esc50": 4, "leaf": 8}
+LEAF_PARITY_WINDOW = 0.25   # seconds: 11 025 samples, full widths (128 filters x 401)
+FAMILY_STEP_LOSS = 1e-4  # one f32 step, card vs CPU, the same draws and choices: loss
+                         # relative; gradients, parameters and BatchNorm statistics
+                         # normalised per tensor (summation order; the CNN's K1 vs the
+                         # plain mel). LEAF: 1e-3, its f32 floor (the CPU's own f32
+                         # step is 1.7e-4 from an f64 step at this size, measured)
+FAMILY_STEP_TOL = {"envnet_v2": 1e-4, "cnn_esc50": 1e-4, "leaf": 1e-3}
+ENVNET_CLI_EPOCHS = 2
+
+
+class BiasTerms:
+    """The size of the terms of each pre-BatchNorm bias's gradient in one
+    run. A bias b that feeds a BatchNorm in train mode has no effect on its
+    output, so its gradient, sum over (n, h, w) of delta = dL/dz (z the
+    BatchNorm's input), is 0 in exact arithmetic and only rounding noise in
+    practice: divided by its own max |ref| its error is ~1 on any two
+    correct runs. Its error is read against max_c sum |delta_c| instead, the
+    size of the sum's terms, taken by a tensor hook on each BatchNorm's
+    input; ``scales`` names the biases (found through z's autograd node)."""
+
+    def __init__(self, model: torch.nn.Module):
+        self.names = {id(p): n for n, p in model.named_parameters()}
+        self.scales: dict[str, float] = {}
+        self.hooks = [m.register_forward_pre_hook(self._forward) for m in model.modules()
+                      if isinstance(m, BatchNorm)]
+
+    @staticmethod
+    def _bias(fn, channels: int, depth: int = 3):
+        """The 1-D parameter of ``channels`` entries nearest ``fn`` among its
+        inputs, breadth first (the layer's own bias before an earlier
+        layer's BatchNorm scale)."""
+        level = [fn]
+        for _ in range(depth):
+            level = [nxt for f in level if f is not None for nxt, _ in f.next_functions]
+            for nxt in level:
+                var = getattr(nxt, "variable", None)
+                if var is not None and var.ndim == 1 and var.numel() == channels:
+                    return var
+        return None
+
+    def _forward(self, module, args):
+        z = args[0]
+        bias = self._bias(z.grad_fn, z.shape[1]) if z.requires_grad else None
+        if bias is not None:
+            name = self.names[id(bias)]
+            dims = [0, *range(2, z.ndim)]
+            z.register_hook(lambda g: self.scales.__setitem__(
+                name, g.abs().sum(dims).max().item()))
+
+    def remove(self) -> None:
+        for h in self.hooks:
+            h.remove()
+
+
+class ChoiceLog:
+    """The discrete choices of one run, replayed in call order in another,
+    as ``RouteLog`` replays routes: each max pool's argmax (``F.max_pool1d``,
+    ``F.max_pool2d``) and each ReLU's sign (``F.relu``). Either flips under a
+    perturbation as small as a change of summation order wherever two
+    inputs of a window nearly tie or an input is near 0, and a flip moves or
+    drops a whole gradient term (a flipped hidden unit of EnvNet-v2's 4096-
+    wide layers alone shifts the trunk's gradients by ~1e-3). Under
+    ``record()`` the ops run as they are and their choices are kept; under
+    ``replay()`` each pool takes its input at the recorded indices and each
+    ReLU keeps the recorded positive set (so the gradient takes the recorded
+    paths), and the choices that the replaying run would have made
+    otherwise are counted (``flips`` of ``choices``)."""
+
+    def __init__(self):
+        self.choices: list[torch.Tensor] = []
+        self.flips = self.total = 0
+
+    @contextlib.contextmanager
+    def _patched(self, pool, relu):
+        saved = F.max_pool1d, F.max_pool2d, F.relu
+        F.max_pool1d = functools.partial(pool, saved[0])
+        F.max_pool2d = functools.partial(pool, saved[1])
+        F.relu = relu
+        try:
+            yield self
+        finally:
+            F.max_pool1d, F.max_pool2d, F.relu = saved
+
+    def record(self):
+        def pool(orig, x, *args, **kw):
+            out, idx = orig(x, *args, **kw, return_indices=True)
+            self.choices.append(idx)
+            return out
+
+        def relu(x, inplace=False):
+            self.choices.append(x.detach() > 0)
+            return torch.relu(x)
+        return self._patched(pool, relu)
+
+    def _take(self, own: torch.Tensor, device: torch.device) -> torch.Tensor:
+        recorded = self.choices[self.calls].to(device)
+        self.calls += 1
+        self.flips += int((own != recorded).sum())
+        self.total += recorded.numel()
+        return recorded
+
+    def replay(self):
+        self.calls = 0
+
+        def pool(orig, x, *args, **kw):
+            with torch.no_grad():
+                own = orig(x, *args, **kw, return_indices=True)[1]
+            idx = self._take(own, x.device)
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+        def relu(x, inplace=False):
+            keep = self._take(x.detach() > 0, x.device)
+            return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
+        return self._patched(pool, relu)
+
+
+@contextlib.contextmanager
+def cudnn_tf32(on: bool):
+    """cuDNN convolutions in TF32 (PyTorch's default, on) or in f32 (off)."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+@contextlib.contextmanager
+def no_family_dropout(model: torch.nn.Module):
+    """Dropout off in ``model`` (a check's patch, as the CPU tests set Flax's
+    rate to 0): the card's and the CPU's generators draw different masks
+    from one seed. EnvNet-v2's rate is the model's, the CNN's and LEAF's
+    their modules' constants."""
+    saved = cnn_esc50.DROPOUT, leaf.DROPOUT, getattr(model, "rate", None)
+    cnn_esc50.DROPOUT = leaf.DROPOUT = 0.0
+    if saved[2] is not None:
+        model.rate = 0.0
+    try:
+        yield
+    finally:
+        cnn_esc50.DROPOUT, leaf.DROPOUT = saved[:2]
+        if saved[2] is not None:
+            model.rate = saved[2]
+
+
+def _bn_stats(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    return {k: b.detach().clone() for k, b in model.named_buffers() if "running" in k}
+
+
+def _family_clips(name: str, batch: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed + 19 + FAMILIES.index(name))
+    return torch.from_numpy((rng.standard_normal((batch, CLIP)) * 0.3).astype(np.float32))
+
+
+def phase_families_vs_cpu(dev: torch.device, seed: int, card: str) -> dict:
+    """Phase 19: each family at full width, seeded weights and randomised
+    BatchNorm statistics, in eval mode: the card's forward (f32, TF32 off)
+    against the CPU's f32 forward on the same inputs (the CPU pipeline's),
+    within ``FAMILY_FWD_ERR``; the error with cuDNN's TF32 on (PyTorch's
+    default) is printed beside it."""
+    out = {}
+    for name in FAMILIES:
+        model = bench.build_model(name, seed, torch.device("cpu"))
+        g = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.running_mean.normal_(0.0, 0.1, generator=g)
+                    m.running_var.uniform_(0.5, 2.0, generator=g)
+        x = bench.family_pipeline(name).eval_batch(_family_clips(name, FAMILY_HOLD_BATCH[name],
+                                                                 seed))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = model(x)
+            cpu_s = time.perf_counter() - t0
+            on_card = copy.deepcopy(model).to(dev)
+            xd = x.to(dev)
+            with cudnn_tf32(False):
+                got = on_card(xd).cpu()
+            with cudnn_tf32(True):
+                got_tf32 = on_card(xd).cpu()
+        e, e_tf32 = norm_err(got, want), norm_err(got_tf32, want)
+        out[name] = dict(err=e, err_tf32=e_tf32)
+        print(f"{FAMILY_NAMES[name]} eval forward, input {tuple(x.shape)}, card vs CPU f32: "
+              f"TF32 off {e:.3e} (<= {FAMILY_FWD_ERR}), cuDNN TF32 on (PyTorch's default) "
+              f"{e_tf32:.3e} [printed]; CPU forward {cpu_s:.2f} s  [{card}]", flush=True)
+        require(torch.isfinite(got).all().item() and got.shape == want.shape
+                and e <= FAMILY_FWD_ERR, f"{name}: the card's f32 forward disagrees with the CPU's")
+        del model, on_card
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_family_train(dev: torch.device, seed: int, card: str) -> tuple[dict, dict]:
+    """Phase 20: each family's train step at batch 64 through
+    ``scripts/bench.py``'s functions (f32, the configs' pipelines, EnvNet-v2
+    with BC mixing and KLDiv), cuDNN at PyTorch's default (TF32 on): 2
+    warm-up and 10 timed steps, then two profiled. Every loss finite, every
+    parameter and every BatchNorm statistic changed; K1 once a CNN step and
+    never in the others. Returns (launch counts, records) by family."""
+    n = WARMUP_STEPS + TIMED_STEPS
+    counts, recs = {}, {}
+    for name in FAMILIES:
+        step, state, ms, wave, labels = bench.build(TRAIN_BATCH, seed, dev, name)
+        before = {k: p.detach().clone() for k, p in state.model.named_parameters()}
+        bn_before = _bn_stats(state.model)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with cudnn_tf32(True):
+            # --- the main path: only these launches are counted -----------------
+            _reset_launches()
+            state, ms, losses, step_s = bench.timed_steps(step, state, ms, wave, labels,
+                                                          WARMUP_STEPS, TIMED_STEPS)
+            counts[name] = _launch_counts()
+            # ----------------------------------------------------------------------
+            peak_mem = torch.cuda.max_memory_allocated(dev) / 2**30
+            prof = bench.profile_steps(step, state, ms, wave, labels)
+        rec = recs[name] = bench.record(state.model, TRAIN_BATCH, step_s, losses, peak_mem, prof)
+        unchanged = [k for k, p in state.model.named_parameters() if torch.equal(before[k], p)]
+        bn_after = _bn_stats(state.model)
+        bn_same = [k for k in bn_before if torch.equal(bn_before[k], bn_after[k])]
+        kinds = {k: round(v, 2) for k, v in prof["by_kind_ms"].items()}
+        print(f"train: {FAMILY_NAMES[name]} f32 (cuDNN TF32 on), batch {TRAIN_BATCH}, "
+              f"{WARMUP_STEPS} warm-up + {TIMED_STEPS} timed steps: {rec['step_ms']:.3f} ms/step, "
+              f"{rec['value']:.2f} clips/s, peak memory {peak_mem:.2f} GiB; losses "
+              f"{losses[0]:.4f} .. {losses[-1]:.4f}; launches {counts[name]}; profiled: busy "
+              f"share {prof['busy_share']:.3f}, {prof['device_ms_per_step']:.1f} ms device time "
+              f"per step, by kind {kinds}  [{card}]", flush=True)
+        print(json.dumps(rec), flush=True)
+        require(not unchanged, f"{name} parameters that did not change: {unchanged[:8]}")
+        require(not bn_same, f"{name} BatchNorm statistics that did not change: {bn_same[:8]}")
+        require(counts[name] == _counts(k1=n if name == "cnn_esc50" else 0),
+                f"{name} launch counts {counts[name]} over {n} steps")
+        del step, state, ms, wave, labels, before
+        torch.cuda.empty_cache()
+    return counts, recs
+
+
+def phase_family_parity(dev: torch.device, seed: int) -> None:
+    """Phase 21: one f32 train step of each family on the card (TF32 off)
+    against the same step on the CPU: the same weights, clips and draws,
+    dropout off (``no_family_dropout``), SGD with momentum and no clip (the
+    momentum buffer after one step is the gradient); the loss, the
+    gradients, the parameters after the update and the BatchNorm statistics
+    within ``FAMILY_STEP_*`` (LEAF on a 0.25-s window, ``LEAF_PARITY_WINDOW``).
+    A pre-BatchNorm bias's gradient, 0 in exact arithmetic, is read against
+    the size of its terms (``BiasTerms``, the
+    CPU run's), and its value after the update against lr x that size. The
+    CPU run replays the card run's max-pool and ReLU choices
+    (``ChoiceLog``); the choices that would flip are counted and printed."""
+    lr = 1e-3
+    for name in FAMILIES:
+        batch, tol = FAMILY_PARITY_BATCH[name], FAMILY_STEP_TOL[name]
+        pipe = bench.family_pipeline(name)
+        if name == "leaf":
+            pipe = DevicePipeline(dataclasses.replace(pipe.cfg, window_length=LEAF_PARITY_WINDOW))
+        rng = np.random.default_rng(seed + 21)
+        wave = _family_clips(name, batch, seed + 21)
+        labels = torch.from_numpy(rng.permutation(AST_BASE["num_classes"])[:batch])
+        draws = pipe.draw(batch, CLIP, rng)
+        criterion = KLDivLoss() if name == "envnet_v2" else CrossEntropyLoss()
+
+        def one_step(device, pools):
+            model = bench.build_model(name, seed, device)
+            state = TrainState.create(model, sgd(lr=lr, momentum=0.9), None, 25)
+            step = make_train_step(pipe, criterion)
+            terms = BiasTerms(model)
+            _reset_launches()
+            with no_family_dropout(model), pools:
+                _, _, loss = step(state, MetricState.create(AST_BASE["num_classes"], device),
+                                  wave.to(device), labels.to(device), draws, 0)
+            terms.remove()
+            names, params = zip(*model.named_parameters())
+            return (loss.item(),
+                    [state.optimizer.state[p]["momentum_buffer"].cpu() for p in params],
+                    [p.detach().cpu() for p in params], _launch_counts(), names,
+                    {k: b.cpu() for k, b in _bn_stats(model).items()}, terms.scales)
+
+        log = ChoiceLog()
+        with cudnn_tf32(False):
+            card_run = one_step(dev, log.record())
+            cpu = one_step(torch.device("cpu"), log.replay())
+        print(f"{FAMILY_NAMES[name]}: the CPU run takes the card run's max-pool and ReLU "
+              f"choices (ChoiceLog); its own differ in {log.flips} of {log.total}", flush=True)
+        require(card_run[3] == _counts(k1=1 if name == "cnn_esc50" else 0),
+                f"{name} parity launches {card_run[3]}")
+        scales = cpu[6]
+        require(len(scales) == len(cpu[5]) // 2,   # a mean and a var per BatchNorm
+                f"{name}: a BatchNorm without its bias found, {sorted(scales)}")
+        clip = f"{LEAF_PARITY_WINDOW}-s window" if name == "leaf" else "5-s clips"
+        _compare_steps(card_run, cpu, f"{FAMILY_NAMES[name]} f32 card (TF32 off) vs CPU, "
+                       f"{clip}, dropout off",
+                       FAMILY_STEP_LOSS, tol, batch=batch,
+                       scales=scales, param_scales={k: lr * v for k, v in scales.items()},
+                       scaled="pre-BatchNorm biases, max |diff| / max_c sum |dL/dz_c|")
+        e_bn = max(norm_err(card_run[5][k], cpu[5][k]) for k in cpu[5])
+        print(f"  BatchNorm running statistics after the step, normalised per tensor: "
+              f"{e_bn:.3e} (<= {tol})", flush=True)
+        require(e_bn <= tol, f"{name} BatchNorm statistics, card vs CPU")
+        del cpu, card_run
+        torch.cuda.empty_cache()
+
+
+def phase_family_serving(dev: torch.device, seed: int, tmp: Path, card: str) -> tuple[dict, list]:
+    """Phase 22: each family exported by ``scripts/export.py`` (f32, seeded
+    weights), loaded on the card and serving one batch of 8 (K1 once for
+    the CNN, never for the others; the BatchNorm counters reloaded as
+    int64); EnvNet-v2 exported with ``multi_crop_test`` and served over
+    HTTP to 8 concurrent requests (ten crops each); then every row of
+    ``scripts/bench_infer.py``. cuDNN at PyTorch's default (TF32 on).
+    Returns (serving launch counts by family, the bench rows)."""
+    from dlsc_tpu_torch.scripts import export
+
+    counts = {}
+    rng = np.random.default_rng(seed + 22)
+    clips = (rng.standard_normal((SERVE_BATCH, CLIP)) * 0.1).astype(np.float32)
+    with cudnn_tf32(True):
+        for name in FAMILIES:
+            art = export.main([f"model={name}", f"+out={tmp / name}", "+dtype=float32",
+                               f"+seed={seed}", f"+batch={SERVE_BATCH}"])
+            serve = load_exported(art, device="cuda")
+            tracked = {b.dtype for k, b in serve.model.named_buffers()
+                       if k.endswith("num_batches_tracked")}
+            serve(clips)   # warm-up
+            # --- the main path (serving): only these launches are counted ------
+            _reset_launches()
+            probs = serve(clips)
+            torch.cuda.synchronize()
+            counts[name] = _launch_counts()
+            # ----------------------------------------------------------------------
+            print(f"{FAMILY_NAMES[name]} exported by the CLI and served one batch of "
+                  f"{SERVE_BATCH}: launches {counts[name]}; num_batches_tracked {tracked}",
+                  flush=True)
+            require(probs.shape == (SERVE_BATCH, AST_BASE["num_classes"])
+                    and np.isfinite(probs).all()
+                    and np.abs(probs.sum(-1) - 1.0).max() <= PROB_SUM_ERR,
+                    f"{name} probabilities not finite, misshaped or not summing to 1")
+            require(counts[name] == _counts(k1=1 if name == "cnn_esc50" else 0),
+                    f"{name} serving launch counts {counts[name]}")
+            require(tracked == {torch.int64}, f"{name} reloaded counters {tracked}")
+            del serve
+            torch.cuda.empty_cache()
+
+        art = export.main(["model=envnet_v2", f"+out={tmp / 'envnet_10crop'}", "+dtype=float32",
+                           f"+seed={seed}", f"+batch={SERVE_BATCH}",
+                           "+model.dataset_overrides.preprocessing_config.multi_crop_test=true"])
+        server = ModelServer(art, device="cuda", window_ms=20.0)
+        require(server.manifest["pipeline_kwargs"]["multi_crop_test"], "10-crop artifact")
+        httpd = server.make_http_server("127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            bodies = [("/predict_raw", json.dumps({"pcm": c.tolist(),
+                                                   "sample_rate": 44_100}).encode())
+                      for c in clips]
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(len(bodies)) as ex:
+                answers = list(ex.map(lambda pb: _post(httpd.server_address[1], *pb), bodies))
+            t_burst = time.perf_counter() - t0
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        sums = [float(_check_probs(st, r, f"EnvNet 10-crop request {i}").sum())
+                for i, (st, r) in enumerate(answers)]
+        print(f"EnvNet-v2 10-crop artifact over HTTP: {len(answers)} requests in {t_burst:.3f} s, "
+              f"{server.batcher.batches} device batches; probability sums "
+              f"{min(sums):.6f} .. {max(sums):.6f} (1 ± {PROB_SUM_ERR})", flush=True)
+        del server
+        torch.cuda.empty_cache()
+
+        rows = []
+        t0 = time.perf_counter()
+        for name in bench_infer.ROWS:
+            rows.append(bench_infer.run_row(name, dev))
+            print(json.dumps({**rows[-1], "card": card}), flush=True)
+            torch.cuda.empty_cache()
+        print(f"bench_infer: {len(rows)} rows in {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts, rows
+
+
+def phase_envnet_trainer(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
+    """Phase 23: EnvNet-v2 through the train CLI on phase 18's shards (in
+    ``tmp / 'data'``): f32, batch 64, BC mixing with ``KLDivLoss``, ten
+    crops for validation and test, SWA from the second epoch (so the
+    BatchNorm refresh runs), the best checkpoint only; then ``evaluate`` on
+    that checkpoint, which must give the train run's test. cuDNN at
+    PyTorch's default. Returns the train CLI's launch counts."""
+    from dlsc_tpu_torch.scripts import evaluate
+    from dlsc_tpu_torch.scripts import train as train_cli
+
+    common = [f"dataset.root={tmp / 'data'}", "dataset.fold=0", "trainer.precision=32",
+              f"batch_size={TRAIN_BATCH}", f"checkpoint.dirpath={tmp / 'envnet_ckpt'}",
+              f"hydra.run.dir={tmp / 'envnet_run'}", f"seed={seed}",
+              "loss._target_=torch.nn.KLDivLoss",
+              "+model.dataset_overrides.preprocessing_config.multi_crop_test=true"]
+    with cudnn_tf32(True):
+        # --- the main path: only these launches are counted ---------------------
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = train_cli.main(["model=envnet_v2", *common,
+                              f"trainer.max_epochs={ENVNET_CLI_EPOCHS}", "+swa.enabled=true",
+                              "+swa.swa_epoch_start=1"])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        counts = _launch_counts()
+        # --------------------------------------------------------------------------
+        trainer = res.pop("trainer")
+        hist = trainer.history
+        best = trainer.ckpt_manager.best_path
+        writes = trainer.ckpt_manager.write_seconds
+        require([h["epoch"] for h in hist] == list(range(ENVNET_CLI_EPOCHS))
+                and all(np.isfinite(h["train/loss"]) and "val/acc" in h for h in hist),
+                f"EnvNet trainer epochs {hist}")
+        require(best.is_dir() and not (best.parent / "last").exists() and 1 <= len(writes) <= 3,
+                f"EnvNet checkpoints: best {best}, {len(writes)} writes")
+        require(all(np.isfinite(res[k]) for k in ("test/acc", "test/f1", "test/auroc",
+                                                  "test/loss")), f"EnvNet test {res}")
+        require(counts == _counts(), f"EnvNet trainer launches {counts}")
+        t0 = time.perf_counter()
+        ev = evaluate.main(["model=envnet_v2", *common, f"+ckpt_path={best}"])
+        ev_s = time.perf_counter() - t0
+    ev_rel = abs(ev["test/loss"] - res["test/loss"]) / abs(res["test/loss"])
+    print(f"trainer: EnvNet-v2 f32 batch {TRAIN_BATCH}, BC mixing + KLDiv, 10-crop val/test, "
+          f"SWA from epoch 1 with the BatchNorm refresh: fit {trainer.fit_seconds:.2f} s, train "
+          f"CLI {main_s:.2f} s; epoch clips/s "
+          f"{[round(h['perf/clips_per_sec_per_chip'], 2) for h in hist]}; train/loss "
+          f"{[round(h['train/loss'], 4) for h in hist]}, val/acc "
+          f"{[round(h['val/acc'], 4) for h in hist]}; test acc {res['test/acc']:.4f} F1 "
+          f"{res['test/f1']:.4f} AUROC {res['test/auroc']:.4f} loss {res['test/loss']:.4f}; "
+          f"checkpoint writes {len(writes)} x {_dir_mb(best):.0f} MB in "
+          f"{', '.join(f'{t:.2f}' for t in writes)} s; evaluate on the best checkpoint "
+          f"{ev_s:.2f} s: loss rel {ev_rel:.2e}, confusion matrices equal: "
+          f"{np.array_equal(ev['confmat'], res['confmat'])}  [{card}]", flush=True)
+    require(np.array_equal(ev["confmat"], res["confmat"]) and ev_rel <= TEST_LOSS_REL,
+            f"EnvNet evaluate: loss {ev['test/loss']} vs the train run's {res['test/loss']}")
+    return counts
+
 
 def moe_parity_sweep(dev: torch.device, seeds: str, card: str, fault: str | None = None
                      ) -> None:
@@ -2210,17 +2692,27 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         mini_serve, mini_train = phase_mini(dev, args.seed, Path(tmp), card)
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        trainer_run = phase_trainer(dev, args.seed, Path(tmp), card, bench_rec["value"])
+    with tempfile.TemporaryDirectory() as trainer_tmp:
+        trainer_run = phase_trainer(dev, args.seed, Path(trainer_tmp), card, bench_rec["value"])
+        torch.cuda.empty_cache()
+        phase_families_vs_cpu(dev, args.seed, card)
+        fam_train, _ = phase_family_train(dev, args.seed, card)
+        phase_family_parity(dev, args.seed)
+        with tempfile.TemporaryDirectory() as tmp:
+            fam_serve, _ = phase_family_serving(dev, args.seed, Path(tmp), card)
+        torch.cuda.empty_cache()
+        envnet_trainer = phase_envnet_trainer(dev, args.seed, Path(trainer_tmp), card)
 
-    # launches: the training runs' (ast_trainer: the train CLI's fit, its
-    # validation and its test); launches_serving: the serving runs';
+    # launches: the training runs' (ast_trainer, envnet_v2_trainer: the train
+    # CLI's fit, its validation and its test); launches_serving: the serving runs';
     # launches_by_path: each main path's run, counted from 0 (ast_mini: its
     # served batch and its 2 train steps)
     train_runs = dict(ast_train=train, ast_moe_train=moe_train, ast_small_train=small_train,
-                      ast_mini_train=mini_train, ast_trainer=trainer_run)
+                      ast_mini_train=mini_train, ast_trainer=trainer_run,
+                      **{f"{k}_train": c for k, c in fam_train.items()},
+                      envnet_v2_trainer=envnet_trainer)
     serve_runs = dict(ast_serve=serve, ast_moe_serve=moe_serve, ast_small_serve=small_serve,
-                      ast_mini_serve=mini_serve)
+                      ast_mini_serve=mini_serve, **{f"{k}_serve": c for k, c in fam_serve.items()})
 
     def launches(key):
         by_path = {p: c[key] for p, c in {**train_runs, **serve_runs}.items()}

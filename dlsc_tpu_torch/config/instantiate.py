@@ -32,6 +32,12 @@ _PORTED: dict[str, str] = {
     "dlsc_tpu.models.ast_small.ASTViTSmall": _MODELS + "ast_small.ASTViTSmall",
     "dlsc_tpu.models.ast_mini.ASTMiniViT": _MODELS + "ast_mini.ASTMiniViT",
     "dlsc_tpu.models.ast_moe.ASTMoE": _MODELS + "ast_moe.ASTMoE",
+    "src.models.envnet_v2.EnvNetV2": _MODELS + "envnet_v2.EnvNetV2",
+    "src.models.cnn_esc50.CNN_ESC50": _MODELS + "cnn_esc50.CNN_ESC50",
+    "src.models.leaf.LeafModel": _MODELS + "leaf.LeafModel",
+    "dlsc_tpu.models.envnet_v2.EnvNetV2": _MODELS + "envnet_v2.EnvNetV2",
+    "dlsc_tpu.models.cnn_esc50.CNN_ESC50": _MODELS + "cnn_esc50.CNN_ESC50",
+    "dlsc_tpu.models.leaf.LeafModel": _MODELS + "leaf.LeafModel",
     "src.datasets.esc50.ESC50DataModule": _DATA + "esc50.ESC50DataModule",
     "src.datasets.urbansound8k.UrbanSound8KDataModule": _DATA + "us8k.US8KDataModule",
     "dlsc_tpu.data.esc50.ESC50DataModule": _DATA + "esc50.ESC50DataModule",
@@ -47,12 +53,6 @@ _PORTED: dict[str, str] = {
 
 # targets the port lacks → the ROADMAP item that ports them
 _NOT_PORTED: dict[str, str] = {
-    "src.models.envnet_v2.EnvNetV2": "M7",
-    "dlsc_tpu.models.envnet_v2.EnvNetV2": "M7",
-    "src.models.leaf.LeafModel": "M7",
-    "dlsc_tpu.models.leaf.LeafModel": "M7",
-    "src.models.cnn_esc50.CNN_ESC50": "M7",
-    "dlsc_tpu.models.cnn_esc50.CNN_ESC50": "M7",
     "optuna.samplers.TPESampler": "M10",
     "optuna.pruners.HyperbandPruner": "M10",
     "optuna.pruners.MedianPruner": "M10",

@@ -55,23 +55,25 @@ unfused one by the rounding of the residual. The op is not kept by remat
 ``forward(..., add_ln=...)`` takes another function with its contract,
 e.g. ``add_ln_reference`` for a plain run.
 
-``attn_impl`` is the JAX package's choice of TPU attention kernel:
-``'splash'`` (the splash library kernel, or its shape-specialised fast
-path) and ``'flash'`` (the flash library kernel with segment ids). Both
-compute the same masked attention on every row that reaches an output, so
-both run ``dlsc_tpu_torch::mha`` here; the flash path's 512-token pad grain
+``attn_impl`` is the JAX package's choice of attention: ``'splash'`` (the
+splash library kernel, or its shape-specialised fast path) and ``'flash'``
+(the flash library kernel with segment ids) compute the same masked
+attention on every row that reaches an output, so both run
+``dlsc_tpu_torch::mha`` here; the flash path's 512-token pad grain
 (``vit.py:529-530``) is a TPU block-size constraint that the port does not
 carry over, and its pad rows (which attend pad keys there) are values that
-nothing reads. ``'dense'`` (the einsum branch, the only one with
-attention-weight dropout, ``vit.py:132-140``) and ``attn_dropout > 0`` raise
-``NotImplementedError`` (ROADMAP §1 M7).
+nothing reads. ``'dense'`` is the JAX package's einsum branch
+(``vit.py:132-140``), which it also takes in train mode whenever
+``attn_dropout > 0`` (its kernels have no attention dropout): scores with
+the pad keys masked, an f32 softmax, dropout on P under the block's
+generator, then P·V (``dense_attention``, plain torch, as the JAX branch is
+plain XLA).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import Callable
 
 import torch
@@ -80,6 +82,7 @@ from torch import nn
 from torch.utils.checkpoint import (checkpoint, create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from dlsc_tpu_torch.models.layers import as_dtype, dtype_name, lecun_normal_, trunc_normal_
 from dlsc_tpu_torch.models.moe import (MOE_METRICS, GroupedMatmulFn, MoeMlp, MoeSpec,
                                        TopkFn, as_moe_spec, dropout, topk_routes)
 from dlsc_tpu_torch.ops.attn_fast import fast_mha_lse
@@ -96,7 +99,8 @@ AddLnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
                    tuple[torch.Tensor, ...]]
 
 REMAT_POLICIES = ("full", "attn_res")
-ATTN_IMPLS = ("splash", "flash")   # the JAX package's TPU kernels, both on dlsc_tpu_torch::mha
+# the JAX package's TPU kernels, both on dlsc_tpu_torch::mha, and its einsum branch
+ATTN_IMPLS = ("splash", "flash", "dense")
 
 
 def _remat_context_fn(policy: str) -> Callable:
@@ -110,16 +114,23 @@ def _remat_context_fn(policy: str) -> Callable:
 
 
 def _check_attention(attn_impl: str, attn_dropout: float) -> None:
-    if attn_impl == "dense" or attn_dropout > 0:
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r}, attn_dropout={attn_dropout}: the dense attention "
-            "branch with attention-weight dropout is not ported yet (ROADMAP §1 M7)")
     if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"unknown attn_impl {attn_impl!r}; known: {ATTN_IMPLS} and 'dense'")
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; known: {ATTN_IMPLS}")
+    if not 0.0 <= attn_dropout < 1.0:
+        raise ValueError(f"attn_dropout {attn_dropout} is not in [0, 1)")
 
 
-def _as_dtype(dtype: torch.dtype | str) -> torch.dtype:
-    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_real: int,
+                    rate: float = 0.0, gen: torch.Generator | None = None) -> torch.Tensor:
+    """Masked softmax attention on (B, H, N, dh), q pre-scaled: keys >=
+    ``n_real`` masked, softmax in f32, P cast to q's dtype, dropout on P
+    (``rate``, masks from ``gen``; none when ``gen`` is None), then P·V."""
+    s = torch.matmul(q, k.transpose(-1, -2))
+    n = k.shape[2]
+    if n_real < n:
+        s = s.masked_fill(torch.arange(n, device=s.device) >= n_real, -1e30)
+    p = dropout(torch.softmax(s.float(), dim=-1).to(q.dtype), rate, gen)
+    return torch.matmul(p, v)
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -134,20 +145,28 @@ def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    """Packed-qkv attention; ``impl`` 'dense' (or dropout in train mode:
+    ``gen`` given and ``rate`` > 0) takes ``dense_attention``, any other
+    the ``attention`` op."""
+
+    def __init__(self, dim: int, num_heads: int, impl: str = "splash", rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.impl, self.rate = impl, rate
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, n_real: int,
-                attention: AttentionFn) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, n_real: int, attention: AttentionFn,
+                gen: torch.Generator | None = None) -> torch.Tensor:
         B, N, D = x.shape
         H = self.num_heads
         dh = D // H
         qkv = _linear(x, self.qkv).view(B, N, 3, H, dh).permute(2, 0, 3, 1, 4)
         q = (qkv[0] * dh**-0.5).contiguous()  # pre-scaled, the kernel's contract
-        out, _ = attention(q, qkv[1].contiguous(), qkv[2].contiguous(), n_real)
+        if self.impl == "dense" or (gen is not None and self.rate > 0):
+            out = dense_attention(q, qkv[1], qkv[2], n_real, self.rate, gen)
+        else:
+            out, _ = attention(q, qkv[1].contiguous(), qkv[2].contiguous(), n_real)
         return _linear(out.transpose(1, 2).reshape(B, N, D), self.proj)
 
 
@@ -171,11 +190,12 @@ class Block(nn.Module):
     block's dropout generator."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dropout: float = 0.0, moe: MoeSpec | None = None, ln_fused: bool = False):
+                 dropout: float = 0.0, moe: MoeSpec | None = None, ln_fused: bool = False,
+                 attn_impl: str = "splash", attn_dropout: float = 0.0):
         super().__init__()
         self.ln_fused = ln_fused
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, num_heads)
+        self.attn = Attention(dim, num_heads, attn_impl, attn_dropout)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         if moe is None:
             self.mlp = Mlp(dim, mlp_ratio, dropout)
@@ -186,7 +206,7 @@ class Block(nn.Module):
                 grouped_matmul: GroupedMatmulFn = gmm_op, topk: TopkFn = topk_routes,
                 seed: int | None = None, add_ln: AddLnFn = add_ln_op):
         gen = None if seed is None else torch.Generator(x.device).manual_seed(seed)
-        a = self.attn(_layer_norm(x, self.norm1), n_real, attention)
+        a = self.attn(_layer_norm(x, self.norm1), n_real, attention, gen)
         if self.ln_fused:
             x, y, _, _ = add_ln(x, a, self.norm2.weight, self.norm2.bias)
         else:
@@ -196,16 +216,6 @@ class Block(nn.Module):
             return x + self.mlp(y, gen), None, None
         out, aux, stats = self.moe(y, n_real, grouped_matmul, topk, gen)
         return x + out, aux, stats
-
-
-def _trunc_normal_(t: torch.Tensor, std: float, gen: torch.Generator | None) -> None:
-    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
-
-
-def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator | None) -> None:
-    """Flax's default kernel init: truncated normal, variance 1/fan_in."""
-    # 0.8796... is the std of a unit normal truncated to [-2, 2]
-    _trunc_normal_(t, math.sqrt(1.0 / fan_in) / 0.87962566103423978, gen)
 
 
 class ASTViT(nn.Module):
@@ -240,18 +250,19 @@ class ASTViT(nn.Module):
                 "assumes it")
         _remat_context_fn(remat_policy)  # validates the policy
         _check_attention(attn_impl, attn_dropout)
-        dtype = _as_dtype(dtype)
+        dtype = as_dtype(dtype)
         moe = as_moe_spec(moe)
         self.config = dict(
             num_classes=num_classes, emb_dim=emb_dim, depth=depth,
             num_heads=num_heads, patch_size=patch_size, patch_stride=patch_stride,
             overlap=overlap, sample_rate=sample_rate, f_dim=f_dim,
-            dtype=str(dtype).removeprefix("torch."), remat=remat,
+            dtype=dtype_name(dtype), remat=remat,
             remat_policy=remat_policy, dropout=dropout,
             moe=None if moe is None else dataclasses.asdict(moe), ln_fused=ln_fused,
             attn_impl=attn_impl, attn_dropout=attn_dropout)
         self.dtype = dtype
         self.dropout = dropout
+        self.attn_dropout = attn_dropout
         self.remat = remat
         self.remat_policy = remat_policy
         self.patch_stride = patch_stride
@@ -264,7 +275,8 @@ class ASTViT(nn.Module):
             self.cls_token = nn.Parameter(torch.empty(1, 1, emb_dim))
             self.pos_embed = nn.Parameter(torch.empty(1, 1 + num_patches, emb_dim))
             self.blocks = nn.ModuleList(
-                Block(emb_dim, num_heads, dropout=dropout, moe=moe, ln_fused=ln_fused)
+                Block(emb_dim, num_heads, dropout=dropout, moe=moe, ln_fused=ln_fused,
+                      attn_impl=attn_impl, attn_dropout=attn_dropout)
                 for _ in range(depth))
             self.norm = nn.LayerNorm(emb_dim, eps=LN_EPS)
             self.head = nn.Linear(emb_dim, num_classes)
@@ -281,22 +293,22 @@ class ASTViT(nn.Module):
         token, truncated-normal(0.02) positions."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
-                _lecun_normal_(m.weight, m.in_features, gen)
+                lecun_normal_(m.weight, m.in_features, gen)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, MoeMlp):
-                _lecun_normal_(m.wi, m.wi.shape[-2], gen)
-                _lecun_normal_(m.wo, m.wo.shape[-2], gen)
+                lecun_normal_(m.wi, m.wi.shape[-2], gen)
+                lecun_normal_(m.wo, m.wo.shape[-2], gen)
                 m.bi.zero_()
                 m.bo.zero_()
             elif isinstance(m, nn.Conv2d):
-                _lecun_normal_(m.weight, m.weight[0].numel(), gen)
+                lecun_normal_(m.weight, m.weight[0].numel(), gen)
                 m.bias.zero_()
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
         self.cls_token.zero_()
-        _trunc_normal_(self.pos_embed, 0.02, gen)
+        trunc_normal_(self.pos_embed, 0.02, gen)
 
     def embed(self, x: torch.Tensor) -> tuple[torch.Tensor, int]:
         """Patch embed + CLS + positions, padded to the 128 grain:
@@ -336,7 +348,7 @@ class ASTViT(nn.Module):
         remat = self.remat and self.training and torch.is_grad_enabled()
         context_fn = _remat_context_fn(self.remat_policy)
         seed = None
-        if self.training and self.dropout > 0:
+        if self.training and (self.dropout > 0 or self.attn_dropout > 0):
             seed = (int(torch.randint(2**62, ())) if dropout_seed is None
                     else int(dropout_seed))
         aux, stats = 0.0, []

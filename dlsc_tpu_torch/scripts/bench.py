@@ -1,7 +1,8 @@
-"""Train-step throughput of one of the port's AST models on one GPU.
+"""Train-step throughput of one of the port's models on one GPU.
 
     python -m dlsc_tpu_torch.scripts.bench [--model ast|ast_moe|ast_small|ast_mini] \
         [--ln-fused] [--batch 64] [--steps 10] [--warmup 2] [--seed 0]
+    python -m dlsc_tpu_torch.scripts.bench --model envnet_v2|cnn_esc50|leaf
 
 The configuration of the root ``bench.py`` (``bench.py:49-73``): AST-Base
 (``configs/model/ast.yaml``) in bf16 with remat ``attn_res``, seeded random
@@ -20,6 +21,16 @@ defaults: bf16, remat ``attn_res``, dropout 0.1) and ``--model ast_mini``
 bf16, no remat, dropout 0.1) run the same way, their dataset overrides
 being the same too. ``--ln-fused`` builds the model with ``ln_fused``: each
 block's attention residual add and norm2 run on kernels K3f and K3b.
+
+``--model envnet_v2``, ``cnn_esc50`` and ``leaf`` run the other families
+in their configs' precision (f32) with their configs' pipelines and
+``configs/base_training.yaml``'s recipe (Adam lr 1e-4, weight decay 1e-4,
+cosine over 250 epochs, clip 1.0): EnvNet-v2 on pad + random crop + BC
+mixing with ``KLDivLoss`` (batchmean); the CNN on kernel K1 at 1024/512/1024
++ dB + the 224² resize + flips and translation, cross-entropy; LEAF (128
+Gabor filters of 401 taps, ``configs/model/leaf.yaml``) on pad + random
+crop, cross-entropy. Their ``mfu`` and ``hw_util`` are null: the JAX package
+counts FLOPs only for the ViT family.
 
 Prints one JSON line: ``metric``, ``value`` (clips/s), ``unit``, ``batch``,
 ``step_ms`` (host clock over ``--steps`` steps ending in a synchronize,
@@ -50,8 +61,12 @@ from dlsc_tpu_torch.models.ast import ASTModel
 from dlsc_tpu_torch.models.ast_mini import ASTMiniViT
 from dlsc_tpu_torch.models.ast_moe import ASTMoE
 from dlsc_tpu_torch.models.ast_small import ASTViTSmall
+from dlsc_tpu_torch.models.cnn_esc50 import CNN_ESC50
+from dlsc_tpu_torch.models.envnet_v2 import EnvNetV2
+from dlsc_tpu_torch.models.leaf import LeafModel
 from dlsc_tpu_torch.models.moe import MOE_METRICS
-from dlsc_tpu_torch.train.losses import CrossEntropyLoss
+from dlsc_tpu_torch.models.vit import ASTViT
+from dlsc_tpu_torch.train.losses import CrossEntropyLoss, KLDivLoss
 from dlsc_tpu_torch.train.metrics import MetricState
 from dlsc_tpu_torch.train.optim import adam, cosine_annealing
 from dlsc_tpu_torch.train.state import TrainState
@@ -68,6 +83,11 @@ AST_MOE = dict(num_classes=50, sample_rate=44_100, patch_size=16, patch_stride=1
 # configs/model/ast_small.yaml and ast_mini.yaml, written out
 AST_SMALL = dict(num_classes=50, sample_rate=44_100, patch_size=16, patch_stride=16, overlap=0)
 AST_MINI = dict(num_classes=50, sample_rate=44_100, patch_size=16, patch_stride=10, overlap=6)
+# configs/model/envnet_v2.yaml, cnn_esc50.yaml and leaf.yaml, written out
+ENVNET = dict(num_classes=50, dropout=0.5)
+CNN = dict(num_classes=50)
+LEAF = dict(num_classes=50, n_filters=128, kernel_size=401, sample_rate=44_100)
+FAMILIES = ("envnet_v2", "cnn_esc50", "leaf")   # BatchNorm models, f32
 CLIP = 220_500
 FLOP_CONVENTION = ("useful FLOPs (utils/mfu.py): parameter matmuls x3, attention "
                    "4·n²·D forward + 10·n²·D backward, at n_real tokens")
@@ -84,6 +104,13 @@ METRICS = {
                  "5-s clips",
     "ast_mini": "AST-Mini train-step throughput (K1 mel + SpecAugment + Mixup + ViT 192/6/3 "
                 "patch 16 stride 10, bf16 fwd/bwd, dropout 0.1, no remat, + Adam), 5-s clips",
+    "envnet_v2": "EnvNet-v2 train-step throughput (pad + random crop + BC mixing + KLDiv, f32 "
+                 "fwd/bwd, BatchNorm, dropout 0.5, + Adam), 5-s clips",
+    "cnn_esc50": "spectrogram-CNN train-step throughput (K1 mel 1024/512/1024 + dB + 224² "
+                 "resize + flips/translate, f32 fwd/bwd, BatchNorm, dropout 0.5, + Adam), 5-s "
+                 "clips",
+    "leaf": "LEAF train-step throughput (pad + random crop, Gabor conv 128 x 401 + PCEN + 1-D "
+            "CNN, f32 fwd/bwd, BatchNorm, dropout 0.3, + Adam), 5-s clips",
 }
 LN_FUSED_NOTE = "; K3 fused residual add + LayerNorm in every block"
 K2F, K2B = "K2f attention forward", "K2b attention backward"
@@ -99,8 +126,10 @@ _KERNEL_KINDS = (
     (K4B, ("tgmm",)),
     (K4A, ("gmm",)),
     ("K1 mel", ("mel_power",)),
+    ("BatchNorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("pooling", ("max_pool", "avg_pool", "MaxPool", "AvgPool", "pooling")),
+    ("convolutions (cuDNN)", ("conv", "cudnn", "dgrad", "wgrad", "fprop")),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
-    ("patch conv (cuDNN)", ("conv", "cudnn", "dgrad", "wgrad")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
     ("optimizer", ("multi_tensor", "adam", "Adam")),
     ("routing sort", ("Radix", "radix", "Sort", "sort")),
@@ -116,9 +145,25 @@ def bench_pipeline() -> DevicePipeline:
                                          mixup_alpha=0.5))
 
 
+def family_pipeline(model_name: str) -> DevicePipeline:
+    """The configs' pipeline of a CNN family: EnvNet-v2's BC mixing, the
+    CNN's images, LEAF's padded crops."""
+    if model_name == "cnn_esc50":
+        return DevicePipeline(PipelineConfig(mode="cnn_esc50", num_classes=CNN["num_classes"]))
+    return DevicePipeline(PipelineConfig(mode="envnet_v2", num_classes=ENVNET["num_classes"],
+                                         enable_bc_mixing=model_name == "envnet_v2"))
+
+
 def build_model(model_name: str, seed: int, device: torch.device, ln_fused: bool = False):
     """The bench's ``model_name`` (a key of ``METRICS``) with seeded weights."""
-    kw = dict(ln_fused=ln_fused, generator=torch.Generator().manual_seed(seed), device=device)
+    gen = torch.Generator().manual_seed(seed)
+    if model_name == "envnet_v2":
+        return EnvNetV2(**ENVNET, generator=gen, device=device)
+    if model_name == "cnn_esc50":
+        return CNN_ESC50(**CNN, generator=gen, device=device)
+    if model_name == "leaf":
+        return LeafModel(**LEAF, generator=gen, device=device)
+    kw = dict(ln_fused=ln_fused, generator=gen, device=device)
     if model_name == "ast":
         return ASTModel(**AST_BASE, dtype=torch.bfloat16, remat=True, remat_policy="attn_res",
                         **kw)
@@ -136,23 +181,33 @@ def build(batch: int, seed: int, device: torch.device, model_name: str = "ast",
     """(train_step, state, metric state, waves, labels) of the bench on
     ``device`` for ``model_name`` (a key of ``METRICS``)."""
     model = build_model(model_name, seed, device, ln_fused)
-    extras = MOE_METRICS if model.config["moe"] else ()
-    state = TrainState.create(model, adam(lr=5e-4, weight_decay=1e-6),
-                              cosine_annealing(T_max=100), steps_per_epoch=25,
-                              gradient_clip_val=1.0, seed=seed)
+    extras = MOE_METRICS if model.config.get("moe") else ()
+    if model_name in FAMILIES:   # configs/base_training.yaml's recipe
+        state = TrainState.create(model, adam(lr=1e-4, weight_decay=1e-4),
+                                  cosine_annealing(T_max=250), steps_per_epoch=25,
+                                  gradient_clip_val=1.0, seed=seed)
+        criterion = KLDivLoss() if model_name == "envnet_v2" else CrossEntropyLoss()
+        step = make_train_step(family_pipeline(model_name), criterion)
+    else:
+        state = TrainState.create(model, adam(lr=5e-4, weight_decay=1e-6),
+                                  cosine_annealing(T_max=100), steps_per_epoch=25,
+                                  gradient_clip_val=1.0, seed=seed)
+        step = make_train_step(bench_pipeline(), CrossEntropyLoss())
     rng = np.random.default_rng(seed)
     wave = torch.from_numpy((rng.standard_normal((batch, CLIP)) * 0.3).astype(np.float32))
     labels = torch.from_numpy(rng.integers(0, AST_BASE["num_classes"], batch))
-    step = make_train_step(bench_pipeline(), CrossEntropyLoss())
     return (step, state, MetricState.create(AST_BASE["num_classes"], device, extras),
             wave.to(device), labels.to(device))
 
 
-def _metric_key(cfg: dict) -> str:
-    """The ``METRICS`` key of a bench model, from its configuration."""
-    if cfg["moe"]:
+def _metric_key(model: torch.nn.Module) -> str:
+    """The ``METRICS`` key of a bench model."""
+    family = {EnvNetV2: "envnet_v2", CNN_ESC50: "cnn_esc50", LeafModel: "leaf"}
+    if type(model) in family:
+        return family[type(model)]
+    if model.config["moe"]:
         return "ast_moe"
-    return {768: "ast", 384: "ast_small", 192: "ast_mini"}[cfg["emb_dim"]]
+    return {768: "ast", 384: "ast_small", 192: "ast_mini"}[model.config["emb_dim"]]
 
 
 def timed_steps(step, state, ms, wave, labels, warmup: int, steps: int):
@@ -231,6 +286,8 @@ def profile_steps(step, state, ms, wave, labels, n: int = 2, top: int = 15) -> d
 def record(model: torch.nn.Module, batch: int, step_s: float, losses: np.ndarray,
            peak_mem_gib: float, prof: dict) -> dict:
     """The bench's JSON record from a measured step time and a profile."""
+    if not isinstance(model, ASTViT):
+        return _family_record(model, batch, step_s, losses, peak_mem_gib, prof)
     cfg = model.config
     n_real, n_pad = ast_token_counts(model, CLIP)
     fl = ast_step_flops(model, n_real, n_pad)
@@ -259,7 +316,7 @@ def record(model: torch.nn.Module, batch: int, step_s: float, losses: np.ndarray
     decomp["rest_ms"] = prof["device_ms_per_step"] - kernel_ms
     decomp["note"] = note + "; rest = the other kernels"
     return {
-        "metric": METRICS[_metric_key(cfg)] + (LN_FUSED_NOTE if ln_fused else ""),
+        "metric": METRICS[_metric_key(model)] + (LN_FUSED_NOTE if ln_fused else ""),
         "value": batch / step_s,
         "unit": "clips/s",
         "batch": batch,
@@ -276,6 +333,32 @@ def record(model: torch.nn.Module, batch: int, step_s: float, losses: np.ndarray
     }
 
 
+
+def _family_record(model: torch.nn.Module, batch: int, step_s: float, losses: np.ndarray,
+                   peak_mem_gib: float, prof: dict) -> dict:
+    """A CNN family's record: no FLOP count (``mfu`` null), and the step's
+    device time by kind from the profile."""
+    kinds = prof["by_kind_ms"]
+    return {
+        "metric": METRICS[_metric_key(model)],
+        "value": batch / step_s,
+        "unit": "clips/s",
+        "batch": batch,
+        "step_ms": step_s * 1e3,
+        "mfu": None,
+        "hw_util": None,
+        "device": torch.cuda.get_device_name(),
+        "n_chips": 1,
+        "peak_mem_gib": peak_mem_gib,
+        "losses": losses.tolist(),
+        "decomp": {"k1_ms": kinds.get("K1 mel", 0.0),
+                   "conv_ms": kinds.get("convolutions (cuDNN)", 0.0),
+                   "rest_ms": prof["device_ms_per_step"] - kinds.get("K1 mel", 0.0)
+                   - kinds.get("convolutions (cuDNN)", 0.0),
+                   "note": "device ms per step under the profiler: K1 (the CNN's front end), "
+                           "cuDNN convolutions, and the other kernels"},
+        "profile": prof,
+    }
 
 
 def measure(batch: int = 64, steps: int = 10, warmup: int = 2, seed: int = 0,
@@ -302,6 +385,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.ln_fused and args.model in FAMILIES:
+        ap.error(f"--ln-fused applies to the AST family, not {args.model}")
     rec = measure(args.batch, args.steps, args.warmup, args.seed, args.model, args.ln_fused)
     print(json.dumps(rec))
     return rec

@@ -21,10 +21,11 @@ the config (``train/loop.build_from_cfg``) → ``Trainer.fit`` (best
 ``val/acc`` checkpoints under ``<hydra.run.dir>/checkpoints``, early stop,
 optional SWA) → ``Trainer.test`` on the best checkpoint → the ``test
 results`` block. ``trainer.accelerator`` 'auto' runs on the GPU and fails
-without one; ``trainer.accelerator=cpu`` runs on the CPU. Ported models:
-``model=ast``, ``ast_small``, ``ast_mini`` and ``ast_moe`` (ROADMAP §1 M7 for
-the others). Make synthetic shards with
-``dlsc_tpu_torch.data.synthetic.make_synthetic_dataset``.
+without one; ``trainer.accelerator=cpu`` runs on the CPU. Models:
+``model=ast``, ``ast_small``, ``ast_mini``, ``ast_moe``, ``envnet_v2``,
+``cnn_esc50`` and ``leaf``; EnvNet-v2's recipe is BC mixing (its config's
+default) with ``loss._target_=torch.nn.KLDivLoss``. Make synthetic shards
+with ``dlsc_tpu_torch.data.synthetic.make_synthetic_dataset``.
 """
 
 from __future__ import annotations

@@ -8,15 +8,19 @@ replacement for the reference's Lightning ``Trainer`` + ``LitClassifier``):
   ``perf/clips_per_sec_per_chip`` and, for MoE models, ``MOE_METRICS``;
 - ``CheckpointManager`` on ``val/acc`` (best k, ``last``, resume from
   ``ckpt_path`` or, with ``auto_resume``, from the newest checkpoint),
-  ``EarlyStopping``, optional SWA, ``callbacks`` with
+  ``EarlyStopping``, optional SWA with its BatchNorm refresh, ``callbacks`` with
   ``on_validation_epoch_end(trainer, epoch, metrics)``;
 - ``limit_train_batches`` / ``limit_val_batches``, ``check_val_every_n_epoch``;
 - the test phase: acc, macro F1, macro AUROC, loss, confusion matrix and
   per-class accuracy, figures when matplotlib is there (the arrays are
   logged either way).
 
-The step is ``train/steps.py``'s, eager: K1 → SpecAugment → Mixup → the ViT
-(K2f, K2b; K3 and K4 where the model has them) → CE → clip → update. The
+The step is ``train/steps.py``'s, eager: for AST K1 → SpecAugment → Mixup
+→ the ViT (K2f, K2b; K3 and K4 where the model has them) → CE → clip →
+update; for EnvNet-v2, the CNN and LEAF their pipelines → the CNN (cuDNN
+convolutions, BatchNorm updating its running statistics) → the loss → clip
+→ update. SWA ends with a pass that re-estimates the BatchNorm statistics
+of the averaged weights (``_refresh_batch_stats``). The
 host waits on the card only where the JAX loop does: ``float(loss)`` every
 ``log_every_n_steps`` when a tracker is given, and once at each epoch's end;
 the metric states stay on the device until then.
@@ -104,9 +108,8 @@ class _SWA:
     callbacks.py:71-79): the running mean of the parameters at each epoch's
     end from ``swa_epoch_start`` on replaces the weights when fit ends.
     ``swa_lrs`` bakes SWA's annealing into the LR (``optim.swa_lr_wrap``).
-    The JAX package then refreshes BatchNorm statistics with one pass over
-    the train data; the AST family has no BatchNorm, so that pass waits for
-    the models that have it (ROADMAP §1 M7)."""
+    The Trainer then refreshes the BatchNorm statistics of the averaged
+    weights (``Trainer._refresh_batch_stats``)."""
 
     def __init__(self, swa_epoch_start: float | int = 0.8, max_epochs: int = 100,
                  swa_lrs: float | None = None, annealing_epochs: int = 10, **_):
@@ -449,6 +452,7 @@ class Trainer:
 
         if swa and swa.avg_params is not None:
             swa.apply(state.model)
+            self._refresh_batch_stats(state, datamodule)
             print(f"SWA: averaged {swa.n_models} snapshots into final weights")
 
         self.state = state
@@ -457,6 +461,32 @@ class Trainer:
             self._plot_curves(tracker, history)
         self.fit_seconds = time.perf_counter() - t_fit
         return state
+
+    @torch.no_grad()
+    def _refresh_batch_stats(self, state: TrainState, datamodule) -> None:
+        """Re-estimate the BatchNorm statistics of SWA-averaged weights, as
+        the JAX loop does: one train-mode pass over the train batches (epoch
+        0's order, ``limit_train_batches``), each with the pipeline's train
+        draws and a dropout seed from ``state.step_rng()``, the running
+        statistics updated at momentum 0.9 and no parameter touched. A
+        model without BatchNorm skips it. (``torch.optim.swa_utils.update_bn``
+        would reset the statistics and take a cumulative mean instead.)"""
+        model = state.model
+        if not any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+                   for m in model.modules()):
+            return
+        pipeline = datamodule.pipeline
+        model.train()
+        for i, batch in enumerate(datamodule.train_batches(epoch=0, seed=self.seed)):
+            if self.limit_train_batches and i >= self.limit_train_batches:
+                break
+            wave = torch.as_tensor(batch["wave"], device=self.device)
+            labels = torch.as_tensor(batch["label"], device=self.device)
+            rng = state.step_rng()
+            x, _ = pipeline.train_batch(wave, labels,
+                                        pipeline.draw(len(labels), wave.shape[-1], rng))
+            model(x, dropout_seed=int(rng.integers(2**62)))
+        self._sync()
 
     # -- test ------------------------------------------------------------------
     def test(self, datamodule, state: TrainState | None = None,

@@ -46,9 +46,15 @@ class TrainState:
             int(torch.randint(0, 2**62, (), generator=self.generator)))
 
     def apply_gradients(self) -> None:
-        """Clip (optax semantics), set the LR of this step count, update,
-        clear the gradients, count the step."""
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        """Give a parameter that the loss does not reach (LEAF's PCEN α) a
+        zero gradient, as JAX's ``value_and_grad`` does, so that weight decay
+        still moves it; clip (optax semantics), set the LR of this step
+        count, update, clear the gradients, count the step."""
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
         if self.clip:
             clip_by_global_norm_(grads, self.clip)
         lr = self.lr_fn(self.step)

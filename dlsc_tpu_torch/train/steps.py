@@ -1,14 +1,19 @@
-"""Train and eval steps, AST mode.
+"""Train and eval steps, for every model family.
 
 Counterpart of ``dlsc_tpu/train/steps.py``. One call of the train step
-runs: waveform batch → ``DevicePipeline.train_batch`` (log-mel on kernel
-K1, SpecAugment, Mixup; outside the autograd graph, the JAX step's
-``stop_gradient``) → forward in train mode (kernel K2f in each block, remat
-as the model is configured) → soft-label loss plus the MoE blocks' aux loss
-→ backward (kernel K2b; K4 in MoE blocks; K3 with ``ln_fused``) →
-global-norm clip → optimizer update at this step's LR → metric update with
-the pre-update outputs and the MoE stats (the metric state's extras, when
-it was created with ``MOE_METRICS``).
+runs: waveform batch → ``DevicePipeline.train_batch`` (outside the autograd
+graph, the JAX step's ``stop_gradient``: for AST log-mel on kernel K1,
+SpecAugment, Mixup; for EnvNet-v2 and LEAF pad, crop, stretch, gain, BC
+mixing; for the CNN log-mel on K1, resize, flips and shift) → forward in
+train mode (for AST kernel K2f in each block, remat as the model is
+configured; BatchNorm layers update their running statistics here, as the
+JAX step threads ``batch_stats`` through ``mutable``) → soft-label loss
+plus the MoE blocks' aux loss → backward (kernel K2b; K4 in MoE blocks; K3
+with ``ln_fused``) → global-norm clip → optimizer update at this step's LR
+→ metric update with the pre-update outputs and the MoE stats (the metric
+state's extras, when it was created with ``MOE_METRICS``). The eval step
+averages the per-crop outputs of a multi-crop pipeline
+(``DevicePipeline.forward_eval``).
 
 ``accum`` > 1 is gradient accumulation (``_make_train_step_accum`` there):
 the batch is split into ``accum`` micro-batches run one after the other,
@@ -93,7 +98,8 @@ def make_train_step_indexed(pipeline: DevicePipeline, criterion: Callable, accum
 
 def make_eval_step(pipeline: DevicePipeline, criterion: Callable) -> Callable:
     """``eval_step(state, ms, wave, labels, mask) -> (ms, logits)``: eval
-    features, the model in eval mode without autograd, the masked loss."""
+    features, the model in eval mode without autograd (the mean over crops
+    for a multi-crop pipeline), the masked loss."""
 
     def eval_step(state: TrainState, ms: MetricState, wave: torch.Tensor,
                   labels: torch.Tensor, mask: torch.Tensor):
@@ -101,7 +107,7 @@ def make_eval_step(pipeline: DevicePipeline, criterion: Callable) -> Callable:
             model = state.model.eval()
             x = pipeline.eval_batch(wave)
             y = one_hot(labels.to(x.device), pipeline.cfg.num_classes)
-            logits = model(x)
+            logits = pipeline.forward_eval(model, x)
             loss = criterion(logits, y, mask=mask.to(x.device, torch.float32))
             return ms.update(logits, y.argmax(-1), loss, mask=mask), logits
 

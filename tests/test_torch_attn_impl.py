@@ -80,7 +80,9 @@ def test_k6_flash_matches_the_port(n_real):
 
 def test_attn_impl_choices():
     """'splash' and 'flash' build the same model (both run the mha op) and
-    are kept in the config; 'dense' and attention dropout are not ported."""
+    are kept in the config; 'dense' (the einsum branch) gives the same
+    outputs in eval mode; an unknown impl or a dropout rate out of [0, 1)
+    raises."""
     kw = dict(num_classes=5, emb_dim=64, depth=1, num_heads=2, dtype=torch.float32)
     x = torch.randn(2, 128, 100, generator=torch.Generator().manual_seed(0))
     outs = []
@@ -90,9 +92,12 @@ def test_attn_impl_choices():
         with torch.no_grad():
             outs.append(model(x))
     assert torch.equal(*outs)
-    with pytest.raises(NotImplementedError, match="M7"):
-        ASTViT(**kw, attn_impl="dense")
-    with pytest.raises(NotImplementedError, match="M7"):
-        ASTViT(**kw, attn_dropout=0.1)
+    dense = ASTViT(**kw, attn_impl="dense", attn_dropout=0.1,
+                   generator=torch.Generator().manual_seed(1))
+    assert dense.config["attn_impl"] == "dense"
+    with torch.no_grad():
+        torch.testing.assert_close(dense(x), outs[0], rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="attn_impl"):
         ASTViT(**kw, attn_impl="ring")
+    with pytest.raises(ValueError, match="attn_dropout"):
+        ASTViT(**kw, attn_dropout=1.0)

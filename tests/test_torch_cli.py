@@ -233,8 +233,8 @@ def test_targets_resolve_into_the_port(target, name):
 
 
 @pytest.mark.parametrize("target,item", [
-    ("src.models.envnet_v2.EnvNetV2", "M7"), ("dlsc_tpu.models.leaf.LeafModel", "M7"),
-    ("src.models.cnn_esc50.CNN_ESC50", "M7"), ("optuna.samplers.TPESampler", "M10"),
+    ("optuna.pruners.HyperbandPruner", "M10"), ("dlsc_tpu.hpo.tpe.TPESampler", "M10"),
+    ("optuna.pruners.MedianPruner", "M10"), ("optuna.samplers.TPESampler", "M10"),
     ("dlsc_tpu.train.loop.Trainer", "JAX package"),
 ])
 def test_targets_the_port_lacks_raise(target, item):
@@ -243,8 +243,11 @@ def test_targets_the_port_lacks_raise(target, item):
 
 
 def test_unported_model_stops_the_clis(root, tmp_path):
+    """Every model family is ported: a ``_target_`` the port lacks (here a
+    name only the JAX package has) stops the train and export CLIs."""
     assert export.parse_cli is train_cli.parse_cli
-    with pytest.raises(NotImplementedError, match="M7"):
-        train_cli.main(["model=envnet_v2", *_common(root, tmp_path / "r")])
-    with pytest.raises(SystemExit, match="M7"):
-        export.main(["model=leaf", f"+out={tmp_path / 'a'}"])
+    lacking = "model._target_=dlsc_tpu.models.envnet_v2.EnvNetV3"
+    with pytest.raises(NotImplementedError, match="JAX package"):
+        train_cli.main(["model=envnet_v2", lacking, *_common(root, tmp_path / "r")])
+    with pytest.raises(SystemExit, match="envnet_v2, cnn_esc50 and leaf"):
+        export.main(["model=leaf", lacking, f"+out={tmp_path / 'a'}"])

@@ -235,6 +235,10 @@ def test_eval_pipeline_matches_jax(dtype):
 
 
 def test_unported_mode_raises():
-    with pytest.raises(NotImplementedError, match="M7"):
-        DevicePipeline(PipelineConfig(mode="envnet_v2"))
+    """Every preprocessing mode of the JAX package is ported; an unknown one
+    raises."""
+    for mode in ("ast", "envnet_v2", "cnn_esc50", "raw"):
+        assert DevicePipeline(PipelineConfig(mode=mode)).cfg.mode == mode
+    with pytest.raises(ValueError, match="preprocessing_mode"):
+        DevicePipeline(PipelineConfig(mode="mfcc"))
 

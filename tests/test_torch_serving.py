@@ -211,7 +211,10 @@ def test_port_imports_no_jax():
         "        'dlsc_tpu_torch.tracking.tracker', 'dlsc_tpu_torch.utils.profiling',\n"
         "        'dlsc_tpu_torch.train.checkpoint', 'dlsc_tpu_torch.train.loop',\n"
         "        'dlsc_tpu_torch.scripts.train', 'dlsc_tpu_torch.scripts.evaluate',\n"
-        "        'dlsc_tpu_torch.scripts.predict'} <= set(names)\n"
+        "        'dlsc_tpu_torch.scripts.predict', 'dlsc_tpu_torch.models.layers',\n"
+        "        'dlsc_tpu_torch.models.envnet_v2', 'dlsc_tpu_torch.models.cnn_esc50',\n"
+        "        'dlsc_tpu_torch.models.leaf', 'dlsc_tpu_torch.data.pipeline',\n"
+        "        'dlsc_tpu_torch.scripts.bench_infer', 'dlsc_tpu_torch.serving'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'optax', 'dlsc_tpu', 'sklearn', 'orbax', 'tqdm'))\n"
         "assert not bad, bad\n"
