@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small, AST-Mini, EnvNet-v2, the spectrogram CNN and LEAF serving and training, and its training entry point, on one GPU.
+"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small, AST-Mini, EnvNet-v2, the spectrogram CNN and LEAF serving and training, its training entry point, AST's remat policies, the timm/DeiT weight import and int8 serving, on one GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -129,11 +129,28 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     BatchNorm statistics within 1e-4;
 22. each family exported by ``scripts/export.py`` and serving a batch of 8
     (K1 once for the CNN), EnvNet-v2 with ten test crops over HTTP, then
-    every row of ``scripts/bench_infer.py`` (the AST family's and these);
+    every row of ``scripts/bench_infer.py`` (the AST family's, these and the
+    10 int8 rows; the batch-1 rows at 100 calls, not the bench's 1000), each
+    row's device time (graph replay) at most its median
+    latency; each int8 row's sigmoid outputs against the bf16 row of its
+    model and batch from the same float weights (0.05 w8a8, 0.06 w8);
 23. EnvNet-v2 through the train CLI on phase 18's shards (2 epochs, f32,
     batch 64, BC mixing + KLDiv, ten crops for val and test, SWA from epoch
     1 with the BatchNorm refresh, the best checkpoint only) and
-    ``evaluate`` on its best checkpoint (the test's confusion matrix).
+    ``evaluate`` on its best checkpoint (the test's confusion matrix);
+24. AST-Base (768/12/12) under the remat policies ``full``, ``dots``,
+    ``attn_out``, ``attn_res``, ``attn_res_qkv`` and ``attn_res_fc1``: an
+    f32 forward and backward at batch 4 through the kernels, gradients
+    within 1e-5 of ``full``'s, K2f 24 or 12 and K2b 12; the bench's bf16
+    batch-64 step under each (ms, clips/s, peak GiB, launches a step); then
+    AST-MoE at batch 64 under ``attn_res_moe`` against ``attn_res`` on the
+    same routes: gradients within 1e-5, gmm 48 against 72 launches;
+25. a seeded ``deit_base_patch16_384`` state dict → ``import_vit`` (audit on
+    the card, then the weights) → ``export model=ast`` in bf16, ``+quant=w8``
+    and ``+quant=w8a8`` → each served on the card (K1 1, K2f 12 a batch)
+    against the reference recipe's forward in plain f32 ops (3e-2 bf16, 0.06
+    w8, 0.05 w8a8); the w8a8 artifact over HTTP; ``torch._int_mm`` at fc1's
+    shape beside the bf16 GEMM.
 
 Routes: a near-tie between two router gates flips a token's expert under a
 perturbation as small as bf16 rounding, and a flipped route moves a whole
@@ -151,6 +168,7 @@ CLIs, so pyyaml.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import copy
@@ -199,6 +217,7 @@ AST_BASE = bench.AST_BASE   # configs/model/ast.yaml, written out
 CLIP = bench.CLIP           # 5 s at 44.1 kHz
 DEPTH = 12
 HEADS = 12
+AST_BASE_WIDTH = 768
 N_PAD, N_REAL = 1664, 1645  # AST-Base tokens at 5 s, padded to the 128 grain
 SERVE_BATCH = 8
 BURST = 16              # concurrent /predict_raw requests, plus one /predict
@@ -2532,12 +2551,50 @@ def phase_family_serving(dev: torch.device, seed: int, tmp: Path, card: str) -> 
 
         rows = []
         t0 = time.perf_counter()
-        for name in bench_infer.ROWS:
-            rows.append(bench_infer.run_row(name, dev))
+        for name, (_, batch, *_) in bench_infer.ROWS.items():
+            # batch-1 rows at phase 4's 100 calls (p90 has 10 beyond it), not 1000
+            rows.append(bench_infer.run_row(name, dev,
+                                            calls=LATENCY_SAMPLES if batch == 1 else None))
             print(json.dumps({**rows[-1], "card": card}), flush=True)
             torch.cuda.empty_cache()
         print(f"bench_infer: {len(rows)} rows in {time.perf_counter() - t0:.1f} s", flush=True)
+        over = [(r["variant"], r["device_ms"], r["latency_ms"]) for r in rows
+                if not r["device_ms"] <= r["latency_ms"]]
+        print("bench_infer device ms (graph replay) / median latency ms: " + ", ".join(
+            f"{r['variant']} {r['device_ms']:.3f}/{r['latency_ms']:.3f}" for r in rows),
+            flush=True)
+        require(not over, f"bench_infer rows whose device time passes their latency: {over}")
+        _hold_int8_rows(dev)
     return counts, rows
+
+
+def _hold_int8_rows(dev: torch.device) -> None:
+    """Each int8 row of ``bench_infer`` against the bf16 row of its model and
+    batch on the row's clips: the model that ``run_row`` times
+    (``bench_infer.build`` with the row's ``quant``) against the bf16 row's,
+    built from the same seed, whose float weights it must share; sigmoid
+    outputs within ``INT8_ERR``."""
+    floats = {}
+    for name, (which, batch, dtype, pipe_kwargs, *quant) in bench_infer.ROWS.items():
+        if not quant:
+            continue
+        if which not in floats:
+            floats[which] = bench_infer.build(which, dtype, pipe_kwargs, dev)
+        model, pipe = floats[which]
+        qmodel, _ = bench_infer.build(which, dtype, pipe_kwargs, dev, quant[0])
+        qsd = qmodel.state_dict()
+        require(all(torch.equal(v, qsd[k]) for k, v in model.state_dict().items()),
+                f"{name}: the int8 row's float weights are not the bf16 row's")
+        wave = (np.random.default_rng(0).standard_normal((batch, CLIP)) * 0.3).astype(np.float32)
+        with torch.inference_mode():
+            feats = pipe.eval_batch(torch.from_numpy(wave).to(dev))
+            err = (qmodel(feats) - model(feats)).abs().max().item()
+        print(f"{name} vs its bf16 row, sigmoid outputs: {err:.3e} (<= {INT8_ERR[quant[0]]})",
+              flush=True)
+        require(err <= INT8_ERR[quant[0]], f"{name} disagrees with its bf16 row")
+        del qmodel
+    del floats
+    torch.cuda.empty_cache()
 
 
 def phase_envnet_trainer(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
@@ -2596,6 +2653,303 @@ def phase_envnet_trainer(dev: torch.device, seed: int, tmp: Path, card: str) -> 
     require(np.array_equal(ev["confmat"], res["confmat"]) and ev_rel <= TEST_LOSS_REL,
             f"EnvNet evaluate: loss {ev['test/loss']} vs the train run's {res['test/loss']}")
     return counts
+
+
+REMAT_RUN = ("full", "dots", "attn_out", "attn_res", "attn_res_qkv", "attn_res_fc1")
+REMAT_RERUN_K2F = ("full", "dots", "attn_out")   # K2f twice a block: its outputs not kept
+REMAT_F32_BATCH = 4
+REMAT_GRAD_ERR = 1e-5   # the same kernels rerun on the same inputs: near-bitwise
+REMAT_WARMUP, REMAT_STEPS = 1, 3
+INT8_ERR = {"w8a8": 0.05, "w8": 0.06}   # tests/test_quant.py's bars, sigmoid outputs
+DEIT_GRID = 24          # deit_base_patch16_384: 384 / 16 patches a side
+
+
+def _grads(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def _grad_err(got: dict, want: dict) -> tuple[float, str]:
+    """The largest max-normalised gradient error and its parameter."""
+    return max((norm_err(got[k], want[k]), k) for k in want if want[k].abs().max() > 0)
+
+
+def phase_remat(dev: torch.device, seed: int, card: str) -> dict:
+    """Phase 24: AST-Base (768/12/12, 1645 → 1664 tokens) under each remat
+    policy but ``attn_res_moe``: one f32 forward and backward through the
+    kernels at batch 4 on the same features, gradients against ``full``'s
+    (``REMAT_GRAD_ERR``), K2f 24 under ``full``, ``dots`` and ``attn_out``
+    and 12 under the ``attn_res*`` policies, K2b 12; then the bench's bf16
+    batch-64 train step under the policy (1 warm-up + 3 timed steps): ms,
+    clips/s, peak GiB and launches a step. Then AST-MoE at batch 64 (bf16,
+    dropout 0.1 with one seed) under ``attn_res_moe`` and ``attn_res`` on the
+    same routes (``RouteLog``): gradients equal within ``REMAT_GRAD_ERR``,
+    gmm 48 against 72 launches (no gmm re-forward), tgmm 24 both; and each
+    one's bench step. Returns the launch counts of every step run."""
+    rng = np.random.default_rng(seed + 24)
+    pipe = DevicePipeline(PipelineConfig(mode="ast", num_classes=AST_BASE["num_classes"]))
+    wave = torch.from_numpy((rng.standard_normal((TRAIN_BATCH, CLIP)) * 0.3)
+                            .astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, AST_BASE["num_classes"], TRAIN_BATCH)).to(dev)
+    feats = pipe.eval_batch(wave[:REMAT_F32_BATCH])
+    total = collections.Counter()
+    want = None
+    for policy in REMAT_RUN:
+        model = ASTModel(**AST_BASE, dtype=torch.float32, remat=True, remat_policy=policy,
+                         device=dev, generator=torch.Generator().manual_seed(seed)).train()
+        # --- a main path (remat f32 step): only these launches are counted -----
+        _reset_launches()
+        F.cross_entropy(model(feats), labels[:REMAT_F32_BATCH]).backward()
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        # ----------------------------------------------------------------------------
+        total.update(counts)
+        grads = _grads(model)
+        del model
+        want = want or grads
+        err, worst = _grad_err(grads, want)
+        k2f = 2 * DEPTH if policy in REMAT_RERUN_K2F else DEPTH
+        print(f"remat {policy}: f32 batch {REMAT_F32_BATCH}: gradients vs full {err:.3e} "
+              f"(largest: {worst}; <= {REMAT_GRAD_ERR}); launches {counts}", flush=True)
+        require(err <= REMAT_GRAD_ERR, f"remat {policy} gradients differ from full's")
+        require(counts == _counts(k2f=k2f, k2b=DEPTH), f"remat {policy} launches {counts}")
+    del want, grads
+    torch.cuda.empty_cache()
+
+    for model_name, policies in (("ast", REMAT_RUN), ("ast_moe", ("attn_res", "attn_res_moe"))):
+        for policy in policies:
+            step, state, ms, w, lab = bench.build(TRAIN_BATCH, seed, dev, model_name,
+                                                  remat_policy=policy)
+            torch.cuda.reset_peak_memory_stats(dev)
+            # --- a main path (remat bf16 train steps): only these are counted ------
+            _reset_launches()
+            state, ms, losses, step_s = bench.timed_steps(step, state, ms, w, lab,
+                                                          REMAT_WARMUP, REMAT_STEPS)
+            counts = _launch_counts()
+            # --------------------------------------------------------------------------
+            total.update(counts)
+            n = REMAT_WARMUP + REMAT_STEPS
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            per_step = {k: v / n for k, v in counts.items() if v}
+            print(f"remat {policy}: {'AST-Base' if model_name == 'ast' else 'AST-MoE'} bf16 "
+                  f"batch {TRAIN_BATCH} train step {step_s * 1e3:.2f} ms, "
+                  f"{TRAIN_BATCH / step_s:.2f} clips/s, peak {peak:.2f} GiB; launches a step "
+                  f"{per_step}; losses {losses[0]:.4f} .. {losses[-1]:.4f}  [{card}]",
+                  flush=True)
+            if model_name == "ast":
+                k2f = 2 * DEPTH if policy in REMAT_RERUN_K2F else DEPTH
+                require(counts == _counts(k1=n, k2f=k2f * n, k2b=DEPTH * n),
+                        f"remat {policy} bench launches {counts}")
+            del step, state, ms
+            torch.cuda.empty_cache()
+
+    # --- AST-MoE: attn_res_moe against attn_res on the same routes --------------
+    feats = pipe.eval_batch(wave)
+    log, runs = RouteLog(), {}
+    for policy in ("attn_res_moe", "attn_res"):
+        model = ASTMoE(**AST_MOE, remat=True, remat_policy=policy, device=dev,
+                       generator=torch.Generator().manual_seed(seed)).train()
+        topk = log.record if not log.routes else log.replay(len(log.routes))
+        # --- a main path (AST-MoE remat step): only these launches are counted ----
+        _reset_launches()
+        out, aux, _ = model(feats, topk=topk, dropout_seed=seed, return_aux=True)
+        (F.cross_entropy(out, labels) + aux).backward()
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        # ------------------------------------------------------------------------------
+        total.update(counts)
+        runs[policy] = (_grads(model), counts)
+        del model, out, aux
+    err, worst = _grad_err(runs["attn_res_moe"][0], runs["attn_res"][0])
+    c_moe, c_res = runs["attn_res_moe"][1], runs["attn_res"][1]
+    print(f"remat attn_res_moe vs attn_res, AST-MoE bf16 batch {TRAIN_BATCH}, dropout 0.1, the "
+          f"same routes: gradients {err:.3e} (largest: {worst}; <= {REMAT_GRAD_ERR}); "
+          f"launches {c_moe} vs {c_res}", flush=True)
+    require(err <= REMAT_GRAD_ERR, "attn_res_moe gradients differ from attn_res's")
+    moe_depth = DEPTH
+    require(c_moe == _counts(k2f=moe_depth, k2b=moe_depth, gmm=4 * moe_depth, tgmm=2 * moe_depth)
+            and c_res == _counts(k2f=moe_depth, k2b=moe_depth, gmm=6 * moe_depth,
+                                 tgmm=2 * moe_depth),
+            f"AST-MoE remat launches {c_moe} vs {c_res}")
+    del runs
+    torch.cuda.empty_cache()
+    return dict(total)
+
+
+def _deit_base_sd(seed: int) -> dict[str, torch.Tensor]:
+    """A state dict with timm ``deit_base_patch16_384``'s keys and shapes
+    (``tests/test_torch_import.py::_deit_base_sd``'s layout), N(0, 0.02)
+    weights from ``seed``, the LayerNorm scales 1 + N(0, 0.02) so that the
+    blocks pass a signal."""
+    g = torch.Generator().manual_seed(seed)
+    D = AST_BASE_WIDTH
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g) * 0.02
+
+    sd = {"cls_token": r(1, 1, D), "pos_embed": r(1, 1 + DEIT_GRID ** 2, D),
+          "patch_embed.proj.weight": r(D, 3, 16, 16), "patch_embed.proj.bias": r(D),
+          "norm.weight": 1 + r(D), "norm.bias": r(D), "head.weight": r(1000, D),
+          "head.bias": r(1000)}
+    for i in range(DEPTH):
+        b = f"blocks.{i}."
+        sd.update({b + "norm1.weight": 1 + r(D), b + "norm1.bias": r(D),
+                   b + "attn.qkv.weight": r(3 * D, D), b + "attn.qkv.bias": r(3 * D),
+                   b + "attn.proj.weight": r(D, D), b + "attn.proj.bias": r(D),
+                   b + "norm2.weight": 1 + r(D), b + "norm2.bias": r(D),
+                   b + "mlp.fc1.weight": r(4 * D, D), b + "mlp.fc1.bias": r(4 * D),
+                   b + "mlp.fc2.weight": r(D, 4 * D), b + "mlp.fc2.bias": r(D)})
+    return sd
+
+
+def _reference_ast(sd: dict, head_w: torch.Tensor, head_b: torch.Tensor, feats: torch.Tensor,
+                   grid: tuple[int, int], antialias: bool = True) -> torch.Tensor:
+    """The reference's AST recipe and forward (src/models/ast.py:30-63) on a
+    timm state dict, in plain f32 torch ops: channel-mean patch conv with
+    stride 10, CLS token, the 24 x 24 positional grid resized bilinearly
+    (``antialias`` as the JAX package resizes; the reference's own
+    ``F.interpolate`` does not antialias), 12 pre-LN blocks with softmax
+    attention over the real tokens, final LN, sigmoid(head(CLS))."""
+    D, H = AST_BASE_WIDTH, HEADS
+    dh = D // H
+    w = sd["patch_embed.proj.weight"].mean(1, keepdim=True)
+    x = F.conv2d(feats[:, None], w, sd["patch_embed.proj.bias"], stride=10)
+    x = x.flatten(2).transpose(1, 2)
+    B, N, _ = x.shape
+    pe = sd["pos_embed"]
+    g = pe[:, 1:].reshape(1, DEIT_GRID, DEIT_GRID, D).permute(0, 3, 1, 2)
+    g = F.interpolate(g, size=grid, mode="bilinear", align_corners=False, antialias=antialias)
+    pos = torch.cat([pe[:, :1], g.permute(0, 2, 3, 1).reshape(1, -1, D)], dim=1)
+    x = torch.cat([sd["cls_token"].expand(B, 1, D), x], dim=1) + pos[:, :N + 1]
+    for i in range(DEPTH):
+        b = f"blocks.{i}."
+        h = F.layer_norm(x, (D,), sd[b + "norm1.weight"], sd[b + "norm1.bias"], 1e-6)
+        qkv = F.linear(h, sd[b + "attn.qkv.weight"], sd[b + "attn.qkv.bias"])
+        q, k, v = qkv.reshape(B, N + 1, 3, H, dh).permute(2, 0, 3, 1, 4)
+        a = torch.softmax(q @ k.transpose(-1, -2) * dh ** -0.5, dim=-1) @ v
+        x = x + F.linear(a.transpose(1, 2).reshape(B, N + 1, D), sd[b + "attn.proj.weight"],
+                         sd[b + "attn.proj.bias"])
+        h = F.layer_norm(x, (D,), sd[b + "norm2.weight"], sd[b + "norm2.bias"], 1e-6)
+        h = F.gelu(F.linear(h, sd[b + "mlp.fc1.weight"], sd[b + "mlp.fc1.bias"]))
+        x = x + F.linear(h, sd[b + "mlp.fc2.weight"], sd[b + "mlp.fc2.bias"])
+    x = F.layer_norm(x[:, 0], (D,), sd["norm.weight"], sd["norm.bias"], 1e-6)
+    return torch.sigmoid(F.linear(x, head_w, head_b))
+
+
+def phase_import_int8(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
+    """Phase 25: a seeded ``deit_base_patch16_384`` state dict written to a
+    ``.pth`` → the port's ``import_vit`` (its ``--audit`` on the card, then
+    the weights directory) → ``export model=ast +ckpt_path=`` three ways
+    (bf16, ``+quant=w8``, ``+quant=w8a8``) → each loaded on the card and
+    serving a batch of 8 synthetic clips (K1 1, K2f 12 a batch), held
+    against the reference recipe's forward in plain f32 ops on the same
+    features (the bf16 artifact within ``SLICE_BF16_ERR``, w8 and w8a8
+    within ``INT8_ERR``); then the w8a8 artifact over HTTP to a burst; then
+    ``torch._int_mm`` at fc1's batch-64 shape beside the bf16 GEMM. Returns
+    the launch counts of the served batches and the burst."""
+    from dlsc_tpu_torch.scripts import export, import_vit
+
+    sd = _deit_base_sd(seed)
+    pth = tmp / "deit_base_patch16_384.pth"
+    torch.save({"model": sd, "epoch": 300}, pth)
+    args = ["--checkpoint", str(pth), "--num-classes", str(AST_BASE["num_classes"])]
+    t0 = time.perf_counter()
+    require(import_vit.main([*args, "--out", str(tmp / "audit"), "--audit"]) is None
+            and not (tmp / "audit").exists(), "import_vit --audit wrote weights")
+    pretrained = import_vit.main([*args, "--out", str(tmp / "pretrained")])
+    t_import = time.perf_counter() - t0
+    common = ["model=ast", f"+ckpt_path={pretrained}", f"+batch={SERVE_BATCH}", f"+seed={seed}"]
+    arts = {mode: export.main([*common, f"+out={tmp / f'ast_{mode or 'bf16'}'}",
+                               *([f"+quant={mode}"] if mode else [])])
+            for mode in (None, "w8", "w8a8")}
+    print(f"import_vit (audit + weights) {t_import:.2f} s; exported bf16, w8 and w8a8 "
+          f"artifacts from {pretrained}", flush=True)
+
+    rng = np.random.default_rng(seed + 25)
+    clips = (rng.standard_normal((SERVE_BATCH, CLIP)) * 0.1).astype(np.float32)
+    total = collections.Counter()
+    want = want_plain = None
+    for mode, art in arts.items():
+        serve = load_exported(art, device="cuda")
+        require(serve.manifest.get("quant") == mode and serve.model.quant == mode,
+                f"artifact {art} rebuilt in mode {serve.model.quant}")
+        serve(clips)   # warm-up
+        # --- a main path (imported weights served): only these are counted --------
+        _reset_launches()
+        probs = serve(clips)
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        # ------------------------------------------------------------------------------
+        total.update(counts)
+        require(counts == _counts(k1=1, k2f=DEPTH), f"{mode} serving launches {counts}")
+        require(probs.shape == (SERVE_BATCH, AST_BASE["num_classes"])
+                and np.isfinite(probs).all() and np.abs(probs.sum(-1) - 1).max() <= PROB_SUM_ERR,
+                f"{mode} probabilities")
+        feats = serve.pipe.eval_batch(torch.from_numpy(clips).to(dev))
+        with torch.inference_mode():
+            got = serve.model(feats).float()
+            if want is None:
+                ref_sd = {k: v.to(dev) for k, v in sd.items()}
+                head = serve.model.head
+                want = _reference_ast(ref_sd, head.weight, head.bias, feats,
+                                      serve.model.grid_size)
+                want_plain = _reference_ast(ref_sd, head.weight, head.bias, feats,
+                                            serve.model.grid_size, antialias=False)
+                del ref_sd
+        err = (got - want).abs().max().item()
+        bar = INT8_ERR[mode] if mode else SLICE_BF16_ERR
+        print(f"imported AST-Base served {mode or 'bf16'}: sigmoid outputs vs the reference "
+              f"recipe in plain f32 ops {err:.3e} (<= {bar}); launches {counts}; outputs "
+              f"{want.min().item():.4f} .. {want.max().item():.4f}", flush=True)
+        require(err <= bar, f"imported {mode or 'bf16'} artifact disagrees with the reference")
+        if mode == "w8a8":
+            server = ModelServer(art, device="cuda", window_ms=20.0)
+            httpd = server.make_http_server("127.0.0.1", 0)
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            try:
+                bodies = [("/predict_raw", json.dumps({"pcm": c.tolist(),
+                                                       "sample_rate": 44_100}).encode())
+                          for c in np.concatenate([clips, clips])]
+                _reset_launches()
+                with concurrent.futures.ThreadPoolExecutor(len(bodies)) as ex:
+                    answers = list(ex.map(lambda pb: _post(httpd.server_address[1], *pb),
+                                          bodies))
+                torch.cuda.synchronize()
+                counts = _launch_counts()
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join(timeout=30)
+            total.update(counts)
+            for i, (st, r) in enumerate(answers):
+                _check_probs(st, r, f"w8a8 request {i}")
+            batches = server.batcher.batches
+            print(f"w8a8 artifact over HTTP: {len(answers)} requests, {batches} device batches, "
+                  f"launches {counts}", flush=True)
+            require(counts["k1"] >= 1 and counts["k2f"] == DEPTH * counts["k1"],
+                    f"w8a8 HTTP launches {counts}")
+            del server
+        del serve
+        torch.cuda.empty_cache()
+    e_plain = (want_plain - want).abs().max().item()
+    print(f"the reference recipe with F.interpolate's default (no antialias) vs with it, the "
+          f"same weights: {e_plain:.3e}  [printed only: ROADMAP §3]", flush=True)
+
+    # --- torch._int_mm at fc1's training-batch shape, beside the bf16 GEMM -------
+    M_, K_, N_ = TRAIN_BATCH * N_PAD, AST_BASE_WIDTH, 4 * AST_BASE_WIDTH
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xq = torch.randint(-127, 128, (M_, K_), generator=g, device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (N_, K_), generator=g, device=dev, dtype=torch.int8)
+    xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
+    int_ms, bf_ms = paired_ms(lambda: torch._int_mm(xq, wq.t()), lambda: xb @ wb.t())
+    exact = torch.equal(torch._int_mm(xq[:4096], wq.t()),
+                        (xq[:4096].double() @ wq.double().t()).to(torch.int32))
+    ops = 2 * M_ * K_ * N_
+    print(f"torch._int_mm at fc1's shape ({M_} x {K_} x {N_}, {ops / 1e12:.3f} TOP): "
+          f"{int_ms:.4f} ms ({ops / int_ms / 1e9:.1f} TOP/s), exact {exact}; bf16 GEMM "
+          f"{bf_ms:.4f} ms ({ops / bf_ms / 1e9:.1f} TFLOP/s)  [{card}]", flush=True)
+    require(exact, "torch._int_mm disagrees with an exact product")
+    return dict(total)
 
 
 def moe_parity_sweep(dev: torch.device, seeds: str, card: str, fault: str | None = None
@@ -2702,6 +3056,12 @@ def main() -> None:
             fam_serve, _ = phase_family_serving(dev, args.seed, Path(tmp), card)
         torch.cuda.empty_cache()
         envnet_trainer = phase_envnet_trainer(dev, args.seed, Path(trainer_tmp), card)
+    torch.cuda.empty_cache()
+    remat_runs = phase_remat(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        import_serve = phase_import_int8(dev, args.seed, Path(tmp), card)
+    torch.cuda.empty_cache()
 
     # launches: the training runs' (ast_trainer, envnet_v2_trainer: the train
     # CLI's fit, its validation and its test); launches_serving: the serving runs';
@@ -2710,9 +3070,10 @@ def main() -> None:
     train_runs = dict(ast_train=train, ast_moe_train=moe_train, ast_small_train=small_train,
                       ast_mini_train=mini_train, ast_trainer=trainer_run,
                       **{f"{k}_train": c for k, c in fam_train.items()},
-                      envnet_v2_trainer=envnet_trainer)
+                      envnet_v2_trainer=envnet_trainer, ast_remat_train=remat_runs)
     serve_runs = dict(ast_serve=serve, ast_moe_serve=moe_serve, ast_small_serve=small_serve,
-                      ast_mini_serve=mini_serve, **{f"{k}_serve": c for k, c in fam_serve.items()})
+                      ast_mini_serve=mini_serve, **{f"{k}_serve": c for k, c in fam_serve.items()},
+                      ast_import_int8_serve=import_serve)
 
     def launches(key):
         by_path = {p: c[key] for p, c in {**train_runs, **serve_runs}.items()}

@@ -98,7 +98,10 @@ def resize_matrix_np(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).T.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=8)
 def _resize_matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """``resize_matrix_np`` on ``device`` once, so that a call copies nothing
+    from the host (a CUDA graph can hold it)."""
     return torch.from_numpy(resize_matrix_np(in_size, out_size)).to(device)
 
 

@@ -5,7 +5,8 @@ Counterpart of ``dlsc_tpu/models/ast_mini.py`` ``ASTMiniViT``, with its
 arguments and defaults (``ast_mini.py:16-28``): patch 16, stride 10, overlap
 6 (``configs/model/ast_mini.yaml`` keeps them: 1645 tokens at 5 s, padded to
 1664), MLP dropout fixed at 0.1, bf16, no remat. ``ln_fused`` puts kernel K3
-in every block. The int8 ``quant`` serving mode waits for M11.
+in every block; ``quant`` (``'w8a8'``, ``'w8'``) is the int8 serving mode
+(``ast_mini.py:27``; inference only).
 """
 
 from __future__ import annotations
@@ -26,12 +27,13 @@ def ASTMiniViT(
     num_heads: int = 3,
     f_dim: int = 128,
     dtype: torch.dtype | str = torch.bfloat16,
+    quant: str | None = None,
     ln_fused: bool = False,
     device: torch.device | str | None = None,
     generator: torch.Generator | None = None,
 ) -> ASTViT:
-    """``ASTViT`` with the JAX ``ASTMiniViT``'s defaults plus ``ln_fused``,
-    ``device`` and the init ``generator``."""
+    """``ASTViT`` with the JAX ``ASTMiniViT``'s defaults (``quant`` among them)
+    plus ``ln_fused``, ``device`` and the init ``generator``."""
     return ASTViT(
         num_classes=num_classes,
         emb_dim=emb_dim,
@@ -44,6 +46,7 @@ def ASTMiniViT(
         f_dim=f_dim,
         dropout=0.1,   # fixed, as in the JAX ASTMiniViT
         dtype=dtype,
+        quant=quant,
         ln_fused=ln_fused,
         device=device,
         generator=generator,

@@ -6,8 +6,8 @@ arguments and defaults (``ast_small.py:17-36``): patch 16 with stride 10 and
 overlap 6 (``configs/model/ast_small.yaml`` passes stride 16, overlap 0:
 689 tokens at 5 s, padded to 768), MLP dropout fixed at 0.1, bf16, remat
 ``attn_res``. ``attn_impl`` and ``attn_dropout`` as ``ASTViT`` takes them;
-``ln_fused`` puts kernel K3 in every block. The int8 ``quant`` serving mode
-waits for M11.
+``ln_fused`` puts kernel K3 in every block; ``quant`` (``'w8a8'``, ``'w8'``)
+is the int8 serving mode (``ast_small.py:35``; inference only).
 """
 
 from __future__ import annotations
@@ -32,12 +32,13 @@ def ASTViTSmall(
     attn_dropout: float = 0.0,
     remat: bool = True,
     remat_policy: str = "attn_res",
+    quant: str | None = None,
     ln_fused: bool = False,
     device: torch.device | str | None = None,
     generator: torch.Generator | None = None,
 ) -> ASTViT:
-    """``ASTViT`` with the JAX ``ASTViTSmall``'s defaults plus ``ln_fused``,
-    ``device`` and the init ``generator``."""
+    """``ASTViT`` with the JAX ``ASTViTSmall``'s defaults (``quant`` among them)
+    plus ``ln_fused``, ``device`` and the init ``generator``."""
     return ASTViT(
         num_classes=num_classes,
         emb_dim=emb_dim,
@@ -54,6 +55,7 @@ def ASTViTSmall(
         attn_dropout=attn_dropout,
         remat=remat,
         remat_policy=remat_policy,
+        quant=quant,
         ln_fused=ln_fused,
         device=device,
         generator=generator,

@@ -28,7 +28,13 @@ that changes from run to run.
 
 Dropout (``dropout``) draws its masks from the generator it is given; the
 blocks in ``models/vit.py`` seed one per block and step, so a
-rematerialised block draws the same masks again.
+rematerialised block draws the same masks again. The routing index tensors,
+the gate weights and both grouped products' outputs are tagged ``moe_res``
+(``utils/remat.remat_tag``, ``moe.py:417-442``), which remat
+``attn_res_moe`` keeps: its backward reruns neither product's forward nor
+the sort. The JAX package names the first product's output (with its bias)
+but not the second's, which the gate weights' gradient reads, so XLA reruns
+the second there (ROADMAP §3 D2); the gradients are the same either way.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dlsc_tpu_torch.ops.gmm import grouped_matmul as gmm_op
+from dlsc_tpu_torch.utils.remat import remat_tag
 
 #: train-metric names of the MoE stats, for ``MetricState.create(extras=...)``
 MOE_METRICS = ("moe/drop_frac", "moe/util")
@@ -200,23 +207,28 @@ class MoeMlp(nn.Module):
 
         # --- sort (token, choice) pairs by expert, pads last ----------------
         m_real = nv * K
-        e_flat = torch.where(valid[:, None], topi, E).reshape(T * K)
-        order_full = torch.argsort(e_flat, stable=True)               # sorted → pair
-        inv = torch.empty_like(order_full).scatter_(
-            0, order_full, torch.arange(T * K, device=x.device)).view(T, K)
-        order = order_full[:m_real]
-        e_sorted = e_flat[order]
-        group_sizes = _counts(e_sorted, E).to(torch.int32)            # sums to m_real
+        with remat_tag("moe_res"):   # the routing index tensors
+            e_flat = torch.where(valid[:, None], topi, E).reshape(T * K)
+            order_full = torch.argsort(e_flat, stable=True)           # sorted → pair
+            inv = torch.zeros_like(order_full).scatter(
+                0, order_full, torch.arange(T * K, device=x.device)).view(T, K)
+            order = order_full[:m_real]
+            e_sorted = e_flat[order]
+            group_sizes = _counts(e_sorted, E).to(torch.int32)        # sums to m_real
+            tok = order // K
 
         # --- expert FFN on the sorted rows ----------------------------------
-        xs = _GatherRows.apply(x.reshape(T, D), order // K, inv)     # (m_real, D)
-        h = (grouped_matmul(xs, self.wi.to(dt), group_sizes)
-             + _one_hot(e_sorted, E, dt) @ self.bi.to(dt))
-        h = dropout(F.gelu(h), self.rate, gen)
-        out = grouped_matmul(h, self.wo.to(dt), group_sizes)         # (m_real, D)
+        xs = _GatherRows.apply(x.reshape(T, D), tok, inv)             # (m_real, D)
+        wi, wo = self.wi.to(dt), self.wo.to(dt)
+        with remat_tag("moe_res"):   # the first product, before its bias
+            h = grouped_matmul(xs, wi, group_sizes)
+        h = dropout(F.gelu(h + _one_hot(e_sorted, E, dt) @ self.bi.to(dt)), self.rate, gen)
+        with remat_tag("moe_res"):
+            out = grouped_matmul(h, wo, group_sizes)                  # (m_real, D)
 
         # --- combine with the gates; bo in token space ----------------------
-        wk = topv.to(dt) * valid[:, None].to(dt)                      # pads weigh 0
+        with remat_tag("moe_res"):
+            wk = topv.to(dt) * valid[:, None].to(dt)                  # pads weigh 0
         y = (_CombineRows.apply(out, inv, order) * wk.reshape(T, K, 1)).sum(1)
         aw = (_one_hot(topi, E, dt) * wk[..., None]).sum(2)           # (B, N, E)
         y = y.reshape(B, N, D) + aw @ self.bo.to(dt)

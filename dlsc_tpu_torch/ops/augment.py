@@ -35,6 +35,7 @@ never match). The reference's quirks are kept:
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -181,15 +182,21 @@ def center_crop(wave: torch.Tensor, window: int) -> torch.Tensor:
     return wave[..., start:start + window]
 
 
+@functools.lru_cache(maxsize=8)
+def _crop_index(n: int, window: int, n_crops: int, device: torch.device) -> torch.Tensor:
+    """(n_crops, window) sample indices of ``multi_crop``, on ``device`` once,
+    so that a call copies nothing from the host (a CUDA graph can hold it)."""
+    starts = np.floor(np.linspace(0.0, float(n - window), n_crops, dtype=np.float32))
+    return torch.from_numpy(starts.astype(np.int64)).to(device)[:, None] \
+        + torch.arange(window, device=device)
+
+
 def multi_crop(wave: torch.Tensor, window: int, n_crops: int = 10) -> torch.Tensor:
     """Evenly spaced test-time crops, (B, T) → (B, n_crops, window)."""
     B, n = wave.shape
     if n <= window:
         return F.pad(wave, (0, window - n))[:, None].expand(B, n_crops, window)
-    starts = np.floor(np.linspace(0.0, float(n - window), n_crops, dtype=np.float32))
-    idx = torch.from_numpy(starts.astype(np.int64)).to(wave.device)[:, None] \
-        + torch.arange(window, device=wave.device)
-    return wave[:, idx]
+    return wave[:, _crop_index(n, window, n_crops, wave.device)]
 
 
 # --------------------------------------------------------------------------- #

@@ -154,9 +154,13 @@ def family_pipeline(model_name: str) -> DevicePipeline:
                                          enable_bc_mixing=model_name == "envnet_v2"))
 
 
-def build_model(model_name: str, seed: int, device: torch.device, ln_fused: bool = False):
-    """The bench's ``model_name`` (a key of ``METRICS``) with seeded weights."""
+def build_model(model_name: str, seed: int, device: torch.device, ln_fused: bool = False,
+                remat_policy: str | None = None):
+    """The bench's ``model_name`` (a key of ``METRICS``) with seeded weights,
+    under ``remat_policy`` when given (the AST models with remat)."""
     gen = torch.Generator().manual_seed(seed)
+    if remat_policy is not None and model_name in (*FAMILIES, "ast_mini"):
+        raise ValueError(f"{model_name} has no remat")
     if model_name == "envnet_v2":
         return EnvNetV2(**ENVNET, generator=gen, device=device)
     if model_name == "cnn_esc50":
@@ -164,23 +168,23 @@ def build_model(model_name: str, seed: int, device: torch.device, ln_fused: bool
     if model_name == "leaf":
         return LeafModel(**LEAF, generator=gen, device=device)
     kw = dict(ln_fused=ln_fused, generator=gen, device=device)
+    remat = dict(remat=True, remat_policy=remat_policy or "attn_res")
     if model_name == "ast":
-        return ASTModel(**AST_BASE, dtype=torch.bfloat16, remat=True, remat_policy="attn_res",
-                        **kw)
+        return ASTModel(**AST_BASE, dtype=torch.bfloat16, **remat, **kw)
     if model_name == "ast_moe":
-        return ASTMoE(**AST_MOE, **kw)
+        return ASTMoE(**AST_MOE, **remat, **kw)
     if model_name == "ast_small":
-        return ASTViTSmall(**AST_SMALL, **kw)
+        return ASTViTSmall(**AST_SMALL, **remat, **kw)
     if model_name == "ast_mini":
         return ASTMiniViT(**AST_MINI, **kw)
     raise ValueError(f"unknown bench model {model_name!r}; known: {sorted(METRICS)}")
 
 
 def build(batch: int, seed: int, device: torch.device, model_name: str = "ast",
-          ln_fused: bool = False):
+          ln_fused: bool = False, remat_policy: str | None = None):
     """(train_step, state, metric state, waves, labels) of the bench on
     ``device`` for ``model_name`` (a key of ``METRICS``)."""
-    model = build_model(model_name, seed, device, ln_fused)
+    model = build_model(model_name, seed, device, ln_fused, remat_policy)
     extras = MOE_METRICS if model.config.get("moe") else ()
     if model_name in FAMILIES:   # configs/base_training.yaml's recipe
         state = TrainState.create(model, adam(lr=1e-4, weight_decay=1e-4),

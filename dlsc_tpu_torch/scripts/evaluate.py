@@ -32,7 +32,7 @@ def evaluate_checkpoint(cfg) -> dict:
     if not ckpt_path:
         raise SystemExit("pass +ckpt_path=<checkpoint dir> (or use --cv)")
     datamodule = train_script.build_datamodule(cfg)
-    built = build_from_cfg(cfg)
+    built = build_from_cfg(cfg, datamodule.pipeline.cfg)
     trainer = Trainer(**cfg.trainer.to_dict(), enable_checkpointing=False,
                       seed=int(cfg.select("seed", default=42)))
     state = trainer.init_state(built["model"], datamodule, built["optim_spec"],

@@ -7,6 +7,8 @@
     python -m dlsc_tpu_torch.scripts.export model=ast_small +out=exports/ast_small_torch \
         [+model.ln_fused=true] [+model.attn_impl=flash]
     python -m dlsc_tpu_torch.scripts.export model=ast_mini +out=exports/ast_mini_torch
+    python -m dlsc_tpu_torch.scripts.export model=ast +out=exports/ast_w8 +quant=w8 \
+        [+ckpt_path=<dir>]   # int8 serving: +quant=w8a8 | w8 (ast, ast_small, ast_mini)
     python -m dlsc_tpu_torch.scripts.export model=envnet_v2 +out=exports/envnet_torch \
         +dtype=float32 [+model.dataset_overrides.preprocessing_config.multi_crop_test=true]
     python -m dlsc_tpu_torch.scripts.export model=cnn_esc50 +out=exports/cnn_torch +dtype=float32
@@ -25,10 +27,17 @@ comes from the config's ``_target_`` through the port's table
 goes through the override grammar, e.g. ``+model.ln_fused=true`` (kernel K3
 in every block) or ``+model.attn_impl=flash``. ``+dtype`` defaults to
 bfloat16, the AST family's serving dtype; the CNN families' configs train
-in float32. Before writing, a CNN family's model runs one forward on the
-eval pipeline's input from a silent clip (one crop of a multi-crop
-pipeline), which checks that it takes what the pipeline gives it (EnvNet-v2
-is sized for one window length).
+in float32. EnvNet-v2 takes its input length from the eval pipeline's
+window unless ``+model.input_samples`` sets it (``train/loop.with_window``).
+Before writing, a CNN family's model runs one forward on the eval
+pipeline's input from a silent clip (one crop of a multi-crop pipeline),
+which checks that it takes what the pipeline gives it.
+
+``+quant=w8a8|w8`` (``scripts/export.py:86-113``) rebuilds an AST-family
+model in that int8 serving mode with remat off, loads the float weights and
+materialises the int8 buffers from them (``ops/quant.py``); the manifest's
+``quant`` names the mode and ``serving.load_exported`` rebuilds the model in
+it. Another family, or AST-MoE, refuses it.
 """
 
 from __future__ import annotations
@@ -41,9 +50,11 @@ import torch
 from dlsc_tpu_torch.config import compose, resolve_target
 from dlsc_tpu_torch.data.pipeline import pipeline_from_dataset_config
 from dlsc_tpu_torch.models.layers import CNNBase
+from dlsc_tpu_torch.models.vit import ASTViT, quantize_model
 from dlsc_tpu_torch.scripts.train import parse_cli
 from dlsc_tpu_torch.serving import export_model
 from dlsc_tpu_torch.train.checkpoint import load_params
+from dlsc_tpu_torch.train.loop import with_window
 
 
 def main(argv: list[str] | None = None) -> Path:
@@ -63,6 +74,7 @@ def main(argv: list[str] | None = None) -> Path:
     ds.update(model_kw.pop("dataset_overrides", None) or {})
     pipe = pipeline_from_dataset_config(ds)
 
+    model_kw = with_window(make_model, model_kw, pipe.cfg.window_samples)
     seed = int(cfg.select("seed", default=0))
     model = make_model(**model_kw, dtype=str(cfg.select("dtype", default="bfloat16")),
                        generator=torch.Generator().manual_seed(seed))
@@ -73,6 +85,12 @@ def main(argv: list[str] | None = None) -> Path:
     else:
         print(f"WARNING: exporting seeded random weights (seed {seed}, no "
               "+params_npz or +ckpt_path given) — smoke artifact only")
+    quant = cfg.select("quant", default=None)
+    if quant:
+        if not isinstance(model, ASTViT):
+            raise SystemExit(f"+quant={quant} is only supported by the ViT family "
+                             f"(ast/ast_small/ast_mini), not {type(model).__name__}")
+        model = quantize_model(model, str(quant))
     clip_samples = int(cfg.select("clip_samples", default=int(pipe.cfg.sample_rate * 5)))
     if isinstance(model, CNNBase):
         with torch.no_grad():
@@ -83,7 +101,8 @@ def main(argv: list[str] | None = None) -> Path:
         batch=int(cfg.select("batch", default=8)),
         clip_samples=clip_samples,
         meta={"model": target, "seed": seed,
-              "params_npz": str(params_npz or ""), "ckpt_path": str(ckpt or "")},
+              "params_npz": str(params_npz or ""), "ckpt_path": str(ckpt or ""),
+              **({"quant": str(quant)} if quant else {})},
     )
     print(f"exported serving artifact: {path}")
     return path

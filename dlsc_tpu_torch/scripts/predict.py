@@ -118,7 +118,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
         return predict_from_artifact(str(artifact), list(files), top_k, long_audio, device)
 
     datamodule = train_script.build_datamodule(cfg)
-    built = build_from_cfg(cfg)
+    built = build_from_cfg(cfg, datamodule.pipeline.cfg)
     trainer = Trainer(**cfg.trainer.to_dict(), enable_checkpointing=False)
     state = trainer.init_state(built["model"], datamodule, built["optim_spec"],
                                built["sched_spec"])

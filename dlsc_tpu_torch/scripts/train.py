@@ -90,7 +90,7 @@ def run(cfg) -> dict:
 
     datamodule = build_datamodule(cfg)
     print(datamodule.summary())
-    built = build_from_cfg(cfg)
+    built = build_from_cfg(cfg, datamodule.pipeline.cfg)
 
     tracker = Tracker(cfg.select("logging.experiment_name", default="training"))
     tracker.log_params({f"cfg_{k}": v for k, v in flatten(cfg.to_dict()).items()})

@@ -45,6 +45,7 @@ ROADMAP §1 M12: ``devices`` > 1, ``fsdp``, ``expert_parallel`` > 1,
 from __future__ import annotations
 
 import contextlib
+import inspect
 import time
 from pathlib import Path
 from typing import Any, Callable, Sequence
@@ -53,6 +54,7 @@ import numpy as np
 import torch
 
 from dlsc_tpu_torch.data.loader import prefetch
+from dlsc_tpu_torch.data.pipeline import PipelineConfig
 from dlsc_tpu_torch.models.moe import MOE_METRICS
 from dlsc_tpu_torch.train import metrics as MT
 from dlsc_tpu_torch.train.checkpoint import (CheckpointManager, latest_checkpoint,
@@ -576,17 +578,32 @@ class Trainer:
         tracker.log_figure(fig, "train_val_accuracy.png"); plt.close(fig)
 
 
-def build_from_cfg(cfg) -> dict:
+def with_window(make_model: Callable, model_kw: dict, window_samples: int) -> dict:
+    """``model_kw`` with ``input_samples`` set to the pipeline's window when
+    ``make_model`` takes that argument and ``model_kw`` leaves it unset: the
+    port's EnvNet-v2 sizes its first dense layer from one input's length,
+    which the Flax module infers from its first input. An explicit value wins."""
+    if ("input_samples" in model_kw
+            or "input_samples" not in inspect.signature(make_model).parameters):
+        return model_kw
+    return {**model_kw, "input_samples": int(window_samples)}
+
+
+def build_from_cfg(cfg, pipeline_cfg: PipelineConfig) -> dict:
     """cfg → {model, criterion, optim_spec, sched_spec} (the reference's
     ``build_from_cfg``, engine.py:313-325). ``trainer.precision`` 32 builds
     the model in f32, 'bf16-mixed' and '16-mixed' in bf16 (as the JAX
-    package does); its weights are a seeded init (``seed``)."""
-    from dlsc_tpu_torch.config.instantiate import instantiate
+    package does); its weights are a seeded init (``seed``). A model that
+    takes ``input_samples`` (EnvNet-v2) gets the window of ``pipeline_cfg``
+    (the datamodule's pipeline) unless the config sets it."""
+    from dlsc_tpu_torch.config.instantiate import instantiate, resolve_target
 
     precision = str(cfg.select("trainer.precision", default="32"))
     dtype = torch.float32 if precision == "32" else torch.bfloat16
     model_cfg = cfg.model.to_dict()
     model_cfg.pop("dataset_overrides", None)
+    model_cfg = with_window(resolve_target(model_cfg["_target_"]), model_cfg,
+                            pipeline_cfg.window_samples)
     seed = int(cfg.select("seed", default=42))
     model = instantiate({**model_cfg, "dtype": dtype,
                          "generator": torch.Generator().manual_seed(seed)})

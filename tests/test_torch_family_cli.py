@@ -5,7 +5,10 @@ checkpoint, export from it, and predict by checkpoint and by artifact.
 
 Tiny synthetic shards (4 classes, 16 000-sample clips); EnvNet-v2 on a
 0.7-s window (30 869 samples, ~30 000 is the least its trunk takes), the
-CNN on 224² images of the 16 000-sample clips. Tolerances, each with its
+CNN on 224² images of the 16 000-sample clips. EnvNet-v2 takes its input
+length from the pipeline's window; the JAX package's command, which does
+not name it, runs through train, evaluate and export
+(``test_window_from_the_pipeline``). Tolerances, each with its
 reason: evaluate against the train run's own test, the same confusion
 matrix and a loss within 1e-6 relative (the same weights and ops; the pool
 against host batches); predict's checkpoint mode against the artifact of the
@@ -20,6 +23,7 @@ from dlsc_tpu_torch.data import wav as W
 from dlsc_tpu_torch.data.synthetic import make_synthetic_dataset
 from dlsc_tpu_torch.scripts import evaluate, export, predict
 from dlsc_tpu_torch.scripts import train as train_cli
+from dlsc_tpu_torch.serving import load_exported
 
 C_ = 4
 CLIP = 16_000
@@ -108,3 +112,26 @@ def test_export_checks_the_window(tmp_path):
         export.main(["model=envnet_v2", "+model.input_samples=30000", f"dataset.num_classes={C_}",
                      f"+out={tmp_path / 'art'}", "+dtype=float32", f"+clip_samples={CLIP}",
                      "+model.dataset_overrides.preprocessing_config.window_length=0.7"])
+
+
+def test_window_from_the_pipeline(root, tmp_path):
+    """The JAX CLIs' command, without ``+model.input_samples`` (a field the
+    Flax EnvNet-v2 lacks): the model is sized for the pipeline's 0.7-s
+    window (30 869 samples) in train, evaluate and export, and the artifact
+    serves."""
+    cmd = ["model=envnet_v2", "+model.dataset_overrides.preprocessing_config.window_length=0.7",
+           "loss._target_=torch.nn.KLDivLoss"]
+    res = train_cli.main([*cmd, *_common(root, tmp_path / "run", "trainer.max_epochs=1",
+                                         "+trainer.limit_train_batches=1")])
+    assert res["trainer"].state.model.config["input_samples"] == 30_869
+    assert np.isfinite(res["test/loss"])
+    best = res["trainer"].ckpt_manager.best_path
+    ev = evaluate.main([*cmd, *_common(root, tmp_path / "ev", f"+ckpt_path={best}")])
+    np.testing.assert_array_equal(ev["confmat"], res["confmat"])
+    art = export.main([*cmd, f"dataset.num_classes={C_}", f"+ckpt_path={best}",
+                       f"+out={tmp_path / 'art'}", "+dtype=float32", "+batch=2",
+                       f"+clip_samples={CLIP}"])
+    serve = load_exported(art, device="cpu")
+    assert serve.manifest["model_kwargs"]["input_samples"] == 30_869
+    probs = serve(np.random.default_rng(0).standard_normal((2, CLIP)).astype(np.float32))
+    assert probs.shape == (2, C_) and np.allclose(probs.sum(-1), 1.0, atol=1e-5)

@@ -221,7 +221,7 @@ def test_remat_policies(remat, policy, forwards, monkeypatch):
     for a, b in zip(*grads):
         assert ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() < 1e-6
     with pytest.raises(ValueError, match="remat_policy"):
-        ASTModel(**SMALL, remat_policy="dots")
+        ASTModel(**SMALL, remat_policy="everything")
 
 
 def test_ast_defaults_and_eval_rebuild():
