@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small, AST-Mini, EnvNet-v2, the spectrogram CNN and LEAF serving and training, its training entry point, AST's remat policies, the timm/DeiT weight import and int8 serving, on one GPU.
+"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small, AST-Mini, EnvNet-v2, the spectrogram CNN and LEAF serving and training, its training entry point, AST's remat policies, the timm/DeiT weight import, int8 serving, AST-MoE's capacity dispatches and expert-choice router, and the HPO layer, on one GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -56,7 +56,7 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 10. AST-MoE training: ``scripts/bench.py --model ast_moe``'s configuration,
     2 warm-up and 10 timed steps at batch 64 (per step K1 1, K2f 12, K2b 12,
     gmm 72, tgmm 24), with the tokens routed to each (block, expert) whose
-    output reaches the loss counted through the ``topk`` hook
+    output reaches the loss counted through the MoE layers' ``route_hook``
     (``ExpertTokens``; in the last block only the CLS token's): every
     parameter changed, and every expert that got such a token; the experts
     that got none are printed and counted; then the bench's profiled record;
@@ -150,7 +150,29 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     and ``+quant=w8a8`` → each served on the card (K1 1, K2f 12 a batch)
     against the reference recipe's forward in plain f32 ops (3e-2 bf16, 0.06
     w8, 0.05 w8a8); the w8a8 artifact over HTTP; ``torch._int_mm`` at fc1's
-    shape beside the bf16 GEMM.
+    shape beside the bf16 GEMM;
+26. AST-MoE training (``scripts/bench.py --model ast_moe``'s configuration,
+    full width and depth, bf16, batch 64: 689 → 768 tokens in groups of
+    256, capacity 80) on the capacity paths ``--router token --dispatch
+    einsum``, ``--dispatch scatter`` and ``--router expert``, 2 warm-up and
+    10 timed steps each (per step K1 1, K2f 12, K2b 12, no gmm or tgmm):
+    ms, clips/s, peak GiB, busy share, ``moe/drop_frac`` and ``moe/util``
+    beside phase 10's ragged row; every parameter changed, and every expert
+    that kept a token whose output reaches the loss (``ExpertTokens``);
+    then at batch 4, dropout 0.1 with one seed: each path's f32 step
+    through the kernels against plain ops on the same routes (1e-4), the
+    einsum and scatter paths' plain f32 steps on the same routes against
+    each other (1e-5), and the scatter path's bf16 step at batch 64 run
+    twice, its loss and gradients bit-identical;
+27. the HPO slice: ``scripts/optimize_hyperparams.py model=ast_moe`` on
+    phase 18's shards, bf16, 2 epochs a trial, 4 trials of the configs'
+    AST-MoE search space (batch 64–256, 4/8/16 experts, both routers) with
+    the configs' TPE seed, on a SQLite study: each trial's params, state,
+    value, fit seconds, peak GiB and launches (K1 = steps + eval batches,
+    K2f 12x that, K2b 12 x steps; gmm and tgmm in the token-choice trials
+    only); no trial failed, both routers ran, the best config written; then
+    ``scripts/analyze_study.py`` on the db (summary JSON, HTML reports,
+    CSV) and ``scripts/debug_optimize.py optuna.n_trials=1``.
 
 Routes: a near-tie between two router gates flips a token's expert under a
 perturbation as small as bf16 rounding, and a flipped route moves a whole
@@ -197,7 +219,8 @@ from dlsc_tpu_torch.models.ast_moe import ASTMoE
 from dlsc_tpu_torch.models import cnn_esc50, leaf
 from dlsc_tpu_torch.models.ast_small import ASTViTSmall
 from dlsc_tpu_torch.models.layers import BatchNorm
-from dlsc_tpu_torch.models.moe import MOE_METRICS
+from dlsc_tpu_torch.models.moe import MOE_METRICS, as_moe_spec
+from dlsc_tpu_torch.models.moe import capacity as moe_capacity
 from dlsc_tpu_torch.models.vit import ASTViT
 from dlsc_tpu_torch.ops import attn_fast, mel_kernel
 from dlsc_tpu_torch.ops import gmm as gmm_ops
@@ -1317,41 +1340,34 @@ def phase_moe_slice(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
 
 
 class ExpertTokens:
-    """(token, choice) pairs routed to each (block, expert) whose output
-    reaches the loss, counted on the card through the model's ``topk`` hook
-    (``topk``); a forward pre-hook on each block's MoE layer names the block
-    that asks next, so a remat re-forward counts again for its own block.
-    Every real token's output reaches the loss through the later blocks'
-    attention, except in the last block, whose output the head reads only
-    at the CLS row: there only the CLS token counts (an expert that got
-    other tokens of the last block only has no gradient). Counts are only
-    read for "> 0"."""
+    """Kept dispatches of the tokens whose output reaches the loss, counted
+    per (block, expert) on the card through each MoE layer's ``route_hook``
+    (``models/moe.py``: every lowering and router reports its kept
+    assignments; a remat re-forward counts again). Every real token's
+    output reaches the loss through the later blocks' attention, except in
+    the last block, whose output the head reads only at the CLS row: there
+    only the CLS token counts (an expert that got other tokens of the last
+    block only has no gradient). Counts are only read for "> 0"."""
 
     def __init__(self, model, n_real: int):
-        self.n_real, self.last, self.block = n_real, len(model.blocks) - 1, 0
+        self.n_real, self.last = n_real, len(model.blocks) - 1
         self.counts = torch.zeros(len(model.blocks), model.config["moe"]["n_experts"],
                                   dtype=torch.int64, device=next(model.parameters()).device)
-        self.moe_blocks = [i for i, b in enumerate(model.blocks) if hasattr(b, "moe")]
-        self.hooks = [model.blocks[i].moe.register_forward_pre_hook(
-            functools.partial(self._enter, i)) for i in self.moe_blocks]
+        self.layers = {i: b.moe for i, b in enumerate(model.blocks) if hasattr(b, "moe")}
+        for i, moe in self.layers.items():
+            moe.route_hook = functools.partial(self._kept, i)
 
-    def _enter(self, i, *_):
-        self.block = i
-
-    def topk(self, gates: torch.Tensor, k: int):
-        vals, idx = torch.topk(gates, k, dim=-1, sorted=True)
-        rows = 1 if self.block == self.last else self.n_real
-        self.counts[self.block] += torch.bincount(idx[:, :rows].reshape(-1),
-                                                  minlength=self.counts.shape[1])
-        return vals, idx
+    def _kept(self, i: int, kept: torch.Tensor) -> None:
+        rows = 1 if i == self.last else self.n_real
+        self.counts[i] += kept[:, :rows].sum((0, 1)).round().long()
 
     def idle(self) -> list[tuple[int, int]]:
         """The (block, expert) pairs of the MoE blocks that got no counted
         token; removes the hooks."""
-        for h in self.hooks:
-            h.remove()
+        for moe in self.layers.values():
+            moe.route_hook = None
         counts = self.counts.cpu()
-        return [(i, e) for i in self.moe_blocks for e in range(counts.shape[1])
+        return [(i, e) for i in self.layers for e in range(counts.shape[1])
                 if counts[i, e] == 0]
 
 
@@ -1360,9 +1376,8 @@ def phase_moe_train(dev: torch.device, seed: int, card: str) -> tuple[dict, dict
     configuration, batch 64, with the routes counted per (block, expert)
     (``ExpertTokens``): every parameter must change, and every expert that
     got a token whose output reaches the loss."""
-    _, state, ms, wave, labels = bench.build(TRAIN_BATCH, seed, dev, "ast_moe")
+    step, state, ms, wave, labels = bench.build(TRAIN_BATCH, seed, dev, "ast_moe")
     routed = ExpertTokens(state.model, MOE_N_REAL)
-    step = make_train_step(bench.bench_pipeline(), CrossEntropyLoss(), topk=routed.topk)
     before = {k: p.detach().clone() for k, p in state.model.named_parameters()}
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -1389,8 +1404,9 @@ def phase_moe_train(dev: torch.device, seed: int, card: str) -> tuple[dict, dict
           f"{[(int(c.min()), int(c.max())) for c in routed.counts.cpu()]}; (block, expert) "
           f"with none: {idle} ({len(idle)})", flush=True)
     prof = bench.profile_steps(step, state, ms, wave, labels)
-    rec = bench.record(state.model, TRAIN_BATCH, step_s, losses, peak_mem, prof)
-    means = {k: round(v.item(), 4) for k, v in ms.extra_means().items()}
+    means = {k: v.item() for k, v in ms.extra_means().items()}
+    rec = {**bench.record(state.model, TRAIN_BATCH, step_s, losses, peak_mem, prof), **means}
+    means = {k: round(v, 4) for k, v in means.items()}
     rec["experts_without_tokens"] = len(idle)
     dec = rec["decomp"]
     print(f"train: AST-MoE bf16 remat attn_res dropout 0.1, batch {TRAIN_BATCH}, {WARMUP_STEPS} "
@@ -1408,7 +1424,7 @@ def phase_moe_train(dev: torch.device, seed: int, card: str) -> tuple[dict, dict
     require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n, gmm=6 * DEPTH * n,
                               tgmm=2 * DEPTH * n),
             f"AST-MoE launch counts {counts} over {n} steps")
-    return counts, dict(experts_without_tokens=len(idle), idle_experts=idle)
+    return counts, dict(experts_without_tokens=len(idle), idle_experts=idle, record=rec)
 
 
 class RouterTerms:
@@ -2952,6 +2968,218 @@ def phase_import_int8(dev: torch.device, seed: int, tmp: Path, card: str) -> dic
     return dict(total)
 
 
+# --- phase 26: AST-MoE's capacity dispatches and expert-choice router -----------------
+
+MOE_LOWERINGS = {("token", "einsum"): "ast_moe_einsum_train",
+                 ("token", "scatter"): "ast_moe_scatter_train",
+                 ("expert", "einsum"): "ast_moe_expert_train"}
+LOWERING_ERR = 1e-5     # einsum vs scatter, plain f32 steps on the same routes: the same
+                        # products, only the order of the K-term combine sum differs
+
+
+def _capacity_step(dev: torch.device, seed: int, moe: dict, batch: int, dtype: torch.dtype,
+                   plain: bool, topk=None, remat: bool = False):
+    """One SGD step (momentum 0.9, clip 1.0, the bench's pipeline) of
+    AST-MoE with ``moe``'s router and dispatch at ``batch``, dropout 0.1
+    with one seed, the same draws for every call with the same ``seed``
+    and ``batch``; ``plain`` runs plain attention. Returns (loss,
+    gradients, parameters after the update, launch counts, names), as
+    ``phase_moe_parity``'s steps."""
+    pipe = bench.bench_pipeline()
+    rng = np.random.default_rng(seed + 26)
+    wave = torch.from_numpy((rng.standard_normal((batch, CLIP)) * 0.3)
+                            .astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, AST_MOE["num_classes"], batch)).to(dev)
+    draws = pipe.draw(batch, CLIP, rng)
+    model = ASTMoE(**{**AST_MOE, **moe}, dtype=dtype, remat=remat, device=dev,
+                   generator=torch.Generator().manual_seed(seed))
+    state = TrainState.create(model, sgd(lr=5e-4, momentum=0.9), None, 25,
+                              gradient_clip_val=1.0)
+    step = make_train_step(pipe, CrossEntropyLoss(), **(dict(topk=topk) if topk else {}),
+                           **(_plain_ops() if plain else {}))
+    _reset_launches()
+    _, _, loss = step(state, MetricState.create(AST_MOE["num_classes"], dev, MOE_METRICS),
+                      wave, labels, draws, int(rng.integers(2**62)))
+    torch.cuda.synchronize()
+    names, params = zip(*model.named_parameters())
+    grads = [state.optimizer.state[p]["momentum_buffer"] for p in params]
+    return loss.item(), grads, [p.detach() for p in params], _launch_counts(), names
+
+
+def phase_moe_lowerings(dev: torch.device, seed: int, card: str, ragged: dict) -> dict:
+    """Phase 26: AST-MoE training on each capacity path of ``MOE_LOWERINGS``
+    through ``scripts/bench.py``'s functions, beside phase 10's ragged
+    record ``ragged``; then the parity checks of the module docstring.
+    Returns each path's launch counts by its ``launches_by_path`` name."""
+    n = WARMUP_STEPS + TIMED_STEPS
+    runs, rows = {}, [("token", "ragged", ragged)]
+    for (router, dispatch), path in MOE_LOWERINGS.items():
+        moe = dict(router=router, dispatch=dispatch)
+        step, state, ms, wave, labels = bench.build(TRAIN_BATCH, seed, dev, "ast_moe", moe=moe)
+        routed = ExpertTokens(state.model, MOE_N_REAL)
+        before = {k: p.detach().clone() for k, p in state.model.named_parameters()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        # --- a main path (the capacity path's train steps): only these are counted --
+        _reset_launches()
+        state, ms, losses, step_s = bench.timed_steps(step, state, ms, wave, labels,
+                                                      WARMUP_STEPS, TIMED_STEPS)
+        counts = _launch_counts()
+        # ------------------------------------------------------------------------------
+        runs[path] = counts
+        peak_mem = torch.cuda.max_memory_allocated(dev) / 2**30
+        named = dict(state.model.named_parameters())
+        unchanged = [k for k, p in named.items() if torch.equal(before[k], p)]
+        idle = routed.idle()
+        experts = [(k, e) for k, p in named.items() if k.split(".")[-1] in ("wi", "bi", "wo", "bo")
+                   for e in range(p.shape[0])
+                   if (int(k.split(".")[1]), e) not in idle and torch.equal(before[k][e], p[e])]
+        del before
+        stats = {k: float(v) for k, v in ms.extra_means().items()}
+        prof = bench.profile_steps(step, state, ms, wave, labels)
+        rec = {**bench.record(state.model, TRAIN_BATCH, step_s, losses, peak_mem, prof), **stats}
+        rows.append((router, dispatch, rec))
+        print(json.dumps(rec), flush=True)
+        print(f"AST-MoE {router}-choice, {dispatch} dispatch: (block, expert) without a kept "
+              f"token that reaches the loss: {idle} ({len(idle)}); launches per step "
+              f"{ {k: v / n for k, v in counts.items() if v} }", flush=True)
+        require(not unchanged, f"{path}: parameters that did not change: {unchanged[:8]}")
+        require(not experts, f"{path}: experts whose weights did not change: {experts[:8]}")
+        require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n),
+                f"{path} launch counts {counts} over {n} steps")
+        del step, state, ms, named
+        torch.cuda.empty_cache()
+    spec = as_moe_spec({k: AST_MOE[k] for k in ("n_experts", "top_k", "capacity_factor",
+                                                "group_size")})
+    S, G, C = moe_capacity(spec, MOE_N_PAD, MOE_N_REAL)
+    print(f"AST-MoE train step, bf16, remat attn_res, dropout 0.1, batch {TRAIN_BATCH}, "
+          f"{WARMUP_STEPS} warm-up + {TIMED_STEPS} timed steps, {MOE_N_REAL} -> {MOE_N_PAD} "
+          f"tokens; capacity paths in groups of S {S} (G {G}), C {C} slots an expert  [{card}]",
+          flush=True)
+    print("  router  dispatch  ms/step  clips/s  peak GiB  busy  drop_frac  util", flush=True)
+    for router, dispatch, rec in rows:
+        note = "  (phase 10)" if dispatch == "ragged" else ""
+        print(f"  {router:6}  {dispatch:8}  {rec['step_ms']:.3f}  {rec['value']:.2f}  "
+              f"{rec['peak_mem_gib']:.2f}  {rec['profile']['busy_share']:.3f}  "
+              f"{rec.get('moe/drop_frac', 0.0):.4f}  {rec.get('moe/util', float('nan')):.4f}{note}",
+              flush=True)
+
+    # --- parity at batch 4: kernels vs plain ops, einsum vs scatter -------------------
+    plain = {}
+    for router, dispatch in MOE_LOWERINGS:
+        moe = dict(router=router, dispatch=dispatch)
+        log = RouteLog()
+        k32 = _capacity_step(dev, seed, moe, PARITY_BATCH, torch.float32, False, log.record)
+        p32 = plain[(router, dispatch)] = _capacity_step(
+            dev, seed, moe, PARITY_BATCH, torch.float32, True, log.replay(DEPTH))
+        if (router, dispatch) == ("token", "einsum"):
+            einsum_routes = log
+        require(k32[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH) and p32[3] == _counts(k1=1),
+                f"{router}/{dispatch} parity launches {k32[3]} {p32[3]}")
+        _compare_steps(k32, p32, f"f32 kernels vs f32 plain attention, same routes (AST-MoE "
+                       f"{router}-choice, {dispatch} dispatch, dropout 0.1", STEP_F32_LOSS,
+                       STEP_F32_GRAD)
+    scatter = _capacity_step(dev, seed, dict(router="token", dispatch="scatter"), PARITY_BATCH,
+                             torch.float32, True, einsum_routes.replay(DEPTH))
+    _compare_steps(scatter, plain[("token", "einsum")], "scatter vs einsum dispatch, f32 plain "
+                   "ops, the einsum run's routes (AST-MoE token-choice, dropout 0.1",
+                   LOWERING_ERR, LOWERING_ERR)
+    del plain, scatter
+    torch.cuda.empty_cache()
+
+    # --- the scatter path's bf16 step, twice: its atomic adds change no sum -----------
+    moe = dict(router="token", dispatch="scatter")
+    first, second = (_capacity_step(dev, seed, moe, TRAIN_BATCH, torch.bfloat16, False,
+                                    remat=True) for _ in range(2))
+    same = first[0] == second[0] and all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+    print(f"AST-MoE scatter dispatch, bf16 kernels, remat attn_res, batch {TRAIN_BATCH}: one "
+          f"step run twice: loss {first[0]!r} vs {second[0]!r}, gradients of all "
+          f"{len(first[1])} parameters bit-identical: {same}", flush=True)
+    require(same, "the scatter dispatch's step is not bitwise reproducible")
+    return runs
+
+
+# --- phase 27: the HPO slice -----------------------------------------------------------
+
+HPO_TRIALS, HPO_EPOCHS = 4, 2
+
+
+def phase_hpo(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
+    """Phase 27: an AST-MoE study through ``scripts/optimize_hyperparams.py``
+    on phase 18's shards (``tmp / "data"``), per-trial readings from a study
+    callback, then ``analyze_study`` and ``debug_optimize``. Returns the
+    study's launch counts."""
+    from dlsc_tpu_torch.hpo import TrialState
+    from dlsc_tpu_torch.scripts import analyze_study, debug_optimize, optimize_hyperparams
+
+    out, db = tmp / "hpo", tmp / "hpo" / "study.db"
+    per_fold = TRAINER_CLASSES * TRAINER_CLIPS
+    common = ["model=ast_moe", f"dataset.root={tmp / 'data'}", "dataset.fold=0",
+              "trainer.precision=bf16-mixed", f"trainer.max_epochs={HPO_EPOCHS}", f"seed={seed}",
+              f"optuna.storage_path=sqlite:///{db}", f"optuna.output_dir={out}",
+              "optuna.study_name=ast_moe_card"]
+    trials, last = [], {}
+
+    def reading(study, trial):
+        counts = _launch_counts()
+        launches = {k: v - last.get(k, 0) for k, v in counts.items()}
+        last.update(counts)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        torch.cuda.reset_peak_memory_stats(dev)
+        trials.append((trial, launches, peak))
+        print(f"hpo trial {trial.number}: {trial.state} value {trial.value} fit "
+              f"{trial.user_attrs.get('fit_seconds', float('nan')):.2f} s, peak {peak:.2f} GiB, "
+              f"launches { {k: v for k, v in launches.items() if v} }; params "
+              f"{trial.params}  [{card}]", flush=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    # --- the main path: only these launches are counted ---------------------
+    _reset_launches()
+    t0 = time.perf_counter()
+    runner = optimize_hyperparams.main([*common, f"optuna.n_trials={HPO_TRIALS}"],
+                                       callbacks=[reading])
+    torch.cuda.synchronize()
+    study_s = time.perf_counter() - t0
+    counts = _launch_counts()
+    # --------------------------------------------------------------------------
+    study = runner.study
+    failed = [t.number for t in study.trials if t.state == TrialState.FAIL]
+    require(len(study.trials) == HPO_TRIALS and not failed,
+            f"hpo study: {len(study.trials)} trials, failed {failed} (tracebacks above)")
+    routers = {t.params["model.router"] for t in study.trials}
+    require(routers == {"token", "expert"}, f"hpo study routers {routers}")
+    require((out / "best_config.yaml").exists(), "hpo study wrote no best_config.yaml")
+    for trial, launches, _ in trials:
+        b = trial.params["batch_size"]
+        shapes = _trainer_shapes((TRAINER_FOLDS - 1) * per_fold, per_fold, b)
+        steps = HPO_EPOCHS * shapes["steps"]
+        evals = HPO_EPOCHS * shapes["val_batches"] + shapes["test_batches"]
+        token = trial.params["model.router"] == "token"
+        want = _counts(k1=steps + evals, k2f=DEPTH * (steps + evals), k2b=DEPTH * steps,
+                       gmm=token * (6 * DEPTH * steps + 2 * DEPTH * evals),
+                       tgmm=token * 2 * DEPTH * steps)
+        require(launches == want, f"hpo trial {trial.number} ({trial.params['model.router']}, "
+                f"batch {b}) launches {launches}, expected {want}")
+    print(f"hpo study: {HPO_TRIALS} trials in {study_s:.2f} s, states "
+          f"{[t.state for t in study.trials]}, values {[t.value for t in study.trials]}, best "
+          f"trial {study.best_trial.number} ({study.best_value}); launches {counts}  [{card}]",
+          flush=True)
+
+    analyze_study.main(["ast_moe_card", "--storage", str(db), "--out", str(out / "analysis"),
+                        "--csv", "--html"])
+    written = sorted(p.name for p in (out / "analysis").iterdir())
+    require({"ast_moe_card_summary.json", "ast_moe_card_trials.csv"} <= set(written)
+            and sum(name.endswith(".html") for name in written) == 5,
+            f"analyze_study wrote {written}")
+    summary = json.loads((out / "analysis" / "ast_moe_card_summary.json").read_text())
+    require(summary["n_trials"] == HPO_TRIALS, f"analyze_study summary {summary}")
+    debug = debug_optimize.main([*common, "optuna.study_name=ast_moe_debug", "optuna.n_trials=1"])
+    require([t.state for t in debug.study.trials] == [TrialState.COMPLETE],
+            f"debug_optimize trials {[t.state for t in debug.study.trials]}")
+    print(f"hpo: analyze_study wrote {written}; debug_optimize ran 1 trial "
+          f"({debug.study.trials[0].value})  [{card}]", flush=True)
+    return counts
+
+
 def moe_parity_sweep(dev: torch.device, seeds: str, card: str, fault: str | None = None
                      ) -> None:
     """Phase 11 at each seed of ``seeds`` ("A-B"), every reading kept, with
@@ -2972,6 +3200,16 @@ def moe_parity_sweep(dev: torch.device, seeds: str, card: str, fault: str | None
     failed = [r["seed"] for r in rows if not r["passed"]]
     require(not failed, f"phase 11 failed at seeds {failed}"
             + (f" with {fault} planted" if fault else ""))
+
+
+def _clock(phase: int, fn, *args):
+    """``fn(*args)``, then the phase's seconds printed and the allocator's
+    cache emptied."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -3010,58 +3248,43 @@ def main() -> None:
         return
 
     gen = torch.Generator().manual_seed(args.seed)
-    k1 = phase_mel(dev, gen)
-    k2f = phase_attn(dev, gen)
-    k2b = phase_attn_bwd(dev, gen)
-    torch.cuda.empty_cache()
+    seed = args.seed
+    k1 = _clock(1, phase_mel, dev, gen)
+    k2f = _clock(2, phase_attn, dev, gen)
+    k2b = _clock(3, phase_attn_bwd, dev, gen)
     with tempfile.TemporaryDirectory() as tmp:
-        serve = phase_slice(dev, args.seed, Path(tmp), card)
-    torch.cuda.empty_cache()
-    train, bench_rec = phase_train(dev, args.seed, card)
-    torch.cuda.empty_cache()
-    phase_parity(dev, args.seed)
-    torch.cuda.empty_cache()
-    k2_moe = phase_attn_ast_moe(dev, gen)
-    torch.cuda.empty_cache()
-    k4a, k4b = phase_gmm(dev, gen, args.seed)
-    torch.cuda.empty_cache()
+        serve = _clock(4, phase_slice, dev, seed, Path(tmp), card)
+    train, bench_rec = _clock(5, phase_train, dev, seed, card)
+    _clock(6, phase_parity, dev, seed)
+    k2_moe = _clock(7, phase_attn_ast_moe, dev, gen)
+    k4a, k4b = _clock(8, phase_gmm, dev, gen, seed)
     with tempfile.TemporaryDirectory() as tmp:
-        moe_serve = phase_moe_slice(dev, args.seed, Path(tmp), card)
-    torch.cuda.empty_cache()
-    moe_train, _ = phase_moe_train(dev, args.seed, card)
-    torch.cuda.empty_cache()
-    phase_moe_parity(dev, args.seed)
-    torch.cuda.empty_cache()
-    k3f, k3b = phase_ln(dev, gen)
-    torch.cuda.empty_cache()
-    k5_k6 = phase_attn_k5_k6(dev, gen)
-    torch.cuda.empty_cache()
+        moe_serve = _clock(9, phase_moe_slice, dev, seed, Path(tmp), card)
+    moe_train, moe_train_run = _clock(10, phase_moe_train, dev, seed, card)
+    _clock(11, phase_moe_parity, dev, seed)
+    k3f, k3b = _clock(12, phase_ln, dev, gen)
+    k5_k6 = _clock(13, phase_attn_k5_k6, dev, gen)
     with tempfile.TemporaryDirectory() as tmp:
-        small_serve = phase_small_slice(dev, args.seed, Path(tmp), card)
-    torch.cuda.empty_cache()
-    small_train = phase_small_train(dev, args.seed, card, bench_rec["step_ms"])
-    torch.cuda.empty_cache()
-    phase_small_parity(dev, args.seed)
-    torch.cuda.empty_cache()
+        small_serve = _clock(14, phase_small_slice, dev, seed, Path(tmp), card)
+    small_train = _clock(15, phase_small_train, dev, seed, card, bench_rec["step_ms"])
+    _clock(16, phase_small_parity, dev, seed)
     with tempfile.TemporaryDirectory() as tmp:
-        mini_serve, mini_train = phase_mini(dev, args.seed, Path(tmp), card)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as trainer_tmp:
-        trainer_run = phase_trainer(dev, args.seed, Path(trainer_tmp), card, bench_rec["value"])
-        torch.cuda.empty_cache()
-        phase_families_vs_cpu(dev, args.seed, card)
-        fam_train, _ = phase_family_train(dev, args.seed, card)
-        phase_family_parity(dev, args.seed)
+        mini_serve, mini_train = _clock(17, phase_mini, dev, seed, Path(tmp), card)
+    with tempfile.TemporaryDirectory() as trainer_tmp:   # phase 18's shards serve 23 and 27
+        trainer_tmp = Path(trainer_tmp)
+        trainer_run = _clock(18, phase_trainer, dev, seed, trainer_tmp, card, bench_rec["value"])
+        _clock(19, phase_families_vs_cpu, dev, seed, card)
+        fam_train, _ = _clock(20, phase_family_train, dev, seed, card)
+        _clock(21, phase_family_parity, dev, seed)
         with tempfile.TemporaryDirectory() as tmp:
-            fam_serve, _ = phase_family_serving(dev, args.seed, Path(tmp), card)
-        torch.cuda.empty_cache()
-        envnet_trainer = phase_envnet_trainer(dev, args.seed, Path(trainer_tmp), card)
-    torch.cuda.empty_cache()
-    remat_runs = phase_remat(dev, args.seed, card)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        import_serve = phase_import_int8(dev, args.seed, Path(tmp), card)
-    torch.cuda.empty_cache()
+            fam_serve, _ = _clock(22, phase_family_serving, dev, seed, Path(tmp), card)
+        envnet_trainer = _clock(23, phase_envnet_trainer, dev, seed, trainer_tmp, card)
+        remat_runs = _clock(24, phase_remat, dev, seed, card)
+        with tempfile.TemporaryDirectory() as tmp:
+            import_serve = _clock(25, phase_import_int8, dev, seed, Path(tmp), card)
+        lowering_runs = _clock(26, phase_moe_lowerings, dev, seed, card,
+                               moe_train_run["record"])
+        hpo_run = _clock(27, phase_hpo, dev, seed, trainer_tmp, card)
 
     # launches: the training runs' (ast_trainer, envnet_v2_trainer: the train
     # CLI's fit, its validation and its test); launches_serving: the serving runs';
@@ -3070,7 +3293,8 @@ def main() -> None:
     train_runs = dict(ast_train=train, ast_moe_train=moe_train, ast_small_train=small_train,
                       ast_mini_train=mini_train, ast_trainer=trainer_run,
                       **{f"{k}_train": c for k, c in fam_train.items()},
-                      envnet_v2_trainer=envnet_trainer, ast_remat_train=remat_runs)
+                      envnet_v2_trainer=envnet_trainer, ast_remat_train=remat_runs,
+                      **lowering_runs, hpo_study=hpo_run)
     serve_runs = dict(ast_serve=serve, ast_moe_serve=moe_serve, ast_small_serve=small_serve,
                       ast_mini_serve=mini_serve, **{f"{k}_serve": c for k, c in fam_serve.items()},
                       ast_import_int8_serve=import_serve)

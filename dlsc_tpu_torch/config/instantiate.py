@@ -6,8 +6,8 @@ nested nodes with their own ``_target_`` are instantiated first, and
 ``_partial_: true`` returns a ``functools.partial``. The table maps the
 reference's targets (``src.models.*``, ``torch.optim.Adam``, ...) and the
 JAX package's (``dlsc_tpu.*``, which ``configs/`` also names) onto
-``dlsc_tpu_torch``. A target the port lacks raises ``NotImplementedError``
-naming its ROADMAP item; a ``dlsc_tpu.*`` target is never imported.
+``dlsc_tpu_torch``. A ``dlsc_tpu.*`` target outside the table raises
+``NotImplementedError`` and is never imported.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ _MODELS = "dlsc_tpu_torch.models."
 _DATA = "dlsc_tpu_torch.data."
 _OPTIM = "dlsc_tpu_torch.train.optim."
 _LOSSES = "dlsc_tpu_torch.train.losses."
+_HPO = "dlsc_tpu_torch.hpo."
 
 # target → the port's target; each key also under its ``dlsc_tpu.*`` name
 _PORTED: dict[str, str] = {
@@ -49,24 +50,17 @@ _PORTED: dict[str, str] = {
     "torch.optim.lr_scheduler.StepLR": _OPTIM + "step_lr",
     "torch.nn.CrossEntropyLoss": _LOSSES + "CrossEntropyLoss",
     "torch.nn.KLDivLoss": _LOSSES + "KLDivLoss",
-}
-
-# targets the port lacks → the ROADMAP item that ports them
-_NOT_PORTED: dict[str, str] = {
-    "optuna.samplers.TPESampler": "M10",
-    "optuna.pruners.HyperbandPruner": "M10",
-    "optuna.pruners.MedianPruner": "M10",
-    "dlsc_tpu.hpo.tpe.TPESampler": "M10",
-    "dlsc_tpu.hpo.hyperband.HyperbandPruner": "M10",
-    "dlsc_tpu.hpo.pruners.MedianPruner": "M10",
+    "optuna.samplers.TPESampler": _HPO + "tpe.TPESampler",
+    "optuna.pruners.HyperbandPruner": _HPO + "hyperband.HyperbandPruner",
+    "optuna.pruners.MedianPruner": _HPO + "pruners.MedianPruner",
+    "dlsc_tpu.hpo.tpe.TPESampler": _HPO + "tpe.TPESampler",
+    "dlsc_tpu.hpo.hyperband.HyperbandPruner": _HPO + "hyperband.HyperbandPruner",
+    "dlsc_tpu.hpo.pruners.MedianPruner": _HPO + "pruners.MedianPruner",
 }
 
 
 def resolve_target(target: str) -> Any:
     """The port's object for ``target`` (after the table)."""
-    if target in _NOT_PORTED:
-        raise NotImplementedError(f"_target_ {target!r} is not ported yet "
-                                  f"(ROADMAP §1 {_NOT_PORTED[target]})")
     target = _PORTED.get(target, target)
     if target.split(".")[0] == "dlsc_tpu":
         raise NotImplementedError(f"_target_ {target!r} names the JAX package and has no "

@@ -2,6 +2,8 @@
 
     python -m dlsc_tpu_torch.scripts.bench [--model ast|ast_moe|ast_small|ast_mini] \
         [--ln-fused] [--batch 64] [--steps 10] [--warmup 2] [--seed 0]
+    python -m dlsc_tpu_torch.scripts.bench --model ast_moe [--router token|expert] \
+        [--dispatch ragged|einsum|scatter]
     python -m dlsc_tpu_torch.scripts.bench --model envnet_v2|cnn_esc50|leaf
 
 The configuration of the root ``bench.py`` (``bench.py:49-73``): AST-Base
@@ -14,7 +16,13 @@ kernels K1, K2f and K2b. ``--model ast_moe`` runs AST-MoE
 (``configs/model/ast_moe.yaml``, ``ASTMoE``'s defaults: bf16, remat
 ``attn_res``, dropout 0.1; 8 experts, top-2, dropless ragged dispatch) with
 the same pipeline and optimizer, since the two configs' dataset overrides
-are the same; its experts run on kernels K4a and K4b. ``--model ast_small``
+are the same; its experts run on kernels K4a and K4b. ``--router`` and
+``--dispatch`` choose its routing and dispatch as ``model.router`` and
+``model.dispatch`` do (``scripts/bench_moe.py``'s dispatch A/B, taken at the
+whole train step): the capacity dispatches ``einsum`` and ``scatter``
+(capacity factor 1.25, groups of 256 tokens) run the experts as batched
+products, without K4; ``--router expert`` with the default dispatch runs on
+``einsum``, as ``ASTMoE`` rewrites it. ``--model ast_small``
 (``configs/model/ast_small.yaml``: patch 16, stride 16; ``ASTViTSmall``'s
 defaults: bf16, remat ``attn_res``, dropout 0.1) and ``--model ast_mini``
 (``configs/model/ast_mini.yaml``: stride 10; ``ASTMiniViT``'s defaults:
@@ -44,7 +52,10 @@ each), for AST-MoE the grouped-matmul kernels K4a and K4b, with
 step. The FLOP convention is the useful count of ``utils/mfu.py``:
 4·n²·D forward and 10·n²·D backward at n_real for attention; an MoE block
 counts top_k × its two expert products per real token plus the router.
-K3 adds no matmul FLOPs. A fixed batch runs or raises: no back-off.
+K3 adds no matmul FLOPs (nor do the capacity dispatches' one-hot products
+and empty slots: the count stays the useful one). An MoE record also holds
+``moe/drop_frac`` and ``moe/util``, the timed steps' means. A fixed batch
+runs or raises: no back-off.
 """
 
 from __future__ import annotations
@@ -155,9 +166,10 @@ def family_pipeline(model_name: str) -> DevicePipeline:
 
 
 def build_model(model_name: str, seed: int, device: torch.device, ln_fused: bool = False,
-                remat_policy: str | None = None):
+                remat_policy: str | None = None, moe: dict | None = None):
     """The bench's ``model_name`` (a key of ``METRICS``) with seeded weights,
-    under ``remat_policy`` when given (the AST models with remat)."""
+    under ``remat_policy`` when given (the AST models with remat); ``moe``
+    overrides AST-MoE's ``router`` and ``dispatch``."""
     gen = torch.Generator().manual_seed(seed)
     if remat_policy is not None and model_name in (*FAMILIES, "ast_mini"):
         raise ValueError(f"{model_name} has no remat")
@@ -172,7 +184,7 @@ def build_model(model_name: str, seed: int, device: torch.device, ln_fused: bool
     if model_name == "ast":
         return ASTModel(**AST_BASE, dtype=torch.bfloat16, **remat, **kw)
     if model_name == "ast_moe":
-        return ASTMoE(**AST_MOE, **remat, **kw)
+        return ASTMoE(**{**AST_MOE, **(moe or {})}, **remat, **kw)
     if model_name == "ast_small":
         return ASTViTSmall(**AST_SMALL, **remat, **kw)
     if model_name == "ast_mini":
@@ -181,10 +193,10 @@ def build_model(model_name: str, seed: int, device: torch.device, ln_fused: bool
 
 
 def build(batch: int, seed: int, device: torch.device, model_name: str = "ast",
-          ln_fused: bool = False, remat_policy: str | None = None):
+          ln_fused: bool = False, remat_policy: str | None = None, moe: dict | None = None):
     """(train_step, state, metric state, waves, labels) of the bench on
     ``device`` for ``model_name`` (a key of ``METRICS``)."""
-    model = build_model(model_name, seed, device, ln_fused, remat_policy)
+    model = build_model(model_name, seed, device, ln_fused, remat_policy, moe)
     extras = MOE_METRICS if model.config.get("moe") else ()
     if model_name in FAMILIES:   # configs/base_training.yaml's recipe
         state = TrainState.create(model, adam(lr=1e-4, weight_decay=1e-4),
@@ -306,7 +318,12 @@ def record(model: torch.nn.Module, batch: int, step_s: float, losses: np.ndarray
     decomp = {"attn_fwd_ms": kinds.get(K2F, 0.0), "attn_bwd_ms": kinds.get(K2B, 0.0),
               "attn_ms": attn_ms}
     kernel_ms = attn_ms
-    if moe:
+    metric = METRICS[_metric_key(model)]
+    if moe and moe["dispatch"] != "ragged":
+        metric = metric.replace("dropless ragged dispatch on K4a/K4b", (
+            f"{moe['router']}-choice routing on the {moe['dispatch']} capacity dispatch, "
+            f"capacity factor {moe['capacity_factor']}, groups of {moe['group_size']}"))
+    elif moe:
         decomp.update(gmm_ms=kinds.get(K4A, 0.0), tgmm_ms=kinds.get(K4B, 0.0))
         kernel_ms += decomp["gmm_ms"] + decomp["tgmm_ms"]
         m_rows = batch * n_real * moe["top_k"]
@@ -320,7 +337,7 @@ def record(model: torch.nn.Module, batch: int, step_s: float, losses: np.ndarray
     decomp["rest_ms"] = prof["device_ms_per_step"] - kernel_ms
     decomp["note"] = note + "; rest = the other kernels"
     return {
-        "metric": METRICS[_metric_key(model)] + (LN_FUSED_NOTE if ln_fused else ""),
+        "metric": metric + (LN_FUSED_NOTE if ln_fused else ""),
         "value": batch / step_s,
         "unit": "clips/s",
         "batch": batch,
@@ -366,17 +383,18 @@ def _family_record(model: torch.nn.Module, batch: int, step_s: float, losses: np
 
 
 def measure(batch: int = 64, steps: int = 10, warmup: int = 2, seed: int = 0,
-            model_name: str = "ast", ln_fused: bool = False) -> dict:
+            model_name: str = "ast", ln_fused: bool = False, moe: dict | None = None) -> dict:
     """Run the bench and return its JSON record (see the module docstring)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the bench needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     dev = torch.device("cuda", 0)
-    step, state, ms, wave, labels = build(batch, seed, dev, model_name, ln_fused)
+    step, state, ms, wave, labels = build(batch, seed, dev, model_name, ln_fused, moe=moe)
     torch.cuda.reset_peak_memory_stats(dev)
     state, ms, losses, step_s = timed_steps(step, state, ms, wave, labels, warmup, steps)
     peak_mem = torch.cuda.max_memory_allocated(dev) / 2**30
+    stats = {k: float(v) for k, v in ms.extra_means().items()}
     prof = profile_steps(step, state, ms, wave, labels)
-    return record(state.model, batch, step_s, losses, peak_mem, prof)
+    return {**record(state.model, batch, step_s, losses, peak_mem, prof), **stats}
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -388,10 +406,18 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--router", choices=("token", "expert"), default=None,
+                    help="AST-MoE's router (default: the config's, token)")
+    ap.add_argument("--dispatch", choices=("ragged", "einsum", "scatter"), default=None,
+                    help="AST-MoE's dispatch (default: the config's, ragged)")
     args = ap.parse_args(argv)
     if args.ln_fused and args.model in FAMILIES:
         ap.error(f"--ln-fused applies to the AST family, not {args.model}")
-    rec = measure(args.batch, args.steps, args.warmup, args.seed, args.model, args.ln_fused)
+    moe = {k: v for k, v in (("router", args.router), ("dispatch", args.dispatch)) if v}
+    if moe and args.model != "ast_moe":
+        ap.error("--router and --dispatch apply to --model ast_moe")
+    rec = measure(args.batch, args.steps, args.warmup, args.seed, args.model, args.ln_fused,
+                  moe or None)
     print(json.dumps(rec))
     return rec
 

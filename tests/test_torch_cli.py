@@ -233,8 +233,6 @@ def test_targets_resolve_into_the_port(target, name):
 
 
 @pytest.mark.parametrize("target,item", [
-    ("optuna.pruners.HyperbandPruner", "M10"), ("dlsc_tpu.hpo.tpe.TPESampler", "M10"),
-    ("optuna.pruners.MedianPruner", "M10"), ("optuna.samplers.TPESampler", "M10"),
     ("dlsc_tpu.train.loop.Trainer", "JAX package"),
 ])
 def test_targets_the_port_lacks_raise(target, item):

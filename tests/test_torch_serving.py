@@ -217,7 +217,14 @@ def test_port_imports_no_jax():
         "        'dlsc_tpu_torch.scripts.bench_infer', 'dlsc_tpu_torch.serving',\n"
         "        'dlsc_tpu_torch.ops.quant', 'dlsc_tpu_torch.utils.remat',\n"
         "        'dlsc_tpu_torch.models.ast', 'dlsc_tpu_torch.scripts.import_vit',\n"
-        "        'dlsc_tpu_torch.scripts.export'} <= set(names)\n"
+        "        'dlsc_tpu_torch.scripts.export', 'dlsc_tpu_torch.hpo',\n"
+        "        'dlsc_tpu_torch.hpo.study', 'dlsc_tpu_torch.hpo.tpe',\n"
+        "        'dlsc_tpu_torch.hpo.pruners', 'dlsc_tpu_torch.hpo.hyperband',\n"
+        "        'dlsc_tpu_torch.hpo.space', 'dlsc_tpu_torch.hpo.runner',\n"
+        "        'dlsc_tpu_torch.hpo.fanova', 'dlsc_tpu_torch.hpo.report_html',\n"
+        "        'dlsc_tpu_torch.scripts.optimize_hyperparams',\n"
+        "        'dlsc_tpu_torch.scripts.debug_optimize',\n"
+        "        'dlsc_tpu_torch.scripts.analyze_study'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'optax', 'dlsc_tpu', 'sklearn', 'orbax', 'tqdm'))\n"
         "assert not bad, bad\n"
