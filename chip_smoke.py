@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small, AST-Mini, EnvNet-v2, the spectrogram CNN and LEAF serving and training, its training entry point, AST's remat policies, the timm/DeiT weight import, int8 serving, AST-MoE's capacity dispatches and expert-choice router, and the HPO layer, on one GPU.
+"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small, AST-Mini, EnvNet-v2, the spectrogram CNN and LEAF serving and training, its training entry point, AST's remat policies, the timm/DeiT weight import, int8 serving, AST-MoE's capacity dispatches and expert-choice router, the HPO layer and its vmapped multi-trial runner, on one GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -172,7 +172,22 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     K2f 12x that, K2b 12 x steps; gmm and tgmm in the token-choice trials
     only); no trial failed, both routers ran, the best config written; then
     ``scripts/analyze_study.py`` on the db (summary JSON, HTML reports,
-    CSV) and ``scripts/debug_optimize.py optuna.n_trials=1``.
+    CSV) and ``scripts/debug_optimize.py optuna.n_trials=1``;
+28. the vmapped HPO slice: ``optimize_hyperparams model=ast
+    +model.ln_fused=true +optuna.vmapped.enabled=true`` on phase 18's shards
+    (AST-Base at full width and depth, bf16, K 4 slots recycled over 6
+    trials of 2 epochs at batch 16, searching lr, weight decay, dropout,
+    mixup α, T_max and warmup): every trial COMPLETE or PRUNED with its own
+    lr, the db reloaded, the launches exact (per lockstep step K1 1, K2f 12,
+    K2b 12, K3f and K3b 12 x K; per eval batch K1 1, K2f 12, K3f 12 x K);
+    one vmapped step timed (AST-Base at K 4 with per-trial dropout,
+    AST-Small at K 8, batch 16 a trial: ms, clips/s, peak GiB, busy share,
+    launches) beside K single-trial steps of the bench's; K2f and K2b
+    folded over the trials against one launch a trial (equal); one f32
+    vmapped step at K 2 (AST-Base widths, depth 2, draws replayed) against
+    each trial's step in plain ops on the CPU: loss, the clipped gradient
+    and its square (Adam's moments) and the parameter change where the
+    gradient sets it, 1e-4.
 
 Routes: a near-tie between two router gates flips a token's expert under a
 perturbation as small as bf16 rounding, and a flipped route moves a whole
@@ -3135,13 +3150,12 @@ def phase_hpo(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
     # --- the main path: only these launches are counted ---------------------
     _reset_launches()
     t0 = time.perf_counter()
-    runner = optimize_hyperparams.main([*common, f"optuna.n_trials={HPO_TRIALS}"],
-                                       callbacks=[reading])
+    study = optimize_hyperparams.main([*common, f"optuna.n_trials={HPO_TRIALS}"],
+                                      callbacks=[reading])
     torch.cuda.synchronize()
     study_s = time.perf_counter() - t0
     counts = _launch_counts()
     # --------------------------------------------------------------------------
-    study = runner.study
     failed = [t.number for t in study.trials if t.state == TrialState.FAIL]
     require(len(study.trials) == HPO_TRIALS and not failed,
             f"hpo study: {len(study.trials)} trials, failed {failed} (tracebacks above)")
@@ -3177,6 +3191,352 @@ def phase_hpo(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
             f"debug_optimize trials {[t.state for t in debug.study.trials]}")
     print(f"hpo: analyze_study wrote {written}; debug_optimize ran 1 trial "
           f"({debug.study.trials[0].value})  [{card}]", flush=True)
+    return counts
+
+
+# --- phase 28: the vmapped HPO slice ----------------------------------------------------
+
+VM_K, VM_TRIALS, VM_EPOCHS, VM_BATCH = 4, 6, 2, 16   # the study: 4 slots, 6 trials, batch 16
+VM_SMALL_K = 8                                       # AST-Small's timed step: 8 trials
+VM_TIMED = 3                                         # timed vmapped steps after one warm-up
+VM_PARITY_K, VM_PARITY_BATCH, VM_PARITY_DEPTH = 2, 2, 2
+VM_PARITY_ERR = 1e-4    # f32 both sides: the card's kernels under vmap against plain ops on
+                        # the CPU, summation order only, through the cut depth
+VM_SPACES = ("{optimizer.lr: {low: 1e-5, high: 1e-3, log: true}, "
+             "optimizer.weight_decay: {low: 1e-6, high: 1e-2, log: true}, "
+             "model.dropout: {low: 0.0, high: 0.3}, "
+             "dataset.mixup_alpha: {low: 0.1, high: 1.0, log: true}, "
+             "scheduler.T_max: {low: 1, high: 4}, scheduler.warmup_frac: {low: 0.0, high: 0.3}}")
+
+
+def _vm_hyper(k: int, dropout: bool) -> dict:
+    """K trials' hyperparameters: each its own lr and weight decay, MLP
+    dropout 0, 0.05, ... with ``dropout``, a cosine over 100 steps."""
+    i = np.arange(k)
+    return dict(lr=1e-4 * (1 + i), wd=1e-4 * (1 + i), do=0.05 * i if dropout else 0 * i,
+                tm=100.0 + 0 * i, wu=0 * i)
+
+
+def _vm_exec(model, pipe, k: int, dev: torch.device, seed: int, **spaces):
+    """A ``VmappedTrialRunner``'s functions for ``model`` and K fresh
+    trials' states (``_vm_hyper``), without a datamodule or a study to run:
+    (fns, states)."""
+    from types import SimpleNamespace
+
+    from dlsc_tpu_torch.hpo.vmapped import VmappedTrialRunner
+
+    dm = SimpleNamespace(setup=lambda: None, num_classes=AST_BASE["num_classes"],
+                         steps_per_epoch=25)
+    runner = VmappedTrialRunner(None, model, pipe, dm, seed=seed, device=dev, **spaces)
+    fns = runner._build_exec()
+    hp = _vm_hyper(k, "do_space" in spaces)
+    st = fns["init_v"]([seed * 1000 + j for j in range(k)], *hp.values())
+    return fns, st
+
+
+def _vm_row(name: str, k: int, dropout: bool, wave, labels, dev: torch.device,
+            seed: int) -> dict:
+    """One vmapped step of K trials of the bench's ``name`` (bf16,
+    ``ln_fused``, per-trial mixup α; with ``dropout`` per-trial MLP dropout
+    0..0.3): its launches counted and required, then ``VM_TIMED`` steps
+    timed and one profiled."""
+    from dlsc_tpu_torch.hpo.vmapped import TrialMetrics
+
+    model = bench.build_model(name, seed, None, ln_fused=True)
+    depth = model.config["depth"]
+    spaces = dict(ma_space={"low": 0.1, "high": 1.0})
+    if dropout:
+        spaces["do_space"] = {"low": 0.0, "high": 0.3}
+    fns, st = _vm_exec(model, bench.bench_pipeline(), k, dev, seed, **spaces)
+    ls, ma = np.zeros(k, np.float32), np.linspace(0.2, 1.0, k).astype(np.float32)
+    vms = TrialMetrics(k, AST_BASE["num_classes"], dev)
+
+    def vm_step():
+        return fns["train"](st, vms, ls, ma, wave, labels)[2]
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    # --- a main path (one vmapped step): only these launches are counted -----------
+    _reset_launches()
+    loss = vm_step()
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    # ----------------------------------------------------------------------------------
+    require(counts == _counts(k1=1, k2f=depth, k2b=depth, k3f=depth * k, k3b=depth * k),
+            f"vmapped {name} step launches {counts}")
+    require(bool(torch.isfinite(loss).all()), f"vmapped {name} losses {loss}")
+    t0 = time.perf_counter()
+    for _ in range(VM_TIMED):
+        vm_step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / VM_TIMED
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    prof = bench.profile_calls(vm_step, n=1)
+    del fns, st, vms, model
+    torch.cuda.empty_cache()
+    return dict(step_s=step_s, peak=peak, prof=prof, counts=counts)
+
+
+def _kinds(prof: dict, key: str) -> dict:
+    return {kind: round(v, 1) for kind, v in prof["by_kind_ms"].items()} | {
+        "device": round(prof[key], 1)}
+
+
+def _vm_timed_rows(dev: torch.device, seed: int, card: str) -> None:
+    """One vmapped step timed (AST-Base bf16 at K 4 with per-trial dropout
+    as the study runs it, AST-Small at K 8 without; batch 16 a trial,
+    ``ln_fused``, per-trial mixup α), beside K sequential single-trial
+    steps of the bench's step at the same batch (dropout 0), timed once
+    after one warm-up, two of them profiled; the launches of a vmapped step
+    and of the single steps required."""
+    rng = np.random.default_rng(seed + 28)
+    wave = torch.from_numpy((rng.standard_normal((VM_BATCH, CLIP)) * 0.3)
+                            .astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, AST_BASE["num_classes"], VM_BATCH)).to(dev)
+    print("  model      K  dropout  vmapped ms  clips/s  peak GiB  busy  |  K single steps "
+          "ms  clips/s  peak GiB  busy", flush=True)
+    for name, k, dropout in (("ast", VM_K, True), ("ast_small", VM_SMALL_K, False)):
+        r = _vm_row(name, k, dropout, wave, labels, dev, seed)
+        depth = DEPTH   # AST-Base and AST-Small alike
+        step, state, ms, w, lab = bench.build(VM_BATCH, seed, dev, name, ln_fused=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        # --- a main path (K single-trial steps, the sequential runner's) -----------
+        _reset_launches()
+        state, ms, _, seq_s = bench.timed_steps(step, state, ms, w, lab, 1, k)
+        counts_seq = _launch_counts()
+        # ------------------------------------------------------------------------------
+        seq_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        seq_prof = bench.profile_steps(step, state, ms, w, lab)
+        n = 1 + k
+        require(counts_seq == _counts(k1=n, k2f=depth * n, k2b=depth * n, k3f=2 * depth * n,
+                                      k3b=depth * n), f"single {name} steps {counts_seq}")
+        del step, state, ms
+        torch.cuda.empty_cache()
+        vm_s = r["step_s"]
+        print(f"  {name:9s} {k:2d}  {'0..0.3' if dropout else '0':7s}  {vm_s * 1e3:10.2f}  "
+              f"{k * VM_BATCH / vm_s:7.2f}  {r['peak']:8.2f}  {r['prof']['busy_share']:.3f}  "
+              f"|  {seq_s * k * 1e3:17.2f}  {VM_BATCH / seq_s:7.2f}  {seq_peak:8.2f}  "
+              f"{seq_prof['busy_share']:.3f}  [{card}]", flush=True)
+        print(f"vmapped step {name}: K {k} x batch {VM_BATCH}, bf16, ln_fused, no remat, "
+              f"dropout {'0..0.3 per trial' if dropout else '0'}: {vm_s * 1e3:.3f} ms, "
+              f"{k * VM_BATCH / vm_s:.2f} clips/s over the trials, peak {r['peak']:.2f} GiB, "
+              f"busy {r['prof']['busy_share']:.3f}; launches a step {r['counts']}; {k} "
+              f"single steps (remat attn_res, dropout 0) {seq_s * k * 1e3:.3f} ms, "
+              f"{VM_BATCH / seq_s:.2f} clips/s, peak {seq_peak:.2f} GiB, busy "
+              f"{seq_prof['busy_share']:.3f}; ratio {seq_s * k / vm_s:.3f}  [{card}]",
+              flush=True)
+        print(f"  profiled device ms by kind: vmapped "
+              f"{_kinds(r['prof'], 'device_ms_per_call')}, {r['prof']['kernels_per_call']:.0f} "
+              f"kernels; top { {m: round(v, 2) for m, v in list(r['prof']['top_kernels_ms'].items())[:6]} }; "
+              f"one single step {_kinds(seq_prof, 'device_ms_per_step')}", flush=True)
+
+
+def _vm_folded_k2(dev: torch.device, gen: torch.Generator) -> None:
+    """K2f and K2b under vmap (the trials folded into the batch, one launch)
+    against one launch a trial at AST-Base's shape: equal."""
+    from torch.func import vmap
+
+    shape = (VM_K, VM_BATCH, HEADS, N_PAD, AST_BASE_WIDTH // HEADS)
+    q, k, v, do = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
+    out, lse = vmap(lambda a, b, c: attn_fast._mha_op(a, b, c, N_REAL))(q, k, v)
+    grads = vmap(lambda *t: attn_fast._mha_bwd_op(*t, N_REAL))(q, k, v, out, lse, do)
+    worst = 0.0
+    for i in range(VM_K):
+        o, l = attn_fast.fast_mha_forward(q[i], k[i], v[i], N_REAL)
+        g = attn_fast.fast_mha_backward(q[i], k[i], v[i], o, l, do[i], N_REAL)
+        pairs = [(out[i], o), (lse[i], l)] + [(a[i], b) for a, b in zip(grads, g)]
+        worst = max(worst, *(norm_err(a, b) for a, b in pairs))
+        require(all(torch.equal(a, b) for a, b in pairs) or worst <= 1e-6,
+                f"K2 folded over the trials differs from trial {i}'s own launch: {worst}")
+    print(f"vmapped K2: K {VM_K} x (B {VM_BATCH}, H {HEADS}, N {N_PAD}) bf16 in one K2f and "
+          f"one K2b launch against one a trial: largest normalised difference {worst:.3e} "
+          f"(equal or <= 1e-6)", flush=True)
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """``norm_err``, 0 where both are all zero."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def settled_entries(g: torch.Tensor) -> torch.Tensor:
+    """The entries of one parameter's gradient whose Adam first update,
+    lr · g / (|g| + eps), is set by the gradient and not by its rounding:
+    |g| at least 1e-3 of the parameter's largest and 1e3 · eps. An entry
+    whose gradient is a near-cancelling sum (the attention key bias's is 0
+    in exact arithmetic) moves by lr times the sign of its rounding."""
+    from dlsc_tpu_torch.hpo.vmapped import ADAM_EPS
+
+    a = g.abs()
+    return a >= max(1e-3 * float(a.max()), 1e3 * ADAM_EPS)
+
+
+def beyond_spacing(got: torch.Tensor, want: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """|got − want| less one f32 spacing of the parameter ``p`` (CPU
+    tensors), at least 0: the error of a parameter change, which is a
+    difference of two f32 values."""
+    return ((got - want).abs() - torch.from_numpy(np.spacing(p.abs().numpy()))).clamp_min(0)
+
+
+def _vm_parity(dev: torch.device, seed: int) -> None:
+    """One f32 vmapped step at K 2 (AST-Base widths, depth cut to 2,
+    ``ln_fused``, dropout off, SpecAugment and Mixup draws replayed) on the
+    card against each trial's step in plain ops on the CPU, normalised per
+    parameter: the loss; the trial's clipped + L2 gradient g through Adam's
+    moments after one step (0.1 g and 0.001 g²); the parameter change
+    against −lr · schedule · g / (|g| + eps) beyond one f32 spacing of the
+    parameter, on the ``settled_entries`` of g (the others counted and
+    printed); each trial's step count 1."""
+    from dlsc_tpu_torch.hpo.vmapped import (ADAM_B1, ADAM_B2, ADAM_EPS, TrialMetrics,
+                                            schedule_factor)
+
+    K, B = VM_PARITY_K, VM_PARITY_BATCH
+    cfg = dict(num_classes=AST_BASE["num_classes"], emb_dim=AST_BASE_WIDTH,
+               depth=VM_PARITY_DEPTH, num_heads=HEADS, patch_size=16, patch_stride=10,
+               overlap=6, ln_fused=True)
+    pipe = bench.bench_pipeline()
+    model = ASTViT(**cfg, generator=torch.Generator().manual_seed(seed))
+    fns, st = _vm_exec(model, pipe, K, dev, seed)
+    flat0 = st.flat.cpu().clone()
+    rng = np.random.default_rng(seed + 281)
+    wave = torch.from_numpy((rng.standard_normal((B, CLIP)) * 0.3).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, cfg["num_classes"], B))
+    draws = [pipe.draw(B, CLIP, np.random.default_rng(seed + i), alpha)
+             for i, alpha in enumerate((0.4, 2.0))]
+    ls, ma = np.asarray([0.0, 0.1], np.float32), np.asarray([0.4, 2.0], np.float32)
+    _, _, loss = fns["train"](st, TrialMetrics(K, cfg["num_classes"], dev), ls, ma,
+                              wave.to(dev), labels.to(dev), draws=draws, dropout_seed=0)
+    require(st.count.tolist() == [1] * K, f"vmapped parity step counts {st.count.tolist()}")
+    mu, nu, delta = st.mu.cpu(), st.nu.cpu(), st.flat.cpu() - flat0
+    hyper = {n: torch.tensor(v, dtype=torch.float32) for n, v in _vm_hyper(K, False).items()}
+    worst = dict(loss=0.0, grad=0.0, grad_sq=0.0, change=0.0)
+    left_out = 0
+    for i in range(K):
+        ref = ASTViT(**cfg)
+        off = 0
+        with torch.no_grad():
+            for (name, shape), p in zip(st.shapes, ref.parameters()):
+                n = int(np.prod(shape))
+                p.copy_(flat0[i, off:off + n].view(shape))
+                off += n
+        x, y = pipe.train_batch(wave, labels, draws[i])
+        y_s = y * (1 - ls[i]) + ls[i] / y.shape[-1]
+        ref_loss = CrossEntropyLoss()(ref.train()(x), y_s)
+        ref_loss.backward()
+        g = torch.cat([p.grad.reshape(-1) for p in ref.parameters()])
+        norm = g.double().square().sum().sqrt().float()   # f32 vector_norm drifts at 1e7 terms
+        g = g if norm < 1.0 else g / norm
+        g = g + hyper["wd"][i] * flat0[i]
+        lr = hyper["lr"][i] * schedule_factor(0, hyper["tm"][i], hyper["wu"][i])
+        upd = -lr * g / (g.abs() + ADAM_EPS)
+        worst["loss"] = max(worst["loss"], abs(float(loss[i]) - ref_loss.item())
+                            / abs(ref_loss.item()))
+        off = 0
+        for name, shape in st.shapes:
+            n = int(np.prod(shape))
+            sl = slice(off, off + n)
+            worst["grad"] = max(worst["grad"], _rel_err(mu[i, sl], (1 - ADAM_B1) * g[sl]))
+            worst["grad_sq"] = max(worst["grad_sq"],
+                                   _rel_err(nu[i, sl], (1 - ADAM_B2) * g[sl].square()))
+            keep = settled_entries(g[sl])
+            require(bool(keep.any()), f"vmapped parity: no settled gradient entry in {name}")
+            left_out += int((~keep).sum())
+            beyond = beyond_spacing(delta[i, sl], upd[sl], flat0[i, sl])[keep]
+            worst["change"] = max(worst["change"], float(beyond.max())
+                                  / float(upd[sl].abs().max().clamp_min(1e-30)))
+            off += n
+    print(f"vmapped parity: f32 K {K} x batch {B}, AST-Base widths at depth "
+          f"{VM_PARITY_DEPTH}, ln_fused, the draws replayed: card (kernels under vmap) vs "
+          f"CPU plain ops per trial: loss {worst['loss']:.3e}, clipped + L2 gradient "
+          f"{worst['grad']:.3e} (Adam's mu), its square {worst['grad_sq']:.3e} (nu), "
+          f"parameter change {worst['change']:.3e} beyond one f32 spacing on the settled "
+          f"entries ({left_out} of {K * flat0.shape[1]} left out: |g| below 1e-3 of the "
+          f"parameter's largest or 1e3 eps) (all <= {VM_PARITY_ERR})", flush=True)
+    require(max(worst.values()) <= VM_PARITY_ERR, f"vmapped parity {worst}")
+
+
+def lockstep_epochs(trials: list, k: int) -> int:
+    """The lockstep epochs that ``VmappedTrialRunner.run_continuous`` ran
+    for ``trials`` (in ask order) through ``k`` slots: each trial trains as
+    many epochs as it reported; a slot freed at the end of an epoch takes
+    the next trial (slots in index order), and the run ends with its last
+    busy slot."""
+    ends = [len(t.intermediate_values) for t in trials[:k]]
+    for t in trials[k:]:
+        i = min(range(k), key=lambda j: ends[j])
+        ends[i] += len(t.intermediate_values)
+    return max(ends)
+
+
+def phase_vmapped_hpo(dev: torch.device, seed: int, tmp: Path, card: str,
+                      gen: torch.Generator) -> dict:
+    """Phase 28: ``optimize_hyperparams model=ast +model.ln_fused=true
+    +optuna.vmapped.enabled=true`` on phase 18's shards (``tmp / "data"``):
+    AST-Base at full width and depth, bf16, K 4 slots recycled over 6 trials
+    of 2 epochs at batch 16, searching lr, weight decay, dropout, mixup α,
+    T_max and warmup; every trial COMPLETE or PRUNED with its own lr, the db
+    reloaded, the study's launches exact. Then the timed vmapped steps,
+    K2's folded launch against one a trial, and the card-vs-CPU parity.
+    Returns the study's launch counts."""
+    from dlsc_tpu_torch import hpo
+    from dlsc_tpu_torch.scripts import optimize_hyperparams
+
+    out, db = tmp / "hpo_vmapped", tmp / "hpo_vmapped" / "study.db"
+    per_fold = TRAINER_CLASSES * TRAINER_CLIPS
+    shapes = _trainer_shapes((TRAINER_FOLDS - 1) * per_fold, per_fold, VM_BATCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # --- the main path: only these launches are counted -------------------------
+    _reset_launches()
+    t0 = time.perf_counter()
+    study = optimize_hyperparams.main([
+        "model=ast", "+model.ln_fused=true", f"dataset.root={tmp / 'data'}",
+        "dataset.fold=0", "trainer.precision=bf16-mixed", f"batch_size={VM_BATCH}",
+        f"trainer.max_epochs={VM_EPOCHS}", f"seed={seed}", f"optuna.n_trials={VM_TRIALS}",
+        f"optuna.storage_path=sqlite:///{db}", f"optuna.output_dir={out}",
+        "optuna.study_name=ast_vmapped_card", "+optuna.vmapped.enabled=true",
+        f"+optuna.vmapped.k={VM_K}", "+optuna.vmapped.continuous=true",
+        f"+optuna.vmapped.spaces={VM_SPACES}"])
+    torch.cuda.synchronize()
+    study_s = time.perf_counter() - t0
+    counts = _launch_counts()
+    # ------------------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    trials = study.trials
+    states = {str(t.state) for t in trials}
+    require(len(trials) == VM_TRIALS and states <= {"COMPLETE", "PRUNED"},
+            f"vmapped study: {len(trials)} trials, states {[str(t.state) for t in trials]}")
+    require(len({t.params["optimizer.lr"] for t in trials}) == VM_TRIALS,
+            f"vmapped study lrs {[t.params['optimizer.lr'] for t in trials]}")
+    searched = {"optimizer.lr", "optimizer.weight_decay", "model.dropout",
+                "dataset.mixup_alpha", "scheduler.T_max", "scheduler.warmup_frac"}
+    require(all(searched <= set(t.params) and t.intermediate_values for t in trials),
+            f"vmapped study params {[sorted(t.params) for t in trials]}")
+    reloaded = hpo.Study("ast_vmapped_card", db, "maximize").trials
+    require([(t.params, str(t.state), t.value) for t in reloaded]
+            == [(t.params, str(t.state), t.value) for t in trials], "vmapped study db reload")
+    epochs = lockstep_epochs(trials, VM_K)
+    steps, evals = epochs * shapes["steps"], epochs * shapes["val_batches"]
+    want = _counts(k1=steps + evals, k2f=DEPTH * (steps + evals), k2b=DEPTH * steps,
+                   k3f=DEPTH * VM_K * (steps + evals), k3b=DEPTH * VM_K * steps)
+    require(counts == want, f"vmapped study launches {counts}, expected {want} for "
+            f"{epochs} lockstep epochs of {shapes['steps']} steps and "
+            f"{shapes['val_batches']} eval batches")
+    print(f"vmapped study: AST-Base bf16 ln_fused, {VM_TRIALS} trials through {VM_K} slots, "
+          f"{VM_EPOCHS} epochs a trial, batch {VM_BATCH} a trial: {epochs} lockstep epochs "
+          f"x {shapes['steps']} steps in {study_s:.2f} s, peak {peak:.2f} GiB; states "
+          f"{[str(t.state) for t in trials]}, values {[t.value for t in trials]}; launches "
+          f"{counts}  [{card}]", flush=True)
+    for t in trials:
+        print(f"  trial {t.number}: {t.state} {t.value} epochs {len(t.intermediate_values)} "
+              f"params { {k: round(v, 6) for k, v in t.params.items()} }", flush=True)
+    torch.cuda.empty_cache()
+    took = {"study": study_s}
+    for part, run in (("timed rows", lambda: _vm_timed_rows(dev, seed, card)),
+                      ("K2 folded", lambda: _vm_folded_k2(dev, gen)),
+                      ("parity", lambda: _vm_parity(dev, seed))):
+        t0 = time.perf_counter()
+        run()
+        took[part] = time.perf_counter() - t0
+    print(f"phase 28 parts: { {part: round(t, 1) for part, t in took.items()} } s", flush=True)
     return counts
 
 
@@ -3285,6 +3645,7 @@ def main() -> None:
         lowering_runs = _clock(26, phase_moe_lowerings, dev, seed, card,
                                moe_train_run["record"])
         hpo_run = _clock(27, phase_hpo, dev, seed, trainer_tmp, card)
+        vm_run = _clock(28, phase_vmapped_hpo, dev, seed, trainer_tmp, card, gen)
 
     # launches: the training runs' (ast_trainer, envnet_v2_trainer: the train
     # CLI's fit, its validation and its test); launches_serving: the serving runs';
@@ -3294,7 +3655,7 @@ def main() -> None:
                       ast_mini_train=mini_train, ast_trainer=trainer_run,
                       **{f"{k}_train": c for k, c in fam_train.items()},
                       envnet_v2_trainer=envnet_trainer, ast_remat_train=remat_runs,
-                      **lowering_runs, hpo_study=hpo_run)
+                      **lowering_runs, hpo_study=hpo_run, hpo_vmapped=vm_run)
     serve_runs = dict(ast_serve=serve, ast_moe_serve=moe_serve, ast_small_serve=small_serve,
                       ast_mini_serve=mini_serve, **{f"{k}_serve": c for k, c in fam_serve.items()},
                       ast_import_int8_serve=import_serve)

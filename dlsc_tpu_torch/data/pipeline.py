@@ -193,17 +193,33 @@ class DevicePipeline:
             return model(x.reshape(B * n, W)).reshape(B, n, -1).mean(dim=1)
         return model(x)
 
-    def draw(self, batch: int, num_samples: int, rng: np.random.Generator):
+    def draw(self, batch: int, num_samples: int, rng: np.random.Generator,
+             mixup_alpha: float | None = None):
         """The random vectors of one train batch of ``batch`` clips of
         ``num_samples`` samples, in the mode's form: ``TrainDraws`` (ast;
         SpecAugment's, then Mixup's when enabled), ``WaveDraws``
-        (envnet_v2), ``FlipDraws`` (cnn_esc50), None (raw)."""
+        (envnet_v2), ``FlipDraws`` (cnn_esc50), None (raw).
+        ``mixup_alpha`` overrides ``cfg.mixup_alpha`` for this call (a
+        trial's searched α, ``hpo/vmapped.py``), only with
+        ``enable_mixup``, and must be > 0: it cannot take the α <= 0 "mixup
+        off" escape, as a traced α cannot in ``dlsc_tpu/ops/augment.py``."""
         cfg = self.cfg
+        alpha = cfg.mixup_alpha
+        if mixup_alpha is not None:
+            if not cfg.enable_mixup:
+                raise ValueError(
+                    "mixup_alpha override given but enable_mixup=False on this "
+                    "pipeline — enable dataset.enable_mixup to search mixup_alpha")
+            if not mixup_alpha > 0:
+                raise ValueError(f"a searched mixup alpha must be > 0, got {mixup_alpha}: it "
+                                 "cannot take the alpha<=0 'mixup off' escape "
+                                 "(ops/augment.mixup)")
+            alpha = mixup_alpha
         if cfg.mode == "ast":
             spec = A.spec_augment_draws(batch, cfg.n_mels,
                                         cfg.mel_config().num_frames(num_samples),
                                         cfg.time_mask, cfg.freq_mask, rng)
-            mix = A.mixup_draws(batch, cfg.mixup_alpha, rng) if cfg.enable_mixup else None
+            mix = A.mixup_draws(batch, alpha, rng) if cfg.enable_mixup else None
             return TrainDraws(spec, mix)
         if cfg.mode == "envnet_v2":
             crop = A.crop_draws(batch, num_samples + 2 * cfg.padding_samples,
@@ -234,6 +250,16 @@ class DevicePipeline:
         elif cfg.mode == "cnn_esc50" and not isinstance(draws, A.FlipDraws):
             raise ValueError("cnn_esc50 takes FlipDraws: make them with this pipeline's draw()")
 
+    @staticmethod
+    def _ast_augment(feats: torch.Tensor, y: torch.Tensor, draws: TrainDraws
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """SpecAugment, then Mixup when drawn, of log-mel features."""
+        dev = feats.device
+        x = A.spec_augment(feats, draws.spec.to(dev))
+        if draws.mix is not None:
+            x, y = A.mixup(x, y, draws.mix.to(dev))
+        return x, y
+
     @torch.no_grad()
     def train_batch(self, wave: torch.Tensor, labels: torch.Tensor,
                     draws) -> tuple[torch.Tensor, torch.Tensor]:
@@ -245,10 +271,7 @@ class DevicePipeline:
         dev = wave.device
         y = A.one_hot(labels.to(dev), cfg.num_classes)
         if cfg.mode == "ast":
-            x = A.spec_augment(self.eval_batch(wave), draws.spec.to(dev))
-            if draws.mix is not None:
-                x, y = A.mixup(x, y, draws.mix.to(dev))
-            return x, y
+            return self._ast_augment(self.eval_batch(wave), y, draws)
         if cfg.mode == "envnet_v2":
             x = A.random_crop(self._padded(self._to_float(wave)), draws.crop,
                               cfg.window_samples)
@@ -262,6 +285,24 @@ class DevicePipeline:
         if cfg.mode == "cnn_esc50":
             return A.image_flip_translate(self._cnn_features(self._to_float(wave)), draws), y
         return self._to_float(wave), y
+
+    @torch.no_grad()
+    def train_batch_trials(self, wave: torch.Tensor, labels: torch.Tensor,
+                           draws: list) -> tuple[torch.Tensor, torch.Tensor]:
+        """One train batch per entry of ``draws`` (K trials' draws of one
+        shared wave batch), stacked: (inputs (K, B, ...), soft labels (K, B,
+        C)). Each is ``train_batch(wave, labels, draws[i])``; in ``ast``
+        mode the log-mel features, the same for every trial before
+        SpecAugment, are computed once (one K1 launch for the K trials)."""
+        if self.cfg.mode != "ast":
+            xs, ys = zip(*(self.train_batch(wave, labels, d) for d in draws))
+            return torch.stack(xs), torch.stack(ys)
+        for d in draws:
+            self._check_draws(d)
+        feats = self.eval_batch(wave)
+        y = A.one_hot(labels.to(wave.device), self.cfg.num_classes)
+        xs, ys = zip(*(self._ast_augment(feats, y, d) for d in draws))
+        return torch.stack(xs), torch.stack(ys)
 
 
 def _pair(v) -> tuple[float, float] | None:

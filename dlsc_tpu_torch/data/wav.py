@@ -3,9 +3,10 @@
 The port's copy of ``dlsc_tpu/data/wav.py``, re-homed so that the serving
 path imports no jax (``dlsc_tpu.data`` pulls jax in through its package
 ``__init__``). Same semantics: decode → mono mean → resample → peak
-normalize (``standardize``). The JAX package's optional C++ decoder
-(``dlsc_tpu/native``) is not ported (ROADMAP §1 M9a): ``standardize`` is its
-Python path, the one the JAX package falls back to.
+normalize (``standardize``). As there, ``standardize`` takes the C++ path
+(``dlsc_tpu_torch/native.py``, built from ``native/dlsc_native.cpp``) for a
+file when the library is available and this Python path otherwise, or for a
+stream.
 """
 
 from __future__ import annotations
@@ -81,7 +82,21 @@ def peak_normalize(data: np.ndarray, eps: float = 1e-9) -> np.ndarray:
     return data / peak if peak > eps else data
 
 
-def standardize(path: str | Path | BinaryIO, target_sr: int) -> np.ndarray:
-    """Full prep chain for one file: decode → mono → resample → peak-norm."""
+def standardize(path: str | Path | BinaryIO, target_sr: int,
+                prefer_native: bool = True) -> np.ndarray:
+    """Full prep chain for one file: decode → mono → resample → peak-norm.
+
+    Uses the C++ library (``dlsc_tpu_torch.native``) for a file path when
+    it is available, and the Python path when it is not, for a stream, or
+    where the library cannot parse the file (as ``dlsc_tpu/data/wav.py``
+    falls back)."""
+    if prefer_native and not hasattr(path, "read"):
+        from dlsc_tpu_torch import native
+
+        if native.available():
+            try:
+                return native.standardize(path, target_sr)
+            except OSError:
+                pass
     data, sr = read_wav(path)
     return peak_normalize(resample(to_mono(data), sr, target_sr)).astype(np.float32)

@@ -4,8 +4,8 @@ study persistence + config-space parsing + the trial runner.
 The port's copy of ``dlsc_tpu/hpo`` (its modules need no jax; the port
 imports nothing of the JAX package): the same sampler, pruners, SQLite
 schema and search spaces, with trials trained by the port's ``Trainer``
-(``runner.py``). ``vmapped.py``, K trials in one program, is not ported
-(ROADMAP M10b).
+(``runner.py``), or K trials a step in lockstep under ``torch.func.vmap``
+(``vmapped.py``).
 """
 
 from dlsc_tpu_torch.hpo.study import Study, StudyManager, Trial, TrialPruned, TrialState

@@ -147,12 +147,23 @@ def topk_routes(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor
     return torch.topk(gates, k, dim=-1, sorted=True)
 
 
-def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float | torch.Tensor,
+            gen: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout with masks from ``gen`` (no dropout when ``gen`` is
     None or ``rate`` is 0): kept entries are scaled by 1/(1 - rate). The
     uniform draws are f32 whatever x's dtype, so that a bf16 and an f32 run
-    with the same generator drop the same entries."""
-    if gen is None or rate == 0.0:
+    with the same generator drop the same entries. A tensor ``rate`` (a
+    trial's rate, ``HyperDropout`` of ``dlsc_tpu/models/vit.py``) always
+    draws, a rate of 0 keeping every entry, and rescales by 1/keep in x's
+    dtype."""
+    if gen is None:
+        return x
+    if isinstance(rate, torch.Tensor):
+        keep = 1.0 - rate
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        return torch.where(mask, x / keep.to(x.dtype), torch.zeros((), dtype=x.dtype,
+                                                                   device=x.device))
+    if rate == 0.0:
         return x
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
@@ -173,10 +184,15 @@ class _GatherRows(torch.autograd.Function):
     """xs[m] = x[tok[m]]. Backward: dx[t] = Σ_k g[inv[t, k]], the pairs past
     the kept rows (pads) reading an appended zero row."""
 
+    generate_vmap_rule = True   # torch.func (the vmapped HPO step)
+
     @staticmethod
-    def forward(ctx, x, tok, inv):
-        ctx.save_for_backward(inv)
+    def forward(x, tok, inv):
         return x[tok]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[2])
 
     @staticmethod
     def backward(ctx, g):
@@ -189,11 +205,16 @@ class _CombineRows(torch.autograd.Function):
     """y[t, k] = out[inv[t, k]], zero for the pairs past the kept rows.
     Backward: dout[m] = g[order[m]], the forward permutation."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, out, inv, order):
-        ctx.save_for_backward(order)
+    def forward(out, inv, order):
         ext = torch.cat([out, out.new_zeros((1, out.shape[1]))])
         return ext[inv.clamp(max=out.shape[0])]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[2])
 
     @staticmethod
     def backward(ctx, g):

@@ -250,8 +250,13 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
+    """fc1 → GELU → dropout → fc2 → dropout. With ``hyper`` the dropout
+    rate is the f32 buffer ``hyper_rate`` (``HyperDropout``,
+    ``dlsc_tpu/models/vit.py:582-615``): a trial's rate, which the vmapped
+    HPO step stacks per trial, read as a tensor (see ``moe.dropout``)."""
+
     def __init__(self, dim: int, ratio: float = 4.0, dropout: float = 0.0,
-                 quant: str | None = None):
+                 quant: str | None = None, hyper: bool = False):
         super().__init__()
         self.rate, self.quant = dropout, quant
         self.fc1 = nn.Linear(dim, int(dim * ratio))
@@ -259,12 +264,15 @@ class Mlp(nn.Module):
         if quant:
             _quant_buffers(self.fc1)
             _quant_buffers(self.fc2)
+        if hyper:
+            self.register_buffer("hyper_rate", torch.tensor(float(dropout)))
 
     def forward(self, x: torch.Tensor, gen: torch.Generator | None = None) -> torch.Tensor:
+        rate = getattr(self, "hyper_rate", self.rate)
         with remat_tag("fc1"):
             h = _linear(x, self.fc1, self.quant)
-        h = dropout(F.gelu(h), self.rate, gen)
-        return dropout(_linear(h, self.fc2, self.quant), self.rate, gen)
+        h = dropout(F.gelu(h), rate, gen)
+        return dropout(_linear(h, self.fc2, self.quant), rate, gen)
 
 
 class Block(nn.Module):
@@ -277,14 +285,14 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  dropout: float = 0.0, moe: MoeSpec | None = None, ln_fused: bool = False,
                  attn_impl: str = "splash", attn_dropout: float = 0.0,
-                 quant: str | None = None):
+                 quant: str | None = None, hyper_dropout: bool = False):
         super().__init__()
         self.ln_fused = ln_fused
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = Attention(dim, num_heads, attn_impl, attn_dropout, quant)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         if moe is None:
-            self.mlp = Mlp(dim, mlp_ratio, dropout, quant)
+            self.mlp = Mlp(dim, mlp_ratio, dropout, quant, hyper_dropout)
         else:
             self.moe = MoeMlp(dim, moe, mlp_ratio, dropout)
 
@@ -314,6 +322,10 @@ class ASTViT(nn.Module):
     ``dropout`` only in train mode. ``dropout`` defaults to 0, AST-Base's
     (the JAX ``ASTViT`` field defaults to 0.1; the model factories set it).
     ``ln_fused``, ``attn_impl`` and ``quant``: see the module docstring.
+    ``hyper_dropout`` (the vmapped HPO's per-trial dropout) gives each dense
+    block's MLP a ``hyper_rate`` buffer, its dropout rate as a tensor
+    (``Mlp``), which draws masks in train mode even at rate 0; off, nothing
+    changes.
     """
 
     def __init__(self, num_classes: int = 50, emb_dim: int = 384, depth: int = 12,
@@ -324,6 +336,7 @@ class ASTViT(nn.Module):
                  dropout: float = 0.0, moe: MoeSpec | dict | None = None,
                  ln_fused: bool = False, attn_impl: str = "splash",
                  attn_dropout: float = 0.0, quant: str | None = None,
+                 hyper_dropout: bool = False,
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -349,8 +362,10 @@ class ASTViT(nn.Module):
             dtype=dtype_name(dtype), remat=remat,
             remat_policy=remat_policy, dropout=dropout,
             moe=None if moe is None else dataclasses.asdict(moe), ln_fused=ln_fused,
-            attn_impl=attn_impl, attn_dropout=attn_dropout, quant=quant)
+            attn_impl=attn_impl, attn_dropout=attn_dropout, quant=quant,
+            hyper_dropout=hyper_dropout)
         self.dtype = dtype
+        self.hyper_dropout = hyper_dropout
         self.quant = quant
         self.dropout = dropout
         self.attn_dropout = attn_dropout
@@ -367,7 +382,8 @@ class ASTViT(nn.Module):
             self.pos_embed = nn.Parameter(torch.empty(1, 1 + num_patches, emb_dim))
             self.blocks = nn.ModuleList(
                 Block(emb_dim, num_heads, dropout=dropout, moe=moe, ln_fused=ln_fused,
-                      attn_impl=attn_impl, attn_dropout=attn_dropout, quant=quant)
+                      attn_impl=attn_impl, attn_dropout=attn_dropout, quant=quant,
+                      hyper_dropout=hyper_dropout)
                 for _ in range(depth))
             self.norm = nn.LayerNorm(emb_dim, eps=LN_EPS)
             self.head = nn.Linear(emb_dim, num_classes)
@@ -383,7 +399,8 @@ class ASTViT(nn.Module):
     def _init_weights(self, gen: torch.Generator | None) -> None:
         """Flax's inits: lecun-normal kernels (the experts' over their input
         axis, ``_expert_params``), zero biases, unit LN scales, zero CLS
-        token, truncated-normal(0.02) positions."""
+        token, truncated-normal(0.02) positions; a ``hyper_rate`` the
+        configured dropout."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 lecun_normal_(m.weight, m.in_features, gen)
@@ -400,6 +417,8 @@ class ASTViT(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, Mlp) and hasattr(m, "hyper_rate"):
+                m.hyper_rate.fill_(m.rate)
         self.cls_token.zero_()
         trunc_normal_(self.pos_embed, 0.02, gen)
 
@@ -443,7 +462,7 @@ class ASTViT(nn.Module):
         remat = self.remat and self.training and torch.is_grad_enabled()
         context_fn = _remat_context_fn(self.remat_policy)
         seed = None
-        if self.training and (self.dropout > 0 or self.attn_dropout > 0):
+        if self.training and (self.hyper_dropout or self.dropout > 0 or self.attn_dropout > 0):
             seed = (int(torch.randint(2**62, ())) if dropout_seed is None
                     else int(dropout_seed))
         aux, stats = 0.0, []

@@ -13,12 +13,17 @@ instead of recomputing the softmax's max and sum.
   CUDA tensors and take ``mha_forward_reference`` /
   ``mha_backward_reference`` for CPU tensors; they never fall back from one
   to the other.
-- ``fast_mha_lse`` is the differentiable op (``torch.library`` custom op
-  ``dlsc_tpu_torch::mha``): forward K2f, residuals (q, k, v, out, lse),
-  backward K2b. Being an op, it is visible to a selective-checkpoint
-  policy, which can keep its outputs so that a rematerialised block does
-  not run the forward kernel again (``models/vit.py``, ``attn_res``).
-  ``fast_mha`` returns its ``out`` alone.
+- ``fast_mha_lse`` is the differentiable attention: an ``autograd.Function``
+  whose forward is the ``torch.library`` custom op ``dlsc_tpu_torch::mha``
+  (K2f; residuals q, k, v, out, lse) and whose backward is the op
+  ``dlsc_tpu_torch::mha_bwd`` (K2b). The forward being an op, a
+  selective-checkpoint policy sees it and can keep its outputs so that a
+  rematerialised block does not run the forward kernel again
+  (``models/vit.py``, ``attn_res``). ``fast_mha`` returns its ``out`` alone.
+- Under ``torch.func.vmap`` (the vmapped HPO step, ``hpo/vmapped.py``) both
+  ops fold the trial axis into the batch: (K, B, H, N, dh) → (K·B, H, N,
+  dh), one launch of K2f and one of K2b for every trial; ``n_real`` is
+  shared by the trials.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import ctypes
 import torch
 
 from dlsc_tpu_torch import _kernels
+from dlsc_tpu_torch.ops.trials import aligned, trial_major
 
 HEAD_DIM = 64   # the kernel's head width
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -253,33 +259,87 @@ def fast_mha_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _fold(*ts: torch.Tensor) -> list[torch.Tensor]:
+    """(K, B, ...) → (K·B, ...): the trials as more batch rows."""
+    return [aligned(t.reshape(-1, *t.shape[2:])) for t in ts]
+
+
 @torch.library.custom_op("dlsc_tpu_torch::mha", mutates_args=())
-def fast_mha_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 n_real: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Differentiable masked attention: (out, lse), as ``fast_mha_forward``;
-    its backward is ``fast_mha_backward``. lse takes no gradient."""
+def _mha_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            n_real: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as an op: (out, lse), as ``fast_mha_forward``."""
     return fast_mha_forward(q, k, v, n_real)
 
 
-@fast_mha_lse.register_fake
+@_mha_op.register_fake
 def _(q, k, v, n_real):
     return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
-def _setup_context(ctx, inputs, output) -> None:
-    q, k, v, n_real = inputs
-    out, lse = output
-    ctx.save_for_backward(q, k, v, out, lse)
-    ctx.n_real = n_real
-    ctx.mark_non_differentiable(lse)
+@_mha_op.register_vmap
+def _(info, in_dims, q, k, v, n_real):
+    K = info.batch_size
+    q, k, v = trial_major(info, in_dims[:3], q, k, v)
+    out, lse = _mha_op(*_fold(q, k, v), n_real)
+    return (out.view(K, *q.shape[1:]), lse.view(K, *q.shape[1:4])), (0, 0)
 
 
-def _backward(ctx, dout, _dlse):
-    q, k, v, out, lse = ctx.saved_tensors
-    return (*fast_mha_backward(q, k, v, out, lse, dout, ctx.n_real), None)
+@torch.library.custom_op("dlsc_tpu_torch::mha_bwd", mutates_args=())
+def _mha_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                lse: torch.Tensor, do: torch.Tensor,
+                n_real: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward as an op: (dq, dk, dv), as ``fast_mha_backward``."""
+    return fast_mha_backward(q, k, v, out, lse, do, n_real)
 
 
-fast_mha_lse.register_autograd(_backward, setup_context=_setup_context)
+@_mha_bwd_op.register_fake
+def _(q, k, v, out, lse, do, n_real):
+    return torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+
+
+@_mha_bwd_op.register_vmap
+def _(info, in_dims, q, k, v, out, lse, do, n_real):
+    K = info.batch_size
+    ts = trial_major(info, in_dims[:6], q, k, v, out, lse, do)
+    grads = _mha_bwd_op(*_fold(*ts), n_real)
+    return tuple(g.view(K, *ts[0].shape[1:]) for g in grads), (0, 0, 0)
+
+
+class _Mha(torch.autograd.Function):
+    """forward ``dlsc_tpu_torch::mha``, backward ``dlsc_tpu_torch::mha_bwd``.
+    An ``autograd.Function`` with ``setup_context`` and a generated vmap
+    rule composes with ``torch.func`` (``vmap(grad_and_value(...))``, the
+    vmapped HPO step), where a custom op's ``register_autograd`` does not;
+    under vmap each op's own rule folds the trials into the batch, so one
+    launch serves every trial."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(q, k, v, n_real):
+        return _mha_op(q, k, v, n_real)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, n_real = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.n_real = n_real
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        with torch.no_grad():
+            dq, dk, dv = _mha_bwd_op(q, k, v, out, lse, dout, ctx.n_real)
+        return dq, dk, dv, None
+
+
+def fast_mha_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 n_real: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable masked attention: (out, lse), as ``fast_mha_forward``;
+    its backward is ``fast_mha_backward``. lse takes no gradient."""
+    return _Mha.apply(q, k, v, n_real)
 
 
 def fast_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_real: int) -> torch.Tensor:

@@ -22,11 +22,15 @@ moves it to the host.
 Both launch their kernel for CUDA tensors (bf16 or f32) and run their plain
 version, ``gmm_reference`` / ``tgmm_reference``, for CPU tensors; they never
 fall back from one to the other. ``grouped_matmul`` is the differentiable
-op (``torch.library`` custom op ``dlsc_tpu_torch::gmm``): forward ``gmm``;
-backward dlhs = ``gmm(grad, rhs, transpose_rhs=True)`` and drhs =
-``tgmm(lhs, grad)``, as megablox computes them. Being an op, a
-selective-checkpoint policy sees it (``models/vit.py`` recomputes it under
-``attn_res``).
+product: an ``autograd.Function`` whose forward is the ``torch.library``
+custom op ``dlsc_tpu_torch::gmm`` (``gmm``) and whose backward is the op
+``dlsc_tpu_torch::gmm_bwd``: dlhs = ``gmm(grad, rhs, transpose_rhs=True)``
+and drhs = ``tgmm(lhs, grad)``, as megablox computes them. The forward
+being an op, a selective-checkpoint policy sees it (``models/vit.py``
+recomputes it under ``attn_res``). Under ``torch.func.vmap`` (the vmapped
+HPO step) both fold K trials' E experts into K·E groups, their rows stacked
+trial-major: one launch of each kernel for every trial (the bf16 kernels'
+group table holds ``GMM_MAX_GROUPS``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import ctypes
 import torch
 
 from dlsc_tpu_torch import _kernels
+from dlsc_tpu_torch.ops.trials import aligned, trial_major
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # K4a bf16 (csrc/gmm.cu, which uses the same numbers): an output tile's rows
@@ -335,29 +340,87 @@ def tgmm(lhs: torch.Tensor, grad: torch.Tensor, group_sizes: torch.Tensor) -> to
     return out
 
 
+def _fold_groups(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor):
+    """K trials' problems as one: their rows stacked trial-major (each
+    trial's sorted by its groups, so group e of trial i is group i·E + e),
+    their E experts as K·E groups."""
+    return tuple(aligned(t) for t in (lhs.reshape(-1, lhs.shape[-1]),
+                                       rhs.reshape(-1, *rhs.shape[2:]), group_sizes.reshape(-1)))
+
+
 @torch.library.custom_op("dlsc_tpu_torch::gmm", mutates_args=())
-def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
-                   group_sizes: torch.Tensor) -> torch.Tensor:
-    """Differentiable grouped product ``gmm(lhs, rhs, group_sizes)``; its
-    backward is K4a with the transposed rhs (dlhs) and K4b (drhs)."""
+def _gmm_op(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """The forward as an op: ``gmm(lhs, rhs, group_sizes)``."""
     return gmm(lhs, rhs, group_sizes)
 
 
-@grouped_matmul.register_fake
+@_gmm_op.register_fake
 def _(lhs, rhs, group_sizes):
     return lhs.new_empty((lhs.shape[0], rhs.shape[2]))
 
 
-def _setup_context(ctx, inputs, output) -> None:
-    ctx.save_for_backward(*inputs)
+@_gmm_op.register_vmap
+def _(info, in_dims, lhs, rhs, group_sizes):
+    lhs, rhs, group_sizes = trial_major(info, in_dims, lhs, rhs, group_sizes)
+    out = _gmm_op(*_fold_groups(lhs, rhs, group_sizes))
+    return out.view(info.batch_size, lhs.shape[1], -1), 0
 
 
-def _backward(ctx, grad):
-    lhs, rhs, group_sizes = ctx.saved_tensors
+@torch.library.custom_op("dlsc_tpu_torch::gmm_bwd", mutates_args=())
+def _gmm_bwd_op(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
+                grad: torch.Tensor, need_dlhs: bool,
+                need_drhs: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward as an op: (dlhs = K4a with the transposed rhs, drhs =
+    K4b), each an empty tensor where its ``need_*`` is False."""
     grad = grad.contiguous()
-    dlhs = gmm(grad, rhs, group_sizes, transpose_rhs=True) if ctx.needs_input_grad[0] else None
-    drhs = tgmm(lhs, grad, group_sizes).to(rhs.dtype) if ctx.needs_input_grad[1] else None
-    return dlhs, drhs, None
+    dlhs = gmm(grad, rhs, group_sizes, transpose_rhs=True) if need_dlhs else grad.new_empty(0)
+    drhs = tgmm(lhs, grad, group_sizes).to(rhs.dtype) if need_drhs else rhs.new_empty(0)
+    return dlhs, drhs
 
 
-grouped_matmul.register_autograd(_backward, setup_context=_setup_context)
+@_gmm_bwd_op.register_fake
+def _(lhs, rhs, group_sizes, grad, need_dlhs, need_drhs):
+    return (torch.empty_like(lhs) if need_dlhs else grad.new_empty(0),
+            torch.empty_like(rhs) if need_drhs else rhs.new_empty(0))
+
+
+@_gmm_bwd_op.register_vmap
+def _(info, in_dims, lhs, rhs, group_sizes, grad, need_dlhs, need_drhs):
+    K = info.batch_size
+    lhs, rhs, group_sizes, grad = trial_major(info, in_dims[:4], lhs, rhs, group_sizes, grad)
+    flhs, frhs, fgs = _fold_groups(lhs, rhs, group_sizes)
+    dlhs, drhs = _gmm_bwd_op(flhs, frhs, fgs, grad.reshape(-1, grad.shape[-1]),
+                             need_dlhs, need_drhs)
+    return ((dlhs.view(K, *lhs.shape[1:]) if need_dlhs else dlhs,
+             drhs.view(K, *rhs.shape[1:]) if need_drhs else drhs),
+            (0 if need_dlhs else None, 0 if need_drhs else None))
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """forward ``dlsc_tpu_torch::gmm``, backward ``dlsc_tpu_torch::gmm_bwd``;
+    composes with ``torch.func`` (see ``ops/attn_fast.py`` ``_Mha``)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(lhs, rhs, group_sizes):
+        return _gmm_op(lhs, rhs, group_sizes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lhs, rhs, group_sizes = ctx.saved_tensors
+        need_dlhs, need_drhs = ctx.needs_input_grad[:2]
+        with torch.no_grad():
+            dlhs, drhs = _gmm_bwd_op(lhs, rhs, group_sizes, grad, need_dlhs, need_drhs)
+        return dlhs if need_dlhs else None, drhs if need_drhs else None, None
+
+
+def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
+                   group_sizes: torch.Tensor) -> torch.Tensor:
+    """Differentiable grouped product ``gmm(lhs, rhs, group_sizes)``; its
+    backward is K4a with the transposed rhs (dlhs) and K4b (drhs)."""
+    return _GroupedMatmul.apply(lhs, rhs, group_sizes)

@@ -28,11 +28,18 @@ computes the same plan and refuses any other launch.
   kernels for CUDA tensors and run ``add_ln_reference`` /
   ``add_ln_backward_reference`` for CPU tensors; they never fall back from
   one to the other.
-- ``add_ln`` is the differentiable op (``torch.library`` custom op
-  ``dlsc_tpu_torch::add_ln``): (r, y, mu, rsig), forward K3f, backward K3b;
-  mu and rsig take no gradient. Being an op, a selective-checkpoint policy
-  sees it as one call: remat ``attn_res`` does not keep its outputs, so a
-  rematerialised block runs K3f again, as the JAX policy reruns the kernel.
+- ``add_ln`` is the differentiable add + LN: an ``autograd.Function`` whose
+  forward is the ``torch.library`` custom op ``dlsc_tpu_torch::add_ln``
+  ((r, y, mu, rsig), K3f) and whose backward is the op
+  ``dlsc_tpu_torch::add_ln_bwd`` (K3b); mu and rsig take no gradient. A
+  selective-checkpoint policy sees the forward as one call: remat
+  ``attn_res`` does not keep its outputs, so a rematerialised block runs K3f
+  again, as the JAX policy reruns the kernel.
+- Under ``torch.func.vmap`` (the vmapped HPO step): with gamma and beta
+  shared by the trials the forward takes every trial's rows in one launch;
+  with per-trial gamma and beta, (K, d), it launches once a trial, and so
+  does the backward always, whose dgamma and dbeta are sums over one
+  trial's rows ((K, d) out).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import ctypes
 import torch
 
 from dlsc_tpu_torch import _kernels
+from dlsc_tpu_torch.ops.trials import aligned, trial_major
 
 EPS = 1e-6          # the LayerNorm epsilon of the ViT blocks
 MAX_D = 1024
@@ -252,30 +260,79 @@ def fused_add_ln_backward(r: torch.Tensor, mu: torch.Tensor, rsig: torch.Tensor,
 
 
 @torch.library.custom_op("dlsc_tpu_torch::add_ln", mutates_args=())
-def add_ln(x: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
-           bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Differentiable fused add + LayerNorm: (r, y, mu, rsig), as
-    ``fused_add_ln_forward``; its backward is ``fused_add_ln_backward``."""
+def _add_ln_op(x: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """The forward as an op: (r, y, mu, rsig), as ``fused_add_ln_forward``."""
     return fused_add_ln_forward(x, delta, weight, bias)
 
 
-@add_ln.register_fake
+@_add_ln_op.register_fake
 def _(x, delta, weight, bias):
     stats = x.new_empty(x.shape[:-1], dtype=torch.float32)
     return torch.empty_like(x), torch.empty_like(x), stats, torch.empty_like(stats)
 
 
-def _setup_context(ctx, inputs, output) -> None:
-    _, _, weight, _ = inputs
-    r, _, mu, rsig = output
-    ctx.save_for_backward(r, mu, rsig, weight)
-    ctx.mark_non_differentiable(mu, rsig)
+@_add_ln_op.register_vmap
+def _(info, in_dims, x, delta, weight, bias):
+    x, delta = trial_major(info, in_dims[:2], x, delta)
+    if in_dims[2] is None and in_dims[3] is None:   # shared gamma, beta: one launch
+        return _add_ln_op(x, delta, weight, bias), (0, 0, 0, 0)
+    weight, bias = (aligned(t) for t in trial_major(info, in_dims[2:], weight, bias))
+    outs = [_add_ln_op(x[i], delta[i], weight[i], bias[i]) for i in range(info.batch_size)]
+    return tuple(torch.stack(o) for o in zip(*outs)), (0, 0, 0, 0)
 
 
-def _backward(ctx, dr, dy, _dmu, _drsig):
-    r, mu, rsig, weight = ctx.saved_tensors
-    dx, dgamma, dbeta = fused_add_ln_backward(r, mu, rsig, weight, dr, dy)
-    return dx, dx, dgamma, dbeta
+@torch.library.custom_op("dlsc_tpu_torch::add_ln_bwd", mutates_args=())
+def _add_ln_bwd_op(r: torch.Tensor, mu: torch.Tensor, rsig: torch.Tensor,
+                   weight: torch.Tensor, dr: torch.Tensor,
+                   dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward as an op: (dx, dgamma, dbeta), as ``fused_add_ln_backward``."""
+    return fused_add_ln_backward(r, mu, rsig, weight, dr, dy)
 
 
-add_ln.register_autograd(_backward, setup_context=_setup_context)
+@_add_ln_bwd_op.register_fake
+def _(r, mu, rsig, weight, dr, dy):
+    return torch.empty_like(r), torch.empty_like(weight), torch.empty_like(weight)
+
+
+@_add_ln_bwd_op.register_vmap
+def _(info, in_dims, r, mu, rsig, weight, dr, dy):
+    # dgamma and dbeta are sums over one trial's rows: one launch a trial
+    ts = trial_major(info, in_dims, r, mu, rsig, weight, dr, dy)
+    ts[3] = aligned(ts[3])   # each trial's gamma on 16 bytes
+    outs = [_add_ln_bwd_op(*(t[i] for t in ts)) for i in range(info.batch_size)]
+    return tuple(torch.stack(o) for o in zip(*outs)), (0, 0, 0)
+
+
+class _AddLn(torch.autograd.Function):
+    """forward ``dlsc_tpu_torch::add_ln``, backward
+    ``dlsc_tpu_torch::add_ln_bwd``; composes with ``torch.func`` (see
+    ``ops/attn_fast.py`` ``_Mha``)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, delta, weight, bias):
+        return _add_ln_op(x, delta, weight, bias)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, _, weight, _ = inputs
+        r, _, mu, rsig = output
+        ctx.save_for_backward(r, mu, rsig, weight)
+        ctx.mark_non_differentiable(mu, rsig)
+
+    @staticmethod
+    def backward(ctx, dr, dy, _dmu, _drsig):
+        r, mu, rsig, weight = ctx.saved_tensors
+        with torch.no_grad():
+            dx, dgamma, dbeta = _add_ln_bwd_op(r, mu, rsig, weight, dr, dy)
+        return dx, dx, dgamma, dbeta
+
+
+def add_ln(x: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Differentiable fused add + LayerNorm: (r, y, mu, rsig), as
+    ``fused_add_ln_forward``; its backward is ``fused_add_ln_backward``."""
+    return _AddLn.apply(x, delta, weight, bias)

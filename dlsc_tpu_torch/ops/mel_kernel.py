@@ -51,10 +51,10 @@ def _lib() -> ctypes.CDLL:
 
 def _check_config(cfg: M.MelConfig) -> None:
     if (cfg.n_fft not in _N_FFTS or not 1 <= cfg.win_length <= cfg.n_fft
-            or cfg.hop_length < 1 or cfg.n_mels != _N_MELS):
+            or cfg.hop_length < 1 or cfg.n_mels != _N_MELS or cfg.power != 2.0):
         raise ValueError(
             f"mel_power: the kernel takes n_fft in {_N_FFTS}, 1 <= win_length <= n_fft, "
-            f"hop_length >= 1 and n_mels {_N_MELS}; got {cfg}")
+            f"hop_length >= 1, n_mels {_N_MELS} and power 2; got {cfg}")
 
 
 def _fft_passes(nc: int) -> list[int]:

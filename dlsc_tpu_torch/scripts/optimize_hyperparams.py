@@ -23,8 +23,16 @@ loads in the other), each trial trained and tested by the port's
 ``<optuna.output_dir>/<optuna.best_config_path>``. A failed trial is
 recorded FAIL and the sweep goes on, as in the JAX package.
 ``trainer.accelerator`` 'auto' trains on the GPU and fails without one.
-``optuna.vmapped.enabled=true`` (K trials in one program, ``hpo/vmapped.py``)
-is not ported and raises (ROADMAP M10b).
+
+``+optuna.vmapped.enabled=true`` trains K trials in lockstep, each step one
+``torch.func.vmap`` over the trials (``hpo/vmapped.py``; ``run_vmapped``),
+with the JAX script's keys: ``optuna.vmapped.k`` (8), ``rounds``,
+``continuous`` (slot recycling, the default) and ``spaces`` (the searched
+ranges by name, e.g. ``'+optuna.vmapped.spaces={model.dropout: {low: 0.0,
+high: 0.5}}'``; the port also reads ``scheduler.T_max`` and
+``scheduler.warmup_frac`` there). ``optuna.vmapped.mesh=true`` shards the
+trials over several GPUs, which waits for the multi-GPU port (ROADMAP M12):
+with more than one visible GPU it raises; with one it runs as without.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from pathlib import Path
 from typing import Callable, Sequence
 
 from dlsc_tpu_torch.config import compose
-from dlsc_tpu_torch.hpo import HyperparameterSpace, StudyManager
+from dlsc_tpu_torch.hpo import HyperparameterSpace, Study, StudyManager
 from dlsc_tpu_torch.hpo.runner import HPORunner
 from dlsc_tpu_torch.scripts.train import CONFIG_DIR, fix_seed, parse_cli
 from dlsc_tpu_torch.tracking import Tracker
@@ -64,6 +72,60 @@ def build_runner(cfg, trainer_overrides: dict | None = None) -> HPORunner:
     )
 
 
+def run_vmapped(cfg) -> Study:
+    """K lockstep trials a step (``hpo/vmapped.py``), as the JAX script's
+    ``run_vmapped``; returns the study."""
+    import torch
+
+    from dlsc_tpu_torch.hpo.vmapped import VmappedTrialRunner
+    from dlsc_tpu_torch.scripts.train import build_datamodule
+    from dlsc_tpu_torch.train.loop import build_from_cfg, resolve_device
+
+    optuna_cfg = cfg.optuna.to_dict()
+    vm = optuna_cfg.get("vmapped", {})
+    k = int(vm.get("k", 8))
+    rounds = int(vm.get("rounds", max(optuna_cfg.get("n_trials", 16) // k, 1)))
+    device = resolve_device(cfg.select("trainer.accelerator", default="auto"))
+    if vm.get("mesh", False) and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            "optuna.vmapped.mesh=true shards the trials over several GPUs, which waits for "
+            "the multi-GPU port (ROADMAP §1 M12); run on one GPU (CUDA_VISIBLE_DEVICES) "
+            "or drop it")
+
+    datamodule = build_datamodule(cfg)
+    built = build_from_cfg(cfg, datamodule.pipeline.cfg)
+    study = StudyManager.from_config(optuna_cfg).create_study(load_if_exists=True)
+    sp = vm.get("spaces", {})
+    runner = VmappedTrialRunner(
+        study, built["model"], datamodule.pipeline, datamodule,
+        epochs=int(cfg.select("trainer.max_epochs", default=10)),
+        lr_space=sp.get("optimizer.lr"),
+        wd_space=sp.get("optimizer.weight_decay"),
+        ls_space=sp.get("loss.label_smoothing"),
+        do_space=sp.get("model.dropout"),
+        ma_space=sp.get("dataset.mixup_alpha"),
+        tmax_space=sp.get("scheduler.T_max"),
+        wu_space=sp.get("scheduler.warmup_frac"),
+        gradient_clip_val=cfg.select("trainer.gradient_clip_val", default=1.0),
+        min_epochs=int(optuna_cfg.get("min_epochs", 0)),
+        seed=int(cfg.select("seed", default=42)),
+        device=device,
+    )
+    if vm.get("continuous", True):
+        # slot recycling: pruned/finished slots refill with fresh suggestions
+        total = int(optuna_cfg.get("n_trials", k * rounds))
+        finished = runner.run_continuous(k=k, total_trials=total)
+        print(f"[vmapped continuous] processed {len(finished)} trials "
+              f"through {k} slots")
+    else:
+        for r in range(rounds):
+            result = runner.run_batch(k=k)
+            print(f"[vmapped round {r}] trials {result.trial_numbers} "
+                  f"values {['%.4f' % v for v in result.values]}")
+    print(study.summary())
+    return study
+
+
 def compose_cli(argv: list[str]):
     """The optimization config (``configs/optimization.yaml`` unless
     ``--config-name`` names another) with the CLI's overrides, seeded."""
@@ -72,17 +134,16 @@ def compose_cli(argv: list[str]):
         config_name = "optimization"
     cfg = compose(config_path, config_name, overrides)
     fix_seed(int(cfg.select("seed", default=42)))
-    if cfg.select("optuna.vmapped.enabled", default=False):
-        raise NotImplementedError(
-            "optuna.vmapped.enabled=true (K trials in one program, hpo/vmapped.py) is not "
-            "ported yet (ROADMAP §1 M10b); drop it to run the trials one after another")
     return cfg, overrides
 
 
-def main(argv: list[str] | None = None,
-         callbacks: Sequence[Callable] = ()) -> HPORunner:
-    """Run the study; ``callbacks`` (study, trial) are called after each trial."""
+def main(argv: list[str] | None = None, callbacks: Sequence[Callable] = ()) -> Study:
+    """Run the study and return it: trial by trial through the
+    ``HPORunner`` (``callbacks`` (study, trial) are called after each
+    trial), or with ``optuna.vmapped.enabled`` through ``run_vmapped``."""
     cfg, _ = compose_cli(list(argv if argv is not None else sys.argv[1:]))
+    if cfg.select("optuna.vmapped.enabled", default=False):
+        return run_vmapped(cfg)
     runner = build_runner(cfg)
     print(f"search space ({len(runner.space)} params): {runner.space.names()}")
     runner.optimize(callbacks)
@@ -95,7 +156,7 @@ def main(argv: list[str] | None = None,
         Path(cfg.select("optuna.output_dir", default="outputs/optimization"))
         / cfg.select("optuna.best_config_path", default="best_config.yaml"))
     print(f"best config → {best_path}")
-    return runner
+    return runner.study
 
 
 if __name__ == "__main__":

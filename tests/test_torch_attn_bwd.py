@@ -119,9 +119,14 @@ def test_fast_mha_gradients_on_cpu():
 
 
 def test_fast_mha_opcheck():
-    q, k, v, _ = _inputs(seed=4, b=1, n=128)
-    args = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)] + [100]
-    torch.library.opcheck(A.fast_mha_lse, args)
+    """``fast_mha_lse`` is an ``autograd.Function`` over two custom ops: the
+    forward ``dlsc_tpu_torch::mha`` and the backward
+    ``dlsc_tpu_torch::mha_bwd``; each passes ``opcheck``."""
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(seed=4, b=1, n=128))
+    torch.library.opcheck(torch.ops.dlsc_tpu_torch.mha.default, [q, k, v, 100])
+    out, lse = A.mha_forward_reference(q, k, v, 100)
+    torch.library.opcheck(torch.ops.dlsc_tpu_torch.mha_bwd.default,
+                          [q, k, v, out, lse, do, 100])
 
 
 def test_backward_rejects_bad_arguments():

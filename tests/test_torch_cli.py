@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import dlsc_tpu.native
+import dlsc_tpu_torch.native
 import scripts.predict as jax_predict
 from dlsc_tpu.data.pipeline import DevicePipeline as JaxPipeline
 from dlsc_tpu.data.pipeline import PipelineConfig as JaxPipelineConfig
@@ -179,6 +180,7 @@ def test_windows_equal_jax(n, clip, mode):
 
 def test_file_windows_and_average_equal_jax(tmp_path, monkeypatch):
     monkeypatch.setattr(dlsc_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(dlsc_tpu_torch.native, "available", lambda: False)
     files = _wavs(tmp_path)
     got, counts = predict._file_windows(files, 44_100, 44_100, "avg")
     want, jcounts = jax_predict._file_windows(files, 44_100, 44_100, "avg")
@@ -194,6 +196,7 @@ def test_predict_artifact_matches_jax(tmp_path, monkeypatch):
     ``predict_from_artifact``, the port's (exported by its CLI from an
     ``.npz`` of those params) through ``predict +artifact``."""
     monkeypatch.setattr(dlsc_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(dlsc_tpu_torch.native, "available", lambda: False)
     small = dict(num_classes=C_, emb_dim=64, depth=2, num_heads=2)
     jpipe = JaxPipeline(JaxPipelineConfig(mode="ast", num_classes=C_))
     jmodel = JaxASTModel(**small, dtype=jnp.float32, remat=False)

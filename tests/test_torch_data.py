@@ -18,6 +18,7 @@ import pytest
 from sklearn.model_selection import StratifiedShuffleSplit
 
 import dlsc_tpu.native
+import dlsc_tpu_torch.native
 from dlsc_tpu.data import datamodule as JD
 from dlsc_tpu.data import prepare as JP
 from dlsc_tpu.data import synthetic as JS
@@ -94,9 +95,11 @@ def _fake_raw_tree(root: Path, kind: str) -> None:
 
 @pytest.mark.parametrize("kind", ["esc50", "us8k"])
 def test_prepare_bytes_equal_jax(kind, tmp_path, monkeypatch):
-    """The port's prepare against the JAX one on the JAX package's Python
-    decoder (the port does not carry its optional C++ one)."""
+    """The port's prepare against the JAX one, both on their Python decoder
+    (both packages' C++ one is held to each other in
+    ``tests/test_torch_small_clis.py``)."""
     monkeypatch.setattr(dlsc_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(dlsc_tpu_torch.native, "available", lambda: False)
     raw = tmp_path / "raw"
     _fake_raw_tree(raw, kind)
     if kind == "esc50":

@@ -13,7 +13,8 @@
 - The three CLIs on a temp tree: ``optimize_hyperparams`` and
   ``debug_optimize`` with ``model=ast_moe``, ``analyze_study`` (its summary
   JSON and CSV for one db equal the JAX script's), ``optuna.vmapped``
-  raising; the six HPO ``_target_`` names resolving into the port.
+  running two lockstep trials (``debug_optimize`` ignoring the flag, as the
+  JAX script does); the six HPO ``_target_`` names resolving into the port.
 """
 
 import json
@@ -201,8 +202,8 @@ def test_the_three_clis(shards, tmp_path, capsys):
         "model:\n  router: {type: categorical, choices: [expert]}\n"
         "  capacity_factor: {type: float, low: 1.0, high: 2.0}\n")
     common = _tiny(shards, tmp_path, f"optuna.spaces_dir={spaces}", "optuna.n_trials=1")
-    runner = optimize_hyperparams.main(common)
-    (trial,) = runner.study.trials
+    study = optimize_hyperparams.main(common)
+    (trial,) = study.trials
     assert trial.state == hpo.TrialState.COMPLETE and trial.params["model.router"] == "expert"
     best = yaml.safe_load((tmp_path / "out" / "best_config.yaml").read_text())
     assert best["params"] == trial.params
@@ -213,10 +214,16 @@ def test_the_three_clis(shards, tmp_path, capsys):
                         "--out", str(tmp_path / "an"), "--csv", "--no-plots"])
     assert "best trial #0" in capsys.readouterr().out
     assert (tmp_path / "an" / "optuna_leaf_esc50_summary.json").exists()
-    with pytest.raises(NotImplementedError, match="M10b"):
-        optimize_hyperparams.main([*common, "+optuna.vmapped.enabled=true"])
-    with pytest.raises(NotImplementedError, match="M10b"):
-        debug_optimize.main([*common, "+optuna.vmapped.enabled=true"])
+    # optuna.vmapped: K lockstep trials (hpo/vmapped.py); debug_optimize runs
+    # the sequential sweep whatever the flag, as the JAX script does
+    vm = optimize_hyperparams.main([*common[:-1], "optuna.n_trials=2",
+                                    "optuna.study_name=vmapped", "+optuna.vmapped.enabled=true",
+                                    "+optuna.vmapped.k=2"])
+    assert len(vm.trials) == 2 and {t.state for t in vm.trials} <= {
+        hpo.TrialState.COMPLETE, hpo.TrialState.PRUNED}
+    debug = debug_optimize.main([*common, "optuna.study_name=debug_vmapped",
+                                 "+optuna.vmapped.enabled=true"])
+    assert [t.state for t in debug.study.trials] == [hpo.TrialState.COMPLETE]
 
 
 def test_startup_trials_of_the_card_study_take_both_routers(tmp_path):

@@ -21,7 +21,15 @@ in both types (both round one f32 sum), y, dx, dgamma and dbeta 1e-5
 normalised in f32 (summation order only) and 1e-2 in bf16 (the outputs
 stored in bf16), two K3b calls bit-identical, no K3 kernel spilling, and a
 K3b launch other than ``_bwd_plan``'s refused; the small AST-Small train step with ``ln_fused`` through
-K2 and K3 vs plain ops 1e-4, as the AST step.
+K2 and K3 vs plain ops 1e-4, as the AST step. The vmap rules (the vmapped
+HPO step): K2f and K2b fold K trials into one launch, each trial's
+gradients within 1e-6 normalised of its own launch's (independent (b, h)
+problems: equal in practice); K3 with per-trial gamma launches once a
+trial, bit-equal to per-trial calls; K4a/K4b fold K trials' experts into
+K·E groups, one launch each, against per-trial launches f32 1e-5 and bf16
+1e-2 (K4b's row slices follow the folded rows); one vmapped runner step of
+a small AST-Small with ``ln_fused`` launches K1 once, K2 once a block and
+K3 once a block and trial.
 """
 
 import re
@@ -623,3 +631,108 @@ def test_small_ast_small_ln_fused_train_step_matches_plain(cuda_device):
             assert _norm_err(a, b) <= 1e-4
         else:
             assert (a == 0).all()
+
+
+# ---- the vmap rules: K trials in one launch (the vmapped HPO step) ---------------
+
+def _vmapped_vs_per_trial(f, batched):
+    """(vmap(grad_and_value(f)) over the trial axis, the same f called once
+    a trial): their (values, grads)."""
+    from torch.func import grad_and_value, vmap
+
+    argnums = tuple(range(len(batched)))
+    got_g, got_v = vmap(grad_and_value(f, argnums=argnums))(*batched)
+    want = [grad_and_value(f, argnums=argnums)(*(b[i] for b in batched))
+            for i in range(batched[0].shape[0])]
+    return (got_v, got_g), (torch.stack([w[1] for w in want]),
+                            tuple(torch.stack([w[0][j] for w in want]) for j in argnums))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_folds_the_trials_into_one_launch(dtype, cuda_device):
+    """K2f and K2b under vmap: one launch each for K trials, each trial's
+    results equal to its own launch's (the (b, h) problems are independent)."""
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    K, B, H, N, n_real = 3, 2, 12, 1664, 1645
+    q, k, v, cot = (torch.randn((K, B, H, N, 64), generator=gen, device=cuda_device,
+                                dtype=dtype) for _ in range(4))
+    A.reset_launches()
+    got, want = _vmapped_vs_per_trial(
+        lambda a, b, c, t: (A.fast_mha(a, b, c, n_real).float() * t.float()).sum(), (q, k, v, cot))
+    torch.cuda.synchronize()
+    assert (A.launches, A.bwd_launches) == (1 + K, 1 + K)
+    for g, w in zip(got[1][:3], want[1][:3]):
+        assert _norm_err(g.float(), w.float()) <= 1e-6
+
+
+def test_add_ln_launches_once_a_trial_with_per_trial_gamma(cuda_device):
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    K, R, D = 3, 2 * 1664, 768
+    x, delta, cot = (torch.randn((K, R, D), generator=gen, device=cuda_device,
+                                 dtype=torch.bfloat16) for _ in range(3))
+    gamma, beta = (torch.randn((K, D), generator=gen, device=cuda_device) for _ in range(2))
+    LN.reset_launches()
+    got, want = _vmapped_vs_per_trial(
+        lambda a, d, g, b, t: (LN.add_ln(a, d, g, b)[1].float() * t.float()).sum(),
+        (x, delta, gamma, beta, cot))
+    torch.cuda.synchronize()
+    assert (LN.launches, LN.bwd_launches) == (2 * K, 2 * K)
+    for g, w in zip(got[1][:4], want[1][:4]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_grouped_matmul_folds_the_trials_into_one_launch(dtype, tol, cuda_device):
+    """K4a and K4b under vmap: K trials' E experts as K·E groups, one launch
+    of each kernel; each trial's results against its own launches (K4b's
+    slices differ with the folded rows, so f32 1e-5 and bf16 1e-2)."""
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    K, E, M, k, n = 2, 8, 4096, 384, 1536
+    lhs, cot = (torch.randn((K, M, d), generator=gen, device=cuda_device, dtype=dtype)
+                for d in (k, n))
+    rhs = torch.randn((K, E, k, n), generator=gen, device=cuda_device, dtype=dtype) * 0.05
+    gs = torch.tensor([[512] * 8, [0, 1000, 24, 0, 3000, 72, 0, 0]], dtype=torch.int32,
+                      device=cuda_device)
+    from torch.func import grad_and_value, vmap
+
+    G.reset_launches()
+    f = lambda a, b, s, t: (G.grouped_matmul(a, b, s).float() * t.float()).sum()  # noqa: E731
+    got_g, _ = vmap(grad_and_value(f, argnums=(0, 1)))(lhs, rhs, gs, cot)
+    torch.cuda.synchronize()
+    assert (G.launches, G.tgmm_launches) == (2, 1)
+    for i in range(K):
+        want_g, _ = grad_and_value(f, argnums=(0, 1))(lhs[i], rhs[i], gs[i], cot[i])
+        for g, w in zip(got_g, want_g):
+            assert _norm_err(g[i].float(), w.float()) <= tol
+
+
+def test_vmapped_runner_step_through_the_kernels(cuda_device, tmp_path):
+    """One lockstep step of 2 trials of a small AST-Small (``ln_fused``) on
+    the card: K1 once, K2f and K2b once a block, K3f and K3b once a block
+    and trial; every trial's parameters move and stay finite."""
+    from dlsc_tpu_torch import hpo
+    from dlsc_tpu_torch.data.datamodule import ESC50DataModule
+    from dlsc_tpu_torch.data.synthetic import make_synthetic_dataset
+    from dlsc_tpu_torch.hpo.vmapped import TrialMetrics, VmappedTrialRunner
+
+    make_synthetic_dataset(tmp_path / "d", num_classes=4, clips_per_class_per_fold=2,
+                           clip_samples=16_000)
+    dm = ESC50DataModule(root=str(tmp_path / "d"), num_classes=4, fold=0, val_split=0.2,
+                         batch_size=4, preprocessing_mode="ast", is_spectrogram=True)
+    depth = 2
+    model = ASTViT(num_classes=4, emb_dim=192, depth=depth, num_heads=3, ln_fused=True,
+                   dtype=torch.bfloat16, dropout=0.1)
+    runner = VmappedTrialRunner(hpo.Study("g", tmp_path / "g.db", "maximize"), model,
+                                dm.pipeline, dm, epochs=1, seed=0, device=cuda_device,
+                                do_space={"low": 0.0, "high": 0.5})
+    fns = runner._build_exec()
+    st = fns["init_v"]([1, 2], [1e-3, 1e-4], [0, 0], [0.0, 0.3], [0, 0], [0, 0])
+    before = st.flat.clone()
+    batch = next(iter(dm.train_batches(epoch=0, seed=0)))
+    MK.reset_launches(), A.reset_launches(), LN.reset_launches()
+    fns["train"](st, TrialMetrics(2, 4, cuda_device), [0.0, 0.1], [1.0, 1.0], batch["wave"],
+                 batch["label"])
+    torch.cuda.synchronize()
+    assert (MK.launches, A.launches, A.bwd_launches) == (1, depth, depth)
+    assert (LN.launches, LN.bwd_launches) == (2 * depth, 2 * depth)
+    assert torch.isfinite(st.flat).all() and ((st.flat - before).abs().amax(1) > 0).all()

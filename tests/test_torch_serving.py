@@ -224,7 +224,12 @@ def test_port_imports_no_jax():
         "        'dlsc_tpu_torch.hpo.fanova', 'dlsc_tpu_torch.hpo.report_html',\n"
         "        'dlsc_tpu_torch.scripts.optimize_hyperparams',\n"
         "        'dlsc_tpu_torch.scripts.debug_optimize',\n"
-        "        'dlsc_tpu_torch.scripts.analyze_study'} <= set(names)\n"
+        "        'dlsc_tpu_torch.scripts.analyze_study', 'dlsc_tpu_torch.hpo.vmapped',\n"
+        "        'dlsc_tpu_torch.native', 'dlsc_tpu_torch.data.cache',\n"
+        "        'dlsc_tpu_torch.scripts.prepare_esc50',\n"
+        "        'dlsc_tpu_torch.scripts.prepare_urbansound8k',\n"
+        "        'dlsc_tpu_torch.scripts.check_specs', 'dlsc_tpu_torch.scripts.tracking_ui',\n"
+        "        'dlsc_tpu_torch.scripts.cache_manager'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'optax', 'dlsc_tpu', 'sklearn', 'orbax', 'tqdm'))\n"
         "assert not bad, bad\n"
