@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small, AST-Mini, EnvNet-v2, the spectrogram CNN and LEAF serving and training, its training entry point, AST's remat policies, the timm/DeiT weight import, int8 serving, AST-MoE's capacity dispatches and expert-choice router, the HPO layer and its vmapped multi-trial runner, on one GPU.
+"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small, AST-Mini, EnvNet-v2, the spectrogram CNN and LEAF serving and training, its training entry point, AST's remat policies, the timm/DeiT weight import, int8 serving, AST-MoE's capacity dispatches and expert-choice router, the HPO layer and its vmapped multi-trial runner, and its multi-device layer, on the visible GPUs (one by default).
 
     python3 chip_smoke.py [--seed 0]
 
@@ -187,7 +187,25 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     vmapped step at K 2 (AST-Base widths, depth 2, draws replayed) against
     each trial's step in plain ops on the CPU: loss, the clipped gradient
     and its square (Adam's moments) and the parameter change where the
-    gradient sets it, 1e-4.
+    gradient sets it, 1e-4;
+29. the multi-device layer (``dlsc_tpu_torch/parallel``) at W = the
+    visible cards over NCCL, the ranks started by ``parallel.mesh.spawn``:
+    DDP, FSDP, TP (degree W), PP (W stages, 2 microbatches) on AST-Base
+    (bf16, ``ln_fused``), the ragged AST-MoE under DDP and AST-MoE with its
+    experts over W ranks, global batch 16, 2 steps each: step 1's loss and
+    gathered gradients against the one-process step of the same model on
+    the same card and batch (``MULTI_GRAD``), the launches per rank per
+    step, step time and peak memory; then ``scripts/train.py
+    trainer.devices=auto +trainer.fsdp=true`` fits 2 steps on phase 18's
+    shards, and ``export`` and the server answer one request from its
+    checkpoint;
+30. two DDP ranks on the one card over gloo (CUDA tensors; NCCL refuses two
+    ranks on one device): AST-Base bf16 with SpecAugment and Mixup, batch
+    16 = 2 x 8, against the one-process step; each rank launches K1 once,
+    K2f and K2b 12 times a step. It measures no interconnect.
+
+``python3 chip_smoke.py --multi-device`` runs phases 29 and 30 alone (after
+the build, with its own copy of phase 18's shards).
 
 Routes: a near-tie between two router gates flips a token's expert under a
 perturbation as small as bf16 rounding, and a flipped route moves a whole
@@ -3540,6 +3558,266 @@ def phase_vmapped_hpo(dev: torch.device, seed: int, tmp: Path, card: str,
     return counts
 
 
+# --- phases 29-30: the multi-device layer (dlsc_tpu_torch/parallel) --------------------
+
+MULTI_BATCH, MULTI_STEPS, MULTI_MICRO = 16, 2, 2   # the global batch, steps, GPipe micros
+MULTI_GRAD = 2e-2       # a mode's step-1 gradients (gathered from its ranks) against the
+                        # one-process step of the same model on the same card and batch,
+                        # normalised per parameter: the K2 bf16 bar (ATTN_BF16_ERR). The
+                        # same kernels on both sides; what differs is the split (rows,
+                        # heads, stages, experts) and the order of the ranks' sums
+MULTI_MODES = (("ddp", "ast"), ("fsdp", "ast"), ("tp", "ast"), ("pp", "ast"),
+               ("moe_ddp", "ast_moe"), ("ep", "ast_moe_einsum"))
+
+
+def _multi_model(kind: str, seed: int, dev: torch.device) -> torch.nn.Module:
+    """Phase 29's models at full width, bf16, remat attn_res: AST-Base with
+    ln_fused; AST-MoE on the ragged dispatch; AST-MoE on einsum (what the
+    ragged dispatch lowers to under expert parallelism)."""
+    gen = torch.Generator().manual_seed(seed)
+    remat = dict(remat=True, remat_policy="attn_res", generator=gen, device=dev)
+    if kind == "ast":
+        return ASTModel(**AST_BASE, dtype=torch.bfloat16, ln_fused=True, **remat)
+    if kind == "ast_base":
+        return ASTModel(**AST_BASE, dtype=torch.bfloat16, **remat)
+    dispatch = "einsum" if kind == "ast_moe_einsum" else "ragged"
+    return ASTMoE(**{**AST_MOE, "dispatch": dispatch}, **remat)
+
+
+def _multi_layout(mode: str, model, n: int, dev: torch.device):
+    """``model`` laid out over the group's ``n`` ranks as ``mode`` says."""
+    from dlsc_tpu_torch import parallel
+    from dlsc_tpu_torch.parallel import ep, pp, tp
+
+    dt = dev.type
+    if mode in ("ddp", "moe_ddp"):
+        return parallel.DataParallel(model, parallel.MeshPlan(parallel.get_mesh(n, 1, dt)), dev)
+    if mode == "fsdp":
+        return parallel.FullyShardedDP(model, parallel.MeshPlan(parallel.get_mesh(n, 1, dt)))
+    if mode == "tp":
+        return tp.tensor_parallel(model, parallel.get_mesh(n, n, dt))
+    if mode == "pp":
+        return pp.Pipeline(model, parallel.MeshPlan(pp.get_pp_mesh(n, n, dt)), MULTI_MICRO)
+    return ep.ExpertParallel(model, parallel.MeshPlan(parallel.get_mesh(n, n, dt),
+                                                      ("data", "model")))
+
+
+def _multi_batch(seed: int, dev: torch.device):
+    """The global batch (the same on every rank), its draws for each step."""
+    pipe = bench.bench_pipeline()
+    rng = np.random.default_rng(seed + 29)
+    wave = torch.from_numpy((rng.standard_normal((MULTI_BATCH, CLIP)) * 0.3)
+                            .astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, AST_BASE["num_classes"], MULTI_BATCH)).to(dev)
+    return pipe, wave, labels, [pipe.draw(MULTI_BATCH, CLIP, rng) for _ in range(MULTI_STEPS)]
+
+
+def _multi_steps(model, layout, seed: int, dev: torch.device) -> dict:
+    """``MULTI_STEPS`` SGD + momentum steps (momentum buffers after step 1 =
+    the gradients): step 1's loss and gathered gradients (on rank 0), the
+    launches per step, the second step's time, the peak memory."""
+    from dlsc_tpu_torch.parallel.data import is_writer
+    from dlsc_tpu_torch.train.checkpoint import plain_state_dict
+
+    pipe, wave, labels, draws = _multi_batch(seed, dev)
+    state = TrainState.create(model, sgd(lr=1e-4, momentum=0.9), None, 1)
+    state.parallel = layout
+    step = make_train_step(pipe, CrossEntropyLoss())
+    ms = MetricState.create(AST_BASE["num_classes"], dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    _reset_launches()   # the gathers between the steps launch no kernel
+    for i in range(MULTI_STEPS):
+        t0 = time.perf_counter()
+        state, ms, loss = step(state, ms, wave, labels, draws[i], seed + i)
+        torch.cuda.synchronize(dev)
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3
+        if i == 0:
+            out["loss"] = loss.item()
+            full = plain_state_dict(state) if layout is None else layout.full_state(state)
+            if is_writer():
+                names = [n for n, _ in model.named_parameters()] if layout is None \
+                    else layout.full_names
+                opt = full["optimizer"]["state"]
+                out["grads"] = {n: opt[j]["momentum_buffer"].clone() for j, n in enumerate(names)}
+            del full
+    out["total"] = _launch_counts()   # over the steps
+    out["counts"] = {k: v / MULTI_STEPS for k, v in out["total"].items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def _multi_rank(seed: int, modes: tuple, device_type: str = "cuda") -> dict | None:
+    """One rank of phase 29 (spawned): every mode's steps, then, on rank 0,
+    each model's one-process step and the comparisons."""
+    import torch.distributed as dist
+
+    from dlsc_tpu_torch.parallel.mesh import local_device
+
+    dev = local_device(device_type)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = dist.get_world_size()
+    runs = {}
+    for mode, kind in modes:
+        model = _multi_model(kind, seed, dev)
+        runs[mode] = _multi_steps(model, _multi_layout(mode, model, n, dev), seed, dev)
+        del model
+        torch.cuda.empty_cache()
+    if dist.get_rank() != 0:
+        return None
+    refs = {}
+    for kind in dict(modes).values():   # the one-process step of each model, no layout
+        if kind not in refs:
+            refs[kind] = _multi_steps(_multi_model(kind, seed, dev), None, seed, dev)
+            torch.cuda.empty_cache()
+    out = {}
+    for mode, kind in modes:
+        got, want = runs[mode], refs[kind]
+        errs = sorted(((norm_err(got["grads"][k], g), k) for k, g in want["grads"].items()
+                       if g.abs().max() > 0), reverse=True)
+        out[mode] = dict(loss=got["loss"], ref_loss=want["loss"],
+                         loss_err=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                         grad_err=errs[0][0], worst=errs[:3], counts=got["counts"],
+                         total=got["total"],
+                         ref_counts=want["counts"], step_ms=got["step_ms"],
+                         ref_step_ms=want["step_ms"], peak_gib=got["peak_gib"],
+                         ref_peak_gib=want["peak_gib"])
+    return out
+
+
+def _expected_multi(mode: str, n: int, ref: dict) -> dict:
+    """A mode's launches per rank per step from the one-process step's: a
+    stage runs its share of the blocks on every microbatch."""
+    if mode != "pp":
+        return ref
+    per_block = {k: v for k, v in ref.items() if k != "k1"}
+    return dict(k1=ref["k1"], **{k: v / n * MULTI_MICRO for k, v in per_block.items()})
+
+
+def phase_multi_device(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
+    """Phase 29: every mode at W = the visible cards, over NCCL, the ranks
+    started by the port's launcher (``parallel.mesh.spawn``): DDP, FSDP, TP
+    (degree W), PP (W stages, 2 microbatches) on AST-Base (bf16, ln_fused),
+    the ragged AST-MoE under DDP and AST-MoE with its experts over W ranks;
+    global batch 16, 2 steps each. Step 1's loss and gathered gradients
+    against the one-process step (``MULTI_GRAD``), the launches per rank
+    per step. Then ``scripts.train trainer.devices=auto trainer.fsdp=true``
+    fits briefly on phase 18's shards, and ``export`` and the server answer
+    one request from its checkpoint. Returns the counts of rank 0's DDP run."""
+    from dlsc_tpu_torch.parallel.mesh import spawn
+    from dlsc_tpu_torch.scripts import export
+    from dlsc_tpu_torch.scripts import train as train_cli
+
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    res = spawn(_multi_rank, n, seed, MULTI_MODES, backend="nccl", device_type="cuda",
+                timeout_s=600)[0]
+    modes_s = time.perf_counter() - t0
+    for mode, kind in MULTI_MODES:
+        r = res[mode]
+        want = _expected_multi(mode, n, r["ref_counts"])
+        print(f"multi-device {mode} ({kind}, W={n}, NCCL, batch {MULTI_BATCH}): loss "
+              f"{r['loss']:.6f} vs one process {r['ref_loss']:.6f} (rel {r['loss_err']:.2e}, "
+              f"<= {STEP_BF16_LOSS}); gradients {r['grad_err']:.3e} (<= {MULTI_GRAD}; "
+              f"largest {', '.join(f'{k} {e:.1e}' for e, k in r['worst'])}); launches per rank "
+              f"per step {r['counts']} (one process {r['ref_counts']}); step 2 "
+              f"{r['step_ms']:.1f} ms vs {r['ref_step_ms']:.1f} ms one process; peak "
+              f"{r['peak_gib']:.2f} GiB vs {r['ref_peak_gib']:.2f} GiB  [{card}]", flush=True)
+        require(r["loss_err"] <= STEP_BF16_LOSS and r["grad_err"] <= MULTI_GRAD,
+                f"phase 29 {mode}: step 1 differs from the one-process step")
+        require(r["counts"] == want and r["counts"]["k1"] == 1
+                and min(r["counts"][k] for k in ("k2f", "k2b")) > 0,
+                f"phase 29 {mode}: launches {r['counts']}, expected {want}")
+    print(f"multi-device modes: {modes_s:.1f} s (spawn, NCCL groups, 6 modes x "
+          f"{MULTI_STEPS} steps, 3 one-process references)  [{card}]", flush=True)
+
+    # --- the train CLI on the visible cards, FSDP; export and serve ----------------
+    os.environ["DLSC_TRACKING_DIR"] = str(tmp / "mruns")
+    common = [f"dataset.root={tmp / 'data'}", "dataset.fold=0", "trainer.precision=bf16-mixed",
+              f"batch_size={MULTI_BATCH}", f"checkpoint.dirpath={tmp / 'mckpt'}",
+              f"hydra.run.dir={tmp / 'mrun'}", f"seed={seed}"]
+    t0 = time.perf_counter()
+    out = train_cli.main(["model=ast", *common, "trainer.devices=auto", "+trainer.fsdp=true",
+                          "trainer.max_epochs=1", "+trainer.limit_train_batches=2",
+                          "+trainer.limit_val_batches=1"])
+    fit_s = time.perf_counter() - t0
+    best = sorted((tmp / "mckpt").glob("*/state.pt"))
+    require(bool(best) and np.isfinite(out["test/loss"]), f"FSDP train CLI: {best}, {out}")
+    art = export.main(["model=ast", f"+ckpt_path={best[0].parent}", f"+out={tmp / 'mart'}",
+                       "+dtype=bfloat16", f"+batch={SERVE_BATCH}", f"+clip_samples={CLIP}"])
+    server = ModelServer(art, device="cuda", window_ms=5.0)
+    httpd = server.make_http_server("127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        clip = (np.random.default_rng(seed).standard_normal(CLIP) * 0.1).astype(np.float32)
+        status, resp = _post(httpd.server_address[1], "/predict_raw",
+                             json.dumps({"pcm": clip.tolist(),
+                                         "sample_rate": AST_BASE["sample_rate"]}).encode())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    probs = _check_probs(status, resp, "phase 29 served request")
+    print(f"multi-device train CLI (trainer.devices=auto, fsdp, W={n}): 1 epoch x 2 steps + "
+          f"test in {fit_s:.1f} s, test loss {out['test/loss']:.4f}; export of "
+          f"{best[0].parent.name} served one request (top prob {probs.max():.4f})  [{card}]",
+          flush=True)
+    return res["ddp"]["total"]
+
+
+def _two_ranks_one_card(seed: int, device_type: str = "cuda") -> dict | None:
+    """One of phase 30's two ranks (gloo, CUDA tensors, one card): DDP steps
+    of AST-Base; rank 0 adds the one-process step at the global batch."""
+    import torch.distributed as dist
+
+    from dlsc_tpu_torch.parallel.mesh import local_device
+
+    dev = local_device(device_type)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _multi_model("ast_base", seed, dev)
+    got = _multi_steps(model, _multi_layout("ddp", model, 2, dev), seed, dev)
+    if dist.get_rank() != 0:
+        return None
+    del model
+    torch.cuda.empty_cache()
+    want = _multi_steps(_multi_model("ast_base", seed, dev), None, seed, dev)
+    errs = sorted(((norm_err(got["grads"][k], g), k) for k, g in want["grads"].items()
+                   if g.abs().max() > 0), reverse=True)
+    return dict(loss=got["loss"], ref_loss=want["loss"],
+                loss_err=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                grad_err=errs[0][0], worst=errs[:3], counts=got["counts"], total=got["total"],
+                step_ms=got["step_ms"], ref_step_ms=want["step_ms"], peak_gib=got["peak_gib"])
+
+
+def phase_two_ranks_one_card(dev: torch.device, seed: int, card: str) -> dict:
+    """Phase 30: two DDP ranks on the one card over a gloo group on CUDA
+    tensors (gloo has all_reduce and broadcast for them, all DDP needs;
+    NCCL refuses two ranks on one device). AST-Base bf16, SpecAugment and
+    Mixup, global batch 16 (8 a rank): each rank featurises its rows and
+    their Mixup partners in one K1 call. It measures no interconnect."""
+    from dlsc_tpu_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    r = spawn(_two_ranks_one_card, 2, seed, backend="gloo", device_type="cuda",
+              device_ids=[0, 0], timeout_s=600)[0]
+    print(f"two ranks on one card (gloo, DDP, AST-Base bf16, batch {MULTI_BATCH} = 2 x 8): "
+          f"loss {r['loss']:.6f} vs one process {r['ref_loss']:.6f} (rel {r['loss_err']:.2e}); "
+          f"gradients {r['grad_err']:.3e} (<= {MULTI_GRAD}; largest "
+          f"{', '.join(f'{k} {e:.1e}' for e, k in r['worst'])}); launches per rank per step "
+          f"{r['counts']}; step 2 {r['step_ms']:.1f} ms vs {r['ref_step_ms']:.1f} ms one "
+          f"process; peak {r['peak_gib']:.2f} GiB a rank; {time.perf_counter() - t0:.1f} s  "
+          f"[{card}]", flush=True)
+    require(r["loss_err"] <= STEP_BF16_LOSS and r["grad_err"] <= MULTI_GRAD,
+            "phase 30: the two ranks' step differs from the one-process step")
+    require(r["counts"] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH),
+            f"phase 30: launches per rank per step {r['counts']}")
+    return r["total"]
+
+
 def moe_parity_sweep(dev: torch.device, seeds: str, card: str, fault: str | None = None
                      ) -> None:
     """Phase 11 at each seed of ``seeds`` ("A-B"), every reading kept, with
@@ -3581,6 +3859,9 @@ def main() -> None:
     ap.add_argument("--moe-parity-fault", default=None, choices=MOE_PARITY_FAULTS,
                     help="with --moe-parity-seeds: plant this fault in the bf16 kernels' "
                          "run, a negative control of phase 11's gate")
+    ap.add_argument("--multi-device", action="store_true",
+                    help="run only phases 29 and 30 (after the build; phase 29 writes its "
+                         "own copy of phase 18's shards)")
     args = ap.parse_args()
     if args.moe_parity_fault and args.moe_parity_seeds is None:
         ap.error("--moe-parity-fault needs --moe-parity-seeds")
@@ -3605,6 +3886,16 @@ def main() -> None:
     peak_tflops(torch.cuda.get_device_name(dev))   # the MFU needs a known card: fail early
     if args.moe_parity_seeds is not None:
         moe_parity_sweep(dev, args.moe_parity_seeds, card, args.moe_parity_fault)
+        return
+    if args.multi_device:
+        from dlsc_tpu_torch.data.synthetic import make_synthetic_dataset
+
+        with tempfile.TemporaryDirectory() as tmp:
+            make_synthetic_dataset(Path(tmp) / "data", num_classes=TRAINER_CLASSES,
+                                   clips_per_class_per_fold=TRAINER_CLIPS, n_folds=TRAINER_FOLDS,
+                                   clip_samples=CLIP, seed=args.seed)
+            _clock(29, phase_multi_device, dev, args.seed, Path(tmp), card)
+        _clock(30, phase_two_ranks_one_card, dev, args.seed, card)
         return
 
     gen = torch.Generator().manual_seed(args.seed)
@@ -3646,6 +3937,8 @@ def main() -> None:
                                moe_train_run["record"])
         hpo_run = _clock(27, phase_hpo, dev, seed, trainer_tmp, card)
         vm_run = _clock(28, phase_vmapped_hpo, dev, seed, trainer_tmp, card, gen)
+        multi_run = _clock(29, phase_multi_device, dev, seed, trainer_tmp, card)
+    one_card_run = _clock(30, phase_two_ranks_one_card, dev, seed, card)
 
     # launches: the training runs' (ast_trainer, envnet_v2_trainer: the train
     # CLI's fit, its validation and its test); launches_serving: the serving runs';
@@ -3655,7 +3948,8 @@ def main() -> None:
                       ast_mini_train=mini_train, ast_trainer=trainer_run,
                       **{f"{k}_train": c for k, c in fam_train.items()},
                       envnet_v2_trainer=envnet_trainer, ast_remat_train=remat_runs,
-                      **lowering_runs, hpo_study=hpo_run, hpo_vmapped=vm_run)
+                      **lowering_runs, hpo_study=hpo_run, hpo_vmapped=vm_run,
+                      multi_device_ddp=multi_run, two_ranks_one_card=one_card_run)
     serve_runs = dict(ast_serve=serve, ast_moe_serve=moe_serve, ast_small_serve=small_serve,
                       ast_mini_serve=mini_serve, **{f"{k}_serve": c for k, c in fam_serve.items()},
                       ast_import_int8_serve=import_serve)

@@ -19,6 +19,12 @@ The train path's random numbers are drawn on the host by ``draw`` from an
 explicit ``numpy.random.Generator`` and handed to ``train_batch``, so that a
 test can give both packages the same draws. Labels go one-hot, and soft
 where a mix changes them.
+
+Under data parallelism every rank draws the global batch's vectors and
+``train_batch_rows`` makes its own rows' inputs: Mixup and BC mixing pair
+rows across the global batch (``dlsc_tpu/ops/augment.py:240-247``,
+``:291-292``), so a rank featurises its rows and their partners' rows (at
+most twice its share, in one K1 call), mixes, and keeps its rows.
 """
 
 from __future__ import annotations
@@ -287,6 +293,32 @@ class DevicePipeline:
         return self._to_float(wave), y
 
     @torch.no_grad()
+    def train_batch_rows(self, wave: torch.Tensor, labels: torch.Tensor, draws,
+                         lo: int, hi: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """``train_batch(wave, labels, draws)[lo:hi]``, for the rows lo..hi
+        of a global batch (``wave``, ``labels`` and ``draws`` are the global
+        batch's), computing the features of those rows and their mixing
+        partners only."""
+        B = wave.shape[0]
+        if (lo, hi) == (0, B):
+            return self.train_batch(wave, labels, draws)
+        own = torch.arange(lo, hi)
+        partner = _partners(draws)
+        need = own if partner is None else torch.unique(torch.cat([own, partner[own]]))
+        pos = torch.full((B,), -1, dtype=torch.int64)
+        pos[need] = torch.arange(len(need))
+        sub = _take_rows(draws, need)
+        if partner is not None:
+            p = pos[partner[need]]
+            # a partner row's own partner may lie outside: it is not kept
+            sub = _with_partners(sub, torch.where(p >= 0, p, torch.arange(len(need))))
+        dev = wave.device
+        x, y = self.train_batch(wave.index_select(0, need.to(dev)),
+                                labels.index_select(0, need.to(labels.device)), sub)
+        keep = pos[own].to(x.device)
+        return x.index_select(0, keep), y.index_select(0, keep)
+
+    @torch.no_grad()
     def train_batch_trials(self, wave: torch.Tensor, labels: torch.Tensor,
                            draws: list) -> tuple[torch.Tensor, torch.Tensor]:
         """One train batch per entry of ``draws`` (K trials' draws of one
@@ -303,6 +335,33 @@ class DevicePipeline:
         y = A.one_hot(labels.to(wave.device), self.cfg.num_classes)
         xs, ys = zip(*(self._ast_augment(feats, y, d) for d in draws))
         return torch.stack(xs), torch.stack(ys)
+
+
+def _partners(draws) -> torch.Tensor | None:
+    """The mixing partners (B,) of a batch's draws (Mixup's or BC's), or None."""
+    mix = getattr(draws, "mix", None) or getattr(draws, "bc", None)
+    return None if mix is None else mix.partner.cpu()
+
+
+def _take_rows(draws, idx: torch.Tensor):
+    """``draws`` (a dataclass of per-row tensors, nested, None where an
+    augmentation is off) at the rows ``idx``."""
+    if draws is None:
+        return None
+    if isinstance(draws, torch.Tensor):
+        return draws.index_select(0, idx.to(draws.device))
+    return type(draws)(*[_take_rows(getattr(draws, f.name), idx)
+                         for f in dataclasses.fields(draws)])
+
+
+def _with_partners(draws, partner: torch.Tensor):
+    """``draws`` with its mixing partners replaced by ``partner``."""
+    for name in ("mix", "bc"):
+        mix = getattr(draws, name, None)
+        if mix is not None:
+            return dataclasses.replace(draws, **{name: dataclasses.replace(
+                mix, partner=partner.to(mix.partner.device))})
+    return draws
 
 
 def _pair(v) -> tuple[float, float] | None:

@@ -11,8 +11,8 @@ default dispatch) runs on ``einsum``, as the JAX ``ASTMoE`` rewrites it
 (``ast_moe.py:78-79``): expert-choice is capacity-based by construction.
 ``attn_impl`` and ``attn_dropout`` are taken as ``ASTViT`` takes them
 ('splash' and 'flash' both run K2; 'dense' and attention dropout raise),
-and ``ln_fused`` puts kernel K3 in every block; the mesh option
-``expert_sharding`` waits for multi-GPU (M12).
+and ``ln_fused`` puts kernel K3 in every block; ``expert_sharding``
+splits each layer's experts over ranks (``parallel/ep.py``).
 """
 
 from __future__ import annotations
@@ -53,12 +53,12 @@ def ASTMoE(
 ) -> ASTViT:
     """``ASTViT`` with an MoE spec in every block, with the JAX ``ASTMoE``'s
     defaults (dropout 0.1, remat ``attn_res``, bf16) plus ``ln_fused``,
-    ``device`` and the init ``generator``. ``expert_sharding`` (expert
-    parallelism) raises until multi-GPU is ported."""
-    if expert_sharding is not None:
-        raise NotImplementedError("expert_sharding (expert parallelism) is not ported yet "
-                                  "(ROADMAP §1 M12)")
-    return ASTViT(
+    ``device`` and the init ``generator``. ``expert_sharding`` (a
+    ``parallel.ep.ExpertSharding``, ``parallel.ep.expert_sharding(plan)``)
+    keeps this rank's share of each layer's experts after the init, as the
+    JAX ``expert_sharding`` constrains the dispatch buffers
+    (``parallel/ep.py``; the ragged dispatch lowers to einsum)."""
+    model = ASTViT(
         num_classes=num_classes,
         emb_dim=emb_dim,
         depth=depth,
@@ -83,3 +83,8 @@ def ASTMoE(
         device=device,
         generator=generator,
     )
+    if expert_sharding is not None:
+        from dlsc_tpu_torch.parallel.ep import shard_experts
+
+        shard_experts(model, expert_sharding)
+    return model

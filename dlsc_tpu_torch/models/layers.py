@@ -6,13 +6,17 @@
   0.1·batch with the biased batch variance (``nn.BatchNorm`` would use the
   unbiased one there, B/(B-1) larger over B rows); it reduces in f32 (at
   least) whatever the input's dtype. ``num_batches_tracked`` counts the updates.
+  Under data parallelism (``parallel/``) ``group`` is the ranks whose rows
+  make up the global batch, and the statistics are the global batch's, as
+  GSPMD computes them: SyncBatchNorm's semantics, with autograd-aware sums.
 - ``conv`` / ``linear``: a layer applied in the input's dtype, its f32
   weights cast at use (a Flax layer with ``dtype``).
 - ``flax_params``: the state_dict keys of a Flax module path, for
   ``models/convert.py``.
 - ``CNNBase``: the forward contract of these models, the one the train step
-  calls for every family: ``model(x, dropout_seed=None, return_aux=False)``;
-  with ``return_aux``, (outputs, 0.0, {}) (no MoE aux loss, no stats).
+  calls for every family: ``model(x, dropout_seed=None, return_aux=False,
+  rows=None)``; with ``return_aux``, (outputs, 0.0, {}) (no MoE aux loss,
+  no stats); ``rows`` as ``ASTViT.forward``'s.
 """
 
 from __future__ import annotations
@@ -20,8 +24,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
+
+from dlsc_tpu_torch.models.moe import RowGenerator
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -33,6 +41,7 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     def __init__(self, num_features: int, momentum: float = BN_MOMENTUM, eps: float = BN_EPS):
         super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
         self.flax_momentum = momentum
+        self.group: dist.ProcessGroup | None = None   # set by parallel/
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         if x.ndim < 2 or x.shape[1] != self.num_features:
@@ -46,14 +55,37 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
                              False, 0.0, self.eps)
             return y.to(x.dtype)
         dims = [0, *range(2, x.ndim)]
+        if self.group is not None:
+            return self._global_batch(xf, dims).to(x.dtype)
         with torch.no_grad():
             var, mean = torch.var_mean(xf, dims, correction=0)
-            m = self.flax_momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
-            self.num_batches_tracked.add_(1)
+            self._track(mean, var)
         y = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.flax_momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        self.num_batches_tracked.add_(1)
+
+    def _global_batch(self, xf: torch.Tensor, dims: list[int]) -> torch.Tensor:
+        """Train-mode normalisation with the mean and biased variance of the
+        global batch: the sums (count, Σx, then Σ(x - mean)²) are reduced
+        over ``group`` with autograd, so the gradients are the global
+        batch's too once the ranks' gradients are averaged."""
+        shape = [1, -1] + [1] * (xf.ndim - 2)
+        n = xf.numel() // xf.shape[1]
+        s1 = dist_nn.all_reduce(torch.cat([torch.full((1,), float(n), dtype=xf.dtype,
+                                                      device=xf.device), xf.sum(dims)]),
+                                group=self.group)
+        mean = s1[1:] / s1[0]
+        d = xf - mean.view(shape)
+        var = dist_nn.all_reduce(d.square().sum(dims), group=self.group) / s1[0]
+        self._track(mean.detach(), var.detach())
+        y = d * torch.rsqrt(var + self.eps).view(shape)
+        return y * self.weight.view(shape) + self.bias.view(shape)
 
 
 def conv(x: torch.Tensor, layer: nn.Conv1d | nn.Conv2d, stride=1, padding=0) -> torch.Tensor:
@@ -116,14 +148,17 @@ class CNNBase(nn.Module):
         self.eval()
 
     def forward(self, x: torch.Tensor, dropout_seed: int | None = None,
-                return_aux: bool = False):
+                return_aux: bool = False, rows: tuple[int, int] | None = None):
         """Logits (B, num_classes) f32; with ``return_aux``, (logits, 0.0,
         {}). ``dropout_seed`` seeds this call's dropout masks in train mode
-        (drawn from torch's default generator when None)."""
+        (drawn from torch's default generator when None); ``rows`` =
+        (start, total) cuts them from a global batch's (``moe.RowGenerator``)."""
         gen = None
         if self.training:
             seed = int(torch.randint(2**62, ())) if dropout_seed is None else int(dropout_seed)
             gen = torch.Generator(x.device).manual_seed(seed)
+            if rows is not None:
+                gen = RowGenerator(gen, rows[0], rows[0] + x.shape[0], rows[1])
         out = self.logits(x, gen)
         return (out, 0.0, {}) if return_aux else out
 

@@ -90,7 +90,11 @@ class PCEN(nn.Module):
 
 class LeafModel(CNNBase):
     """LEAF on (B, T) or (B, 1, T) waveforms; ``forward`` as
-    ``layers.CNNBase``."""
+    ``layers.CNNBase``. ``unreached_parameters``: the parameters that the
+    loss does not reach (PCEN's α), which data parallelism must expect to
+    get no gradient."""
+
+    unreached_parameters = ("pcen.alpha",)
 
     def __init__(self, n_filters: int = 186, kernel_size: int = 401,
                  sample_rate: int = 44_100, num_classes: int = 50,

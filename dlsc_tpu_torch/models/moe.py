@@ -4,8 +4,12 @@ the dropless ragged dispatch or the capacity dispatches.
 Counterpart of ``dlsc_tpu/models/moe.py``: ``MoeSpec`` (:51-141),
 ``as_moe_spec`` and ``MoeMlp`` (``__call__`` :180-303, ``_sow_stats``
 :305-314, ``_expert_choice`` :316-354, ``_ragged`` :367-455, ``_ffn``
-:457-467). Every (router, dispatch) pair of the JAX ``MoeSpec`` runs;
-expert parallelism waits for multi-GPU (ROADMAP M12).
+:457-467). Every (router, dispatch) pair of the JAX ``MoeSpec`` runs.
+Under data parallelism (``group``) the aux loss's sums and the stats are
+reduced over the ranks, so that they are the global batch's (the JAX step
+computes them over the global batch); under expert parallelism
+(``ep_group``, ``parallel/ep.py``) the capacity buffers cross ranks to
+their experts (``_expert_parallel``).
 
 Routing, as in the JAX package: a bias-free router in f32 → softmax, and
 the z-loss over real tokens (pads, >= ``n_real``, are left out of every
@@ -56,7 +60,11 @@ the forward nor in the gather's backward.
 
 Dropout (``dropout``) draws its masks from the generator it is given; the
 blocks in ``models/vit.py`` seed one per block and step, so a
-rematerialised block draws the same masks again. On the ragged path the
+rematerialised block draws the same masks again. A ``RowGenerator`` (a
+data-parallel rank's rows, a microbatch) draws the global batch's masks
+and keeps its rows; on the ragged path the experts' masks are drawn per
+real (token, choice) pair and their boolean keep masks follow the sort, so
+that no mask depends on which rows share the batch. On the ragged path the
 routing index tensors, the gate weights and both grouped products' outputs
 are tagged ``moe_res`` (``utils/remat.remat_tag``, ``moe.py:417-442``),
 which remat ``attn_res_moe`` keeps: its backward reruns neither product's
@@ -74,6 +82,8 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 
@@ -147,27 +157,69 @@ def topk_routes(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor
     return torch.topk(gates, k, dim=-1, sorted=True)
 
 
+@dataclasses.dataclass(frozen=True)
+class RowGenerator:
+    """A dropout generator for the rows [start, stop) of a global batch of
+    ``total`` rows (a data-parallel rank's share, or a pipeline's
+    microbatch): ``dropout`` draws the masks of the whole global batch from
+    ``gen`` and keeps this forward's rows, so every row gets the mask that
+    a one-process step over the global batch gives it."""
+
+    gen: torch.Generator
+    start: int
+    stop: int
+    total: int
+
+
+Part = tuple[int, int, int]   # (dim, index, count): x's dim is part index of count
+
+
+def _uniform(shape: torch.Size, gen: torch.Generator | RowGenerator, device: torch.device,
+             dim: int = 0, part: Part | None = None) -> torch.Tensor:
+    """f32 uniforms of ``shape``. With a ``RowGenerator``, dim ``dim`` holds
+    the forward's rows (k entries a row) and the draw is the global batch's,
+    sliced. ``part`` = (d, i, n): dim d is the i-th of n equal parts of the
+    unsplit tensor (a rank's experts, heads, hidden units or tokens under
+    expert or tensor parallelism), also cut from the unsplit draw."""
+    rows = isinstance(gen, RowGenerator)
+    if not rows and part is None:
+        return torch.rand(shape, generator=gen, device=device)
+    full, idx = list(shape), [slice(None)] * len(shape)
+    if rows:
+        k = shape[dim] // (gen.stop - gen.start)
+        full[dim], idx[dim] = gen.total * k, slice(gen.start * k, gen.stop * k)
+    if part is not None:
+        d, i, n = part
+        full[d], idx[d] = shape[d] * n, slice(i * shape[d], (i + 1) * shape[d])
+    return torch.rand(full, generator=gen.gen if rows else gen, device=device)[tuple(idx)]
+
+
 def dropout(x: torch.Tensor, rate: float | torch.Tensor,
-            gen: torch.Generator | None) -> torch.Tensor:
+            gen: torch.Generator | RowGenerator | None, dim: int = 0,
+            part: Part | None = None, mask: torch.Tensor | None = None) -> torch.Tensor:
     """Inverted dropout with masks from ``gen`` (no dropout when ``gen`` is
     None or ``rate`` is 0): kept entries are scaled by 1/(1 - rate). The
     uniform draws are f32 whatever x's dtype, so that a bf16 and an f32 run
     with the same generator drop the same entries. A tensor ``rate`` (a
     trial's rate, ``HyperDropout`` of ``dlsc_tpu/models/vit.py``) always
     draws, a rate of 0 keeping every entry, and rescales by 1/keep in x's
-    dtype."""
+    dtype. ``dim`` and ``part``: see ``_uniform``; ``mask``, when given,
+    is the boolean keep mask to use (already laid out as x)."""
     if gen is None:
         return x
-    if isinstance(rate, torch.Tensor):
-        keep = 1.0 - rate
-        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-        return torch.where(mask, x / keep.to(x.dtype), torch.zeros((), dtype=x.dtype,
-                                                                   device=x.device))
-    if rate == 0.0:
+    if not isinstance(rate, torch.Tensor) and rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    if mask is None:
+        mask = _uniform(x.shape, gen, x.device, dim, part) < keep
+    scale = keep.to(x.dtype) if isinstance(rate, torch.Tensor) else keep
+    return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
+    """An f32 scalar on ``like``'s device, filled there (no host-to-device
+    copy, which a CUDA graph capture of the serving call refuses)."""
+    return torch.full((), float(v), dtype=torch.float32, device=like.device)
 
 
 def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -249,6 +301,18 @@ class MoeMlp(nn.Module):
         self.bo = nn.Parameter(torch.empty(E, dim))
         self.router_hook: Callable[[torch.Tensor, torch.Tensor], None] | None = None
         self.route_hook: Callable[[torch.Tensor], None] | None = None
+        # data parallelism (parallel/): the ranks whose rows make up the
+        # global batch, over which the aux loss and the stats are reduced
+        self.group: dist.ProcessGroup | None = None
+        # expert parallelism (parallel/ep.py): the ranks that hold the other
+        # experts; wi, bi, wo and bo then hold this rank's E / ep experts
+        self.ep_group: dist.ProcessGroup | None = None
+
+    def _global(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over ``group`` (autograd-aware), or ``t`` itself."""
+        if self.group is None:
+            return t
+        return dist_nn.all_reduce(t, group=self.group)
 
     def forward(self, x: torch.Tensor, n_real: int | None = None,
                 grouped_matmul: GroupedMatmulFn = gmm_op, topk: TopkFn = topk_routes,
@@ -256,37 +320,49 @@ class MoeMlp(nn.Module):
         B, N, D = x.shape
         E, K = self.spec.n_experts, self.spec.top_k
         n_real = N if n_real is None else min(n_real, N)
-        nv = B * n_real
         valid = torch.arange(N, device=x.device) < n_real            # (N,)
 
         # --- router (f32) and the z-loss over real tokens -------------------
         xf = x.float()
-        logits = F.linear(xf, self.router.weight)                     # (B, N, E)
+        logits = self.router(xf)   # (B, N, E); a module call: FSDP's unit under FSDP + EP
         if self.router_hook is not None:
             self.router_hook(xf, logits)
         gates = torch.softmax(logits, dim=-1)
-        z2 = torch.logsumexp(logits, dim=-1).square() * valid
-        aux = self.spec.router_z_weight * z2.sum() / nv
+        z2 = (torch.logsumexp(logits, dim=-1).square() * valid).sum()
         if self.spec.router == "expert":
+            z2, nv = self._global(torch.stack([z2, _scalar(B * n_real, z2)])).unbind()
             y, stats = self._expert_choice(x, gates, valid, n_real, topk, gen)
-            return dropout(y, self.rate, gen), aux, stats
+            return dropout(y, self.rate, gen), self.spec.router_z_weight * z2 / nv, stats
 
-        # --- token-choice top-k and the load-balance loss -------------------
+        # --- token-choice top-k and the load-balance loss: the aux loss is a
+        # product of means over the global batch, so its sums are reduced
+        # over the data-parallel ranks first ----------------------------------
         topv, topi = topk(gates, K)                                   # (B, N, K)
         topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
-        frac = _counts(topi[:, :n_real, 0], E).float() / nv           # first choice
-        prob = (gates * valid[:, None]).sum((0, 1)) / nv
-        aux = aux + self.spec.aux_weight * E * (frac * prob).sum()
+        sums = self._global(torch.cat([
+            torch.stack([z2, _scalar(B * n_real, z2)]),
+            _counts(topi[:, :n_real, 0], E).float(),                  # first choice
+            (gates * valid[:, None]).sum((0, 1))]))
+        z2, nv, frac, prob = sums[0], sums[1], sums[2:2 + E] / sums[1], sums[2 + E:] / sums[1]
+        aux = (self.spec.router_z_weight * z2 / nv
+               + self.spec.aux_weight * E * (frac * prob).sum())
         if self.spec.dispatch == "ragged":
             y, stats = self._ragged(x, topi, topv, valid, n_real, grouped_matmul, gen)
         else:
             y, stats = self._capacity(x, topi, topv, valid, n_real, gen)
         return dropout(y, self.rate, gen), aux, stats
 
-    def _stats(self, drop_frac: torch.Tensor, load: torch.Tensor) -> torch.Tensor:
-        """(drop_frac, util) as ``_sow_stats`` (``moe.py:305-314``): util is
-        the normalised entropy of the dispatched per-expert load (1.0 =
-        perfectly balanced)."""
+    @torch.no_grad()
+    def _stats(self, dropped: torch.Tensor, pairs: float, load: torch.Tensor) -> torch.Tensor:
+        """(drop_frac, util) as ``_sow_stats`` (``moe.py:305-314``):
+        drop_frac = dropped / pairs; util is the normalised entropy of the
+        dispatched per-expert load (1.0 = perfectly balanced). Over the
+        global batch under data parallelism."""
+        sums = torch.cat([torch.stack([dropped.float(), _scalar(pairs, dropped)]),
+                          load.float()])
+        if self.group is not None:
+            dist.all_reduce(sums, group=self.group)
+        drop_frac, load = sums[0] / sums[1], sums[2:]
         p = load / load.sum().clamp_min(1e-9)
         util = -(p * torch.log(p + 1e-9)).sum() / math.log(load.shape[0])
         return torch.stack([drop_frac, util]).float()
@@ -318,7 +394,17 @@ class MoeMlp(nn.Module):
         wi, wo = self.wi.to(dt), self.wo.to(dt)
         with remat_tag("moe_res"):   # the first product, before its bias
             h = grouped_matmul(xs, wi, group_sizes)
-        h = dropout(F.gelu(h + _one_hot(e_sorted, E, dt) @ self.bi.to(dt)), self.rate, gen)
+        # the masks are drawn per real (token, choice) pair, (B, n_real, K)
+        # in row-major order, so that they do not depend on which rows share
+        # the batch; the 1-byte keep mask, not the f32 draw, follows the sort,
+        # and neither the draw nor the unsorted mask outlives this statement
+        mask = None
+        if gen is not None and self.rate != 0.0:
+            pair = order // (N * K) * (n_real * K) + order % (N * K)
+            mask = (_uniform(torch.Size((m_real, h.shape[1])), gen, x.device)
+                    < 1.0 - self.rate)[pair]
+        h = dropout(F.gelu(h + _one_hot(e_sorted, E, dt) @ self.bi.to(dt)), self.rate, gen,
+                    mask=mask)
         with remat_tag("moe_res"):
             out = grouped_matmul(h, wo, group_sizes)                  # (m_real, D)
 
@@ -330,7 +416,7 @@ class MoeMlp(nn.Module):
         y = y.reshape(B, N, D) + aw @ self.bo.to(dt)
         self._report(lambda: (_one_hot(topi, E, torch.float32).sum(2)
                               * valid[:, None].float()))
-        return y, self._stats(torch.zeros((), device=x.device), group_sizes.float())
+        return y, self._stats(torch.zeros((), device=x.device), 1.0, group_sizes)
 
     def _capacity(self, x, topi, topv, valid, n_real, gen):
         """Token-choice on the capacity dispatches (``moe.py:246-300``)."""
@@ -348,7 +434,7 @@ class MoeMlp(nn.Module):
         pi = pos.clamp(0, C - 1).long()
         wk = topv.to(dt).reshape(B, G, S, K) * keep                  # combine weights
         keep32 = keep.float()
-        stats = self._stats(1.0 - keep32.sum() / (K * B * n_real),
+        stats = self._stats(K * B * n_real - keep32.sum(), K * B * n_real,
                             (a4 * keep32[..., None]).sum((0, 1, 2, 3)))
         self._report(lambda: (a4 * keep32[..., None]).sum(3).reshape(B, N, E))
 
@@ -397,15 +483,69 @@ class MoeMlp(nn.Module):
         # residual); the load is each expert's taken slots
         oh32 = oh.float()
         taken = oh32.sum((2, 3))                                      # (B, G, S)
-        stats = self._stats(((taken <= 0) * vmask).sum() / (B * n_real),
-                            oh32.sum((0, 1, 3, 4)))
+        stats = self._stats(((taken <= 0) * vmask).sum(), B * n_real, oh32.sum((0, 1, 3, 4)))
         self._report(lambda: oh32.sum(3).transpose(2, 3).reshape(B, N, E))
         return y, stats
 
-    def _ffn(self, buf: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
+    def _ffn(self, buf: torch.Tensor, gen: torch.Generator | RowGenerator | None
+             ) -> torch.Tensor:
         """The stacked experts over their (E, M, D) capacity rows
-        (``moe.py:457-467``): two batched products, bias, exact GELU."""
+        (``moe.py:457-467``): two batched products, bias, exact GELU. M is
+        the batch's rows times G·C slots. Under expert parallelism the rows
+        cross to their experts' ranks and back (``_expert_parallel``)."""
+        if self.ep_group is not None:
+            return _expert_parallel(self, buf, gen)
+        return self._experts(buf, gen)
+
+    def _experts(self, buf: torch.Tensor, gen, part: Part | None = None,
+                 grad_scale: float = 1.0) -> torch.Tensor:
+        """This module's experts on their (E_local, M, D) rows; dropout
+        masks per (expert, row, unit), dim 1 holding the rows. The experts'
+        gradients are scaled by ``grad_scale`` (``_expert_parallel``)."""
         dt = buf.dtype
-        h = torch.bmm(buf, self.wi.to(dt)) + self.bi.to(dt)[:, None]
-        h = dropout(F.gelu(h), self.rate, gen)
-        return torch.bmm(h, self.wo.to(dt)) + self.bo.to(dt)[:, None]
+        wi, bi, wo, bo = (w if grad_scale == 1.0 else _ScaleGrad.apply(w, grad_scale)
+                          for w in (self.wi, self.bi, self.wo, self.bo))
+        h = torch.bmm(buf, wi.to(dt)) + bi.to(dt)[:, None]
+        h = dropout(F.gelu(h), self.rate, gen, dim=1, part=part)
+        return torch.bmm(h, wo.to(dt)) + bo.to(dt)[:, None]
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity whose backward scales the gradient."""
+
+    @staticmethod
+    def forward(ctx, w, scale):
+        ctx.scale = scale
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def _expert_parallel(m: MoeMlp, buf: torch.Tensor,
+                     gen: torch.Generator | RowGenerator | None) -> torch.Tensor:
+    """``m``'s experts on (E, M, D) capacity rows, E split over
+    ``m.ep_group``: an all-to-all sends each rank the rows of its E / ep
+    experts from every rank of the group, the local experts run on them, and
+    a second all-to-all brings the outputs back (autograd-aware, so the
+    backward runs the same exchanges in reverse). The group's ranks hold
+    consecutive row shares of the batch (``parallel/ep.py``), so the rows a
+    rank's experts see are the group's rows in order, which is how their
+    dropout masks are cut from the global draw. A rank's experts collect
+    the gradients of the rows of its whole group, each rank's loss being the
+    mean over its own rows: they are scaled by 1 / ep, so that the experts'
+    gradients, like every other parameter's, are then averaged over the
+    ranks that hold the same copy (``parallel/ep.py``)."""
+    ep, me = dist.get_world_size(m.ep_group), dist.get_rank(m.ep_group)
+    E, M, D = buf.shape
+    El = E // ep
+    recv = dist_nn.all_to_all_single(torch.empty_like(buf), buf.contiguous(), group=m.ep_group)
+    local = recv.view(ep, El, M, D).transpose(0, 1).reshape(El, ep * M, D)
+    if isinstance(gen, RowGenerator):
+        b = gen.stop - gen.start
+        first = gen.start - me * b
+        gen = RowGenerator(gen.gen, first, first + ep * b, gen.total)
+    out = m._experts(local, gen, (0, me, ep), 1.0 / ep)
+    out = out.view(El, ep, M, D).transpose(0, 1).reshape(E, M, D)
+    return dist_nn.all_to_all_single(torch.empty_like(out), out.contiguous(), group=m.ep_group)

@@ -115,8 +115,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
 from dlsc_tpu_torch.models.layers import as_dtype, dtype_name, lecun_normal_, trunc_normal_
-from dlsc_tpu_torch.models.moe import (MOE_METRICS, GroupedMatmulFn, MoeMlp, MoeSpec,
-                                       TopkFn, as_moe_spec, dropout, topk_routes)
+from dlsc_tpu_torch.models.moe import (MOE_METRICS, GroupedMatmulFn, MoeMlp, MoeSpec, Part,
+                                       RowGenerator, TopkFn, as_moe_spec, dropout,
+                                       topk_routes)
 from dlsc_tpu_torch.ops.attn_fast import fast_mha_lse
 from dlsc_tpu_torch.ops.gmm import grouped_matmul as gmm_op
 from dlsc_tpu_torch.ops.ln_fused import add_ln as add_ln_op
@@ -181,15 +182,17 @@ def _check_attention(attn_impl: str, attn_dropout: float) -> None:
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_real: int,
-                    rate: float = 0.0, gen: torch.Generator | None = None) -> torch.Tensor:
+                    rate: float = 0.0, gen: torch.Generator | RowGenerator | None = None,
+                    part: tuple[int, int, int] | None = None) -> torch.Tensor:
     """Masked softmax attention on (B, H, N, dh), q pre-scaled: keys >=
     ``n_real`` masked, softmax in f32, P cast to q's dtype, dropout on P
-    (``rate``, masks from ``gen``; none when ``gen`` is None), then P·V."""
+    (``rate``, masks from ``gen``; none when ``gen`` is None; ``part``: the
+    heads of a tensor-parallel rank, ``moe.dropout``), then P·V."""
     s = torch.matmul(q, k.transpose(-1, -2))
     n = k.shape[2]
     if n_real < n:
         s = s.masked_fill(torch.arange(n, device=s.device) >= n_real, -1e30)
-    p = dropout(torch.softmax(s.float(), dim=-1).to(q.dtype), rate, gen)
+    p = dropout(torch.softmax(s.float(), dim=-1).to(q.dtype), rate, gen, part=part)
     return torch.matmul(p, v)
 
 
@@ -218,7 +221,14 @@ def _quant_buffers(layer: nn.Linear) -> None:
 class Attention(nn.Module):
     """Packed-qkv attention; ``impl`` 'dense' (or dropout in train mode:
     ``gen`` given and ``rate`` > 0) takes ``dense_attention``, any other
-    the ``attention`` op. ``quant``: qkv and proj through int8."""
+    the ``attention`` op. ``quant``: qkv and proj through int8. Tensor
+    parallelism's subclass (``parallel/tp.py``) runs a rank's heads: it
+    overrides ``project_in`` and ``project_out`` (the products and their
+    collectives) and ``part``, the part of the unsplit attention
+    probabilities whose dropout masks this module draws (``moe.dropout``;
+    None: all of them)."""
+
+    part: Part | None = None
 
     def __init__(self, dim: int, num_heads: int, impl: str = "splash", rate: float = 0.0,
                  quant: str | None = None):
@@ -232,28 +242,43 @@ class Attention(nn.Module):
             _quant_buffers(self.proj)
 
     def forward(self, x: torch.Tensor, n_real: int, attention: AttentionFn,
-                gen: torch.Generator | None = None) -> torch.Tensor:
-        B, N, D = x.shape
+                gen: torch.Generator | RowGenerator | None = None) -> torch.Tensor:
         H = self.num_heads
-        dh = D // H
         with remat_tag("qkv"):
-            qkv = _linear(x, self.qkv, self.quant)
+            qkv = self.project_in(x)
+        B, N, D3 = qkv.shape
+        dh = D3 // (3 * H)
         qkv = qkv.view(B, N, 3, H, dh).permute(2, 0, 3, 1, 4)
         q = (qkv[0] * dh**-0.5).contiguous()  # pre-scaled, the kernel's contract
         if self.impl == "dense" or (gen is not None and self.rate > 0):
-            out = dense_attention(q, qkv[1], qkv[2], n_real, self.rate, gen)
+            out = dense_attention(q, qkv[1], qkv[2], n_real, self.rate, gen, self.part)
         else:
             out, _ = attention(q, qkv[1].contiguous(), qkv[2].contiguous(), n_real)
         with remat_tag("attn_out"):
-            out = out.transpose(1, 2).reshape(B, N, D)
-        return _linear(out, self.proj, self.quant)
+            out = out.transpose(1, 2).reshape(B, N, H * dh)
+        return self.project_out(out)
+
+    def project_in(self, x: torch.Tensor) -> torch.Tensor:
+        """The packed qkv product."""
+        return _linear(x, self.qkv, self.quant)
+
+    def project_out(self, x: torch.Tensor) -> torch.Tensor:
+        """The output projection."""
+        return _linear(x, self.proj, self.quant)
 
 
 class Mlp(nn.Module):
     """fc1 → GELU → dropout → fc2 → dropout. With ``hyper`` the dropout
     rate is the f32 buffer ``hyper_rate`` (``HyperDropout``,
     ``dlsc_tpu/models/vit.py:582-615``): a trial's rate, which the vmapped
-    HPO step stacks per trial, read as a tensor (see ``moe.dropout``)."""
+    HPO step stacks per trial, read as a tensor (see ``moe.dropout``).
+    Tensor parallelism's subclass (``parallel/tp.py``) overrides
+    ``project_in`` and ``project_out`` and the parts of the unsplit hidden
+    units (``hidden_part``) and output (``out_part``) whose dropout masks
+    this module draws (None: all of them)."""
+
+    hidden_part: Part | None = None
+    out_part: Part | None = None
 
     def __init__(self, dim: int, ratio: float = 4.0, dropout: float = 0.0,
                  quant: str | None = None, hyper: bool = False):
@@ -270,9 +295,17 @@ class Mlp(nn.Module):
     def forward(self, x: torch.Tensor, gen: torch.Generator | None = None) -> torch.Tensor:
         rate = getattr(self, "hyper_rate", self.rate)
         with remat_tag("fc1"):
-            h = _linear(x, self.fc1, self.quant)
-        h = dropout(F.gelu(h), rate, gen)
-        return dropout(_linear(h, self.fc2, self.quant), rate, gen)
+            h = self.project_in(x)
+        h = dropout(F.gelu(h), rate, gen, part=self.hidden_part)
+        return dropout(self.project_out(h), rate, gen, part=self.out_part)
+
+    def project_in(self, x: torch.Tensor) -> torch.Tensor:
+        """fc1."""
+        return _linear(x, self.fc1, self.quant)
+
+    def project_out(self, x: torch.Tensor) -> torch.Tensor:
+        """fc2."""
+        return _linear(x, self.fc2, self.quant)
 
 
 class Block(nn.Module):
@@ -298,8 +331,11 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, n_real: int, attention: AttentionFn,
                 grouped_matmul: GroupedMatmulFn = gmm_op, topk: TopkFn = topk_routes,
-                seed: int | None = None, add_ln: AddLnFn = add_ln_op):
+                seed: int | None = None, add_ln: AddLnFn = add_ln_op,
+                rows: tuple[int, int] | None = None):
         gen = None if seed is None else torch.Generator(x.device).manual_seed(seed)
+        if gen is not None and rows is not None:
+            gen = RowGenerator(gen, rows[0], rows[0] + x.shape[0], rows[1])
         a = self.attn(_layer_norm(x, self.norm1), n_real, attention, gen)
         if self.ln_fused:
             x, y, _, _ = add_ln(x, a, self.norm2.weight, self.norm2.bias)
@@ -371,6 +407,10 @@ class ASTViT(nn.Module):
         self.attn_dropout = attn_dropout
         self.remat = remat
         self.remat_policy = remat_policy
+        # sequence parallelism (parallel/tp.py) sets a ``TokenShard``, whose
+        # scatter and gather cut the tokens between embed and the blocks and
+        # join them before finalize (the JAX model's ``token_sharding``)
+        self.token_shard = None
         self.patch_stride = patch_stride
         t_dim = int(sample_rate * 10 / 160) + 1  # 10-s clip at hop 160
         self.grid_size = ((f_dim - patch_size) // patch_stride + 1,
@@ -445,38 +485,58 @@ class ASTViT(nn.Module):
         cls = _layer_norm(x[:, 0], self.norm).float()
         return torch.sigmoid(F.linear(cls, self.head.weight, self.head.bias))
 
+    def dropout_seed(self, dropout_seed: int | None) -> int | None:
+        """The step's dropout seed in train mode when something drops (drawn
+        from torch's default generator when not given), else None."""
+        if self.training and (self.hyper_dropout or self.dropout > 0 or self.attn_dropout > 0):
+            return int(torch.randint(2**62, ())) if dropout_seed is None else int(dropout_seed)
+        return None
+
+    def run_block(self, i: int, x: torch.Tensor, n_real: int, attention: AttentionFn,
+                  grouped_matmul: GroupedMatmulFn, topk: TopkFn, seed: int | None,
+                  add_ln: AddLnFn, rows: tuple[int, int] | None):
+        """Block ``i`` on x, rematerialised as the model is configured (train
+        mode with autograd on); its dropout generator seeded by seed + i."""
+        blk = self.blocks[i]
+        args = (x, n_real, attention, grouped_matmul, topk,
+                None if seed is None else seed + i, add_ln, rows)
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(_tagged, blk, *args, use_reentrant=False,
+                              context_fn=_remat_context_fn(self.remat_policy))
+        return blk(*args)
+
     def forward(self, x: torch.Tensor, attention: AttentionFn = fast_mha_lse,
                 grouped_matmul: GroupedMatmulFn = gmm_op, topk: TopkFn = topk_routes,
                 dropout_seed: int | None = None, return_aux: bool = False,
-                add_ln: AddLnFn = add_ln_op):
+                add_ln: AddLnFn = add_ln_op, rows: tuple[int, int] | None = None):
         """Sigmoid outputs (B, num_classes); with ``return_aux``, (outputs,
         aux, stats): the MoE blocks' summed aux loss (0.0 without MoE) and
         their mean ``MOE_METRICS`` stats ({} without MoE). ``attention``,
         ``grouped_matmul``, ``topk`` and ``add_ln`` (read with ``ln_fused``)
         replace the ops (plain versions for a reference run);
         ``dropout_seed`` seeds this call's dropout in train mode (drawn from
-        torch's default generator when None)."""
+        torch's default generator when None). ``rows`` = (start, total):
+        x is the rows [start, start + B) of a global batch of ``total``
+        (a data-parallel rank's share, a microbatch), whose dropout masks
+        it takes (``moe.RowGenerator``). Under sequence parallelism
+        (``parallel/tp.py``) ``token_shard`` cuts the tokens between embed
+        and the blocks and gathers them back before ``finalize``."""
         if self.quant and self.training:
             raise ValueError("quant mode is inference-only: call model.eval() first")
         x, n_real = self.embed(x)
-        remat = self.remat and self.training and torch.is_grad_enabled()
-        context_fn = _remat_context_fn(self.remat_policy)
-        seed = None
-        if self.training and (self.hyper_dropout or self.dropout > 0 or self.attn_dropout > 0):
-            seed = (int(torch.randint(2**62, ())) if dropout_seed is None
-                    else int(dropout_seed))
+        shard = self.token_shard
+        if shard is not None:
+            x = shard.scatter(x)
+        seed = self.dropout_seed(dropout_seed)
         aux, stats = 0.0, []
-        for i, blk in enumerate(self.blocks):
-            args = (x, n_real, attention, grouped_matmul, topk,
-                    None if seed is None else seed + i, add_ln)
-            if remat:
-                x, a, s = checkpoint(_tagged, blk, *args, use_reentrant=False,
-                                     context_fn=context_fn)
-            else:
-                x, a, s = blk(*args)
+        for i in range(len(self.blocks)):
+            x, a, s = self.run_block(i, x, n_real, attention, grouped_matmul, topk, seed,
+                                     add_ln, rows)
             if a is not None:
                 aux = aux + a
                 stats.append(s)
+        if shard is not None:
+            x = shard.gather(x)
         out = self.finalize(x)
         if not return_aux:
             return out

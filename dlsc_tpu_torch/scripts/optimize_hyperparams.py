@@ -31,8 +31,9 @@ with the JAX script's keys: ``optuna.vmapped.k`` (8), ``rounds``,
 ranges by name, e.g. ``'+optuna.vmapped.spaces={model.dropout: {low: 0.0,
 high: 0.5}}'``; the port also reads ``scheduler.T_max`` and
 ``scheduler.warmup_frac`` there). ``optuna.vmapped.mesh=true`` shards the
-trials over several GPUs, which waits for the multi-GPU port (ROADMAP M12):
-with more than one visible GPU it raises; with one it runs as without.
+trials over several GPUs, which waits for the tail of the multi-GPU port
+(ROADMAP M12b): with more than one visible GPU it raises; with one it runs
+as without.
 """
 
 from __future__ import annotations
@@ -89,8 +90,8 @@ def run_vmapped(cfg) -> Study:
     if vm.get("mesh", False) and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             "optuna.vmapped.mesh=true shards the trials over several GPUs, which waits for "
-            "the multi-GPU port (ROADMAP §1 M12); run on one GPU (CUDA_VISIBLE_DEVICES) "
-            "or drop it")
+            "the tail of the multi-GPU port (ROADMAP §1 M12b); run on one GPU "
+            "(CUDA_VISIBLE_DEVICES) or drop it")
 
     datamodule = build_datamodule(cfg)
     built = build_from_cfg(cfg, datamodule.pipeline.cfg)

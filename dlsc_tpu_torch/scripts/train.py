@@ -14,6 +14,16 @@ Smoke run on the CPU (tiny model, few batches):
         +model.depth=2 +model.num_heads=2 trainer.max_epochs=2 batch_size=8 \
         +trainer.limit_train_batches=2 hydra.run.dir=<run dir>
 
+Several devices: ``trainer.devices=N`` (``auto``: every visible GPU) starts
+N ranks, one per device, and joins them (also a single rank, when a
+multi-device layout is asked for on one device); under ``torchrun
+--nproc-per-node N`` the script joins torchrun's group instead. On the CPU,
+``trainer.accelerator=cpu trainer.devices=2`` runs two gloo ranks. Add
+``+trainer.fsdp=true``, ``+trainer.expert_parallel=E`` or
+``+trainer.pipeline_parallel=S`` (``+trainer.pp_microbatches=M``) for the
+other layouts (``dlsc_tpu_torch/parallel``); ``batch_size`` is the global
+batch. Rank 0 writes the checkpoints, the tracker and the output.
+
 The same configs (``configs/``) and override grammar as ``scripts/train.py``,
 and the same flow: compose → seed → datamodule from the dataset config and
 the model's ``dataset_overrides`` → model, loss, optimizer and schedule from
@@ -30,13 +40,18 @@ with ``dlsc_tpu_torch.data.synthetic.make_synthetic_dataset``.
 
 from __future__ import annotations
 
+import os
 import random
 import sys
 from pathlib import Path
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from dlsc_tpu_torch.config import compose, flatten, instantiate
+from dlsc_tpu_torch.parallel.data import is_writer
+from dlsc_tpu_torch.parallel.mesh import init_distributed, spawn
 from dlsc_tpu_torch.tracking import Tracker
 from dlsc_tpu_torch.train.loop import Trainer, build_from_cfg
 
@@ -89,11 +104,15 @@ def run(cfg) -> dict:
     run_dir.mkdir(parents=True, exist_ok=True)
 
     datamodule = build_datamodule(cfg)
-    print(datamodule.summary())
+    writer = is_writer()
+    if writer:
+        print(datamodule.summary())
     built = build_from_cfg(cfg, datamodule.pipeline.cfg)
 
-    tracker = Tracker(cfg.select("logging.experiment_name", default="training"))
-    tracker.log_params({f"cfg_{k}": v for k, v in flatten(cfg.to_dict()).items()})
+    tracker = None
+    if writer:
+        tracker = Tracker(cfg.select("logging.experiment_name", default="training"))
+        tracker.log_params({f"cfg_{k}": v for k, v in flatten(cfg.to_dict()).items()})
 
     ckpt_cfg = cfg.checkpoint.to_dict() if "checkpoint" in cfg else {}
     # a relative dirpath goes under the run dir (reference: callbacks.py:38-56)
@@ -115,6 +134,9 @@ def run(cfg) -> dict:
         pretrained_path=cfg.select("pretrained_path", default=None),
     )
     results = trainer.test(datamodule, criterion=built["criterion"], tracker=tracker)
+    results["trainer"] = trainer
+    if not writer:
+        return results
     tracker.finish()
 
     print("\n=== test results ===")
@@ -123,14 +145,45 @@ def run(cfg) -> dict:
     print(f"run dir: {run_dir}\ntracking: {tracker.run_dir}")
     if trainer.ckpt_manager and trainer.ckpt_manager.best_path:
         print(f"best checkpoint: {trainer.ckpt_manager.best_path}")
-    results["trainer"] = trainer
     return results
+
+
+def n_ranks(cfg) -> tuple[int, str, bool]:
+    """(the ranks that ``trainer.devices`` asks for, their device type,
+    whether to start them: several, or one with a multi-device layout
+    asked for, which then runs on a group of one)."""
+    device_type = "cpu" if str(cfg.select("trainer.accelerator", default="auto")
+                               ).lower() == "cpu" else "cuda"
+    devices = cfg.select("trainer.devices", default="auto")
+    if devices in ("auto", None):
+        n = max(torch.cuda.device_count(), 1) if device_type == "cuda" else 1
+    else:
+        n = int(devices)
+    layout = (bool(cfg.select("trainer.fsdp", default=False))
+              or int(cfg.select("trainer.expert_parallel", default=1)) > 1
+              or int(cfg.select("trainer.pipeline_parallel", default=1)) > 1)
+    return n, device_type, n > 1 or layout
+
+
+def _rank_main(config_path: str, config_name: str, overrides: list[str]) -> dict | None:
+    """One spawned rank: the run; rank 0 returns its test metrics."""
+    results = run(compose(config_path, config_name, overrides))
+    if not is_writer():
+        return None
+    return {k: v for k, v in results.items() if k != "trainer"}
 
 
 def main(argv: list[str] | None = None) -> dict:
     config_path, config_name, overrides = parse_cli(
         list(argv if argv is not None else sys.argv[1:]))
-    return run(compose(config_path, config_name, overrides))
+    cfg = compose(config_path, config_name, overrides)
+    n, device_type, ranks = n_ranks(cfg)
+    if not dist.is_initialized() and "RANK" in os.environ:   # under torchrun
+        init_distributed(device_type=device_type)
+    elif ranks and not dist.is_initialized():
+        return spawn(_rank_main, n, config_path, config_name, overrides,
+                     device_type=device_type, timeout_s=24 * 3600)[0]
+    return run(cfg)
 
 
 if __name__ == "__main__":

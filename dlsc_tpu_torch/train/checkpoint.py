@@ -13,6 +13,13 @@ request, and resume. A checkpoint is a directory holding
 - ``ckpt_meta.json``: ``{"epoch": e, <monitor>: value}``, which the resume
   of the best-k ledger and ``latest_checkpoint`` read.
 
+Under several ranks (``TrainState.parallel``) a checkpoint is the same
+full state dict, gathered from the ranks' shares by every rank and written
+by rank 0 (``Layout.full_state``); a restore reads it on every rank and
+puts each rank's share back (``Layout.load_state``), whatever the number
+of ranks that wrote it. The other ranks wait at a barrier until the files
+are on disk.
+
 ``save_params`` writes a weights-only directory (``params.pt``);
 ``load_params`` reads the model weights of either kind of directory, of a
 ``.pt`` file, or of an ``.npz`` of a flattened Flax ``params`` tree
@@ -30,9 +37,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from dlsc_tpu_torch.models.convert import params_from_npz
+from dlsc_tpu_torch.parallel.data import is_writer
 
 STATE_FILE = "state.pt"
 PARAMS_FILE = "params.pt"
@@ -53,11 +62,31 @@ def _to_cpu(tree: Any) -> Any:
     return tree
 
 
-def _state_dict(state) -> dict:
+def plain_state_dict(state) -> dict:
+    """The checkpoint dict of a state whose model is whole on this process."""
     return {"model": _to_cpu(state.model.state_dict()),
             "optimizer": _to_cpu(state.optimizer.state_dict()),
             "step": int(state.step),
             "generator": state.generator.get_state()}
+
+
+def load_plain_state_dict(state, ck: dict) -> None:
+    state.model.load_state_dict(ck["model"])
+    state.optimizer.load_state_dict(ck["optimizer"])   # moves moments to the params' device
+    state.step = int(ck["step"])
+    state.generator.set_state(ck["generator"])
+
+
+def _state_dict(state) -> dict | None:
+    """The full checkpoint dict on the writing rank, None on the others."""
+    if state.parallel is not None:
+        return state.parallel.full_state(state)
+    return plain_state_dict(state)
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
 
 
 class CheckpointManager:
@@ -120,11 +149,14 @@ class CheckpointManager:
 
     def _write(self, path: Path, state, meta: dict) -> None:
         t0 = time.perf_counter()
-        if path.exists():
-            shutil.rmtree(path)
-        path.mkdir(parents=True)
-        torch.save(_state_dict(state), path / STATE_FILE)
-        (path / META_FILE).write_text(json.dumps(meta))
+        sd = _state_dict(state)   # every rank: gathering may take collectives
+        if sd is not None:
+            if path.exists():
+                shutil.rmtree(path)
+            path.mkdir(parents=True)
+            torch.save(sd, path / STATE_FILE)
+            (path / META_FILE).write_text(json.dumps(meta))
+        _barrier()
         self.write_seconds.append(time.perf_counter() - t0)
 
     # -- save ----------------------------------------------------------------
@@ -149,7 +181,8 @@ class CheckpointManager:
         self._saved.sort(key=lambda t: t[0], reverse=(self.mode == "max"))
         while self.save_top_k > 0 and len(self._saved) > self.save_top_k:
             _, worst = self._saved.pop()
-            shutil.rmtree(worst, ignore_errors=True)
+            if is_writer():
+                shutil.rmtree(worst, ignore_errors=True)
         return path
 
     def save_last_ckpt(self, state, epoch: int, metrics: dict) -> Path:
@@ -175,10 +208,10 @@ def restore_state(path: str | Path, state):
     """Load a checkpoint directory into ``state`` in place (weights,
     optimizer moments, step, generator) and return it."""
     ck = torch.load(Path(path) / STATE_FILE, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(ck["model"])
-    state.optimizer.load_state_dict(ck["optimizer"])   # moves moments to the params' device
-    state.step = int(ck["step"])
-    state.generator.set_state(ck["generator"])
+    if state.parallel is not None:
+        state.parallel.load_state(state, ck)
+    else:
+        load_plain_state_dict(state, ck)
     return state
 
 

@@ -36,10 +36,23 @@ Data reaches the card one of two ways:
   the pinned buffers stay referenced until their batch has been used.
 
 ``trainer.accelerator`` 'auto' (the configs' value) and 'gpu' run on
-``cuda:0`` and raise without a GPU; 'cpu' is an explicit opt-in (the tests'),
-never a fallback. Not ported, each raising ``NotImplementedError`` naming
-ROADMAP §1 M12: ``devices`` > 1, ``fsdp``, ``expert_parallel`` > 1,
-``pipeline_parallel`` > 1. Progress is one line per epoch (no tqdm).
+``cuda:LOCAL_RANK`` (``cuda:0`` in one process) and raise without a GPU;
+'cpu' is an explicit opt-in (the tests'), never a fallback. Progress is one
+line per epoch (no tqdm).
+
+Several devices (``dlsc_tpu_torch/parallel``), with the JAX meanings of
+the options (``dlsc_tpu/train/loop.py:160-251``): ``devices`` N runs on N
+ranks of a process group, one per device ('auto': every visible GPU, or
+the group's size), which ``scripts/train.py`` starts, or torchrun; on the
+CPU N gloo ranks. ``batch_size`` stays the global batch. Plain data
+parallelism is DDP; ``fsdp`` shards parameters and moments (FSDP2);
+``expert_parallel`` E splits each MoE layer's experts over E ranks;
+``pipeline_parallel`` S runs GPipe over S stages with ``pp_microbatches``
+microbatches (default S). The layout is ``TrainState.parallel``. Every
+rank steps through the same batches and draws; metrics are reduced over
+the ranks; rank 0 alone writes checkpoints (the full state dict), the
+tracker and the epoch line. Each rank keeps its own device pool, sized to
+its own card's budget.
 """
 
 from __future__ import annotations
@@ -52,10 +65,15 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dlsc_tpu_torch.data.loader import prefetch
 from dlsc_tpu_torch.data.pipeline import PipelineConfig
 from dlsc_tpu_torch.models.moe import MOE_METRICS
+from dlsc_tpu_torch.parallel import Layout, make_layout, make_plan
+from dlsc_tpu_torch.parallel.data import is_writer
+from dlsc_tpu_torch.parallel.mesh import local_device, world_size
+from dlsc_tpu_torch.parallel.pp import check_batch
 from dlsc_tpu_torch.train import metrics as MT
 from dlsc_tpu_torch.train.checkpoint import (CheckpointManager, latest_checkpoint,
                                              load_params, restore_state)
@@ -67,7 +85,8 @@ from dlsc_tpu_torch.train.steps import (make_eval_step, make_eval_step_indexed,
 
 def resolve_device(accelerator: str = "auto") -> torch.device:
     """``trainer.accelerator`` → the device: 'auto', 'gpu' and 'cuda' are
-    ``cuda:0`` and raise without a GPU; 'cpu' is the CPU."""
+    ``cuda:LOCAL_RANK`` (the rank's card; ``cuda:0`` in one process) and
+    raise without a GPU; 'cpu' is the CPU."""
     acc = str(accelerator).lower()
     if acc in ("auto", "gpu", "cuda"):
         if not torch.cuda.is_available():
@@ -75,7 +94,7 @@ def resolve_device(accelerator: str = "auto") -> torch.device:
                 f"trainer.accelerator={accelerator!r} needs a GPU, and "
                 "torch.cuda.is_available() is False; pass trainer.accelerator=cpu to run "
                 "on the CPU")
-        return torch.device("cuda", 0)
+        return local_device("cuda")
     if acc == "cpu":
         return torch.device("cpu")
     raise ValueError(f"trainer.accelerator={accelerator!r}: the port runs on 'gpu' "
@@ -181,21 +200,22 @@ class Trainer:
                                                 # on when it fits the budget)
         device_data_max_bytes: int | None = None,  # explicit pool cap; None: the
                                                    # budget from the card's free memory
-        fsdp: bool = False,
-        expert_parallel: int = 1,
-        pipeline_parallel: int = 1,
+        fsdp: bool = False,              # params + Adam moments sharded (FSDP2)
+        expert_parallel: int = 1,        # ranks each MoE layer's experts are split over
+        pipeline_parallel: int = 1,      # GPipe stages of the ViT encoder
+        pp_microbatches: int | None = None,   # GPipe microbatches (default: the stages)
         accumulate_grad_batches: int = 1,  # micro-batches of each batch, one update
         **_: Any,
     ):
-        if devices not in ("auto", None) and int(devices) != 1:
-            raise NotImplementedError(f"trainer.devices={devices}: multi-GPU training is not "
-                                      "ported yet (ROADMAP §1 M12)")
-        for name, value, off in (("fsdp", fsdp, False), ("expert_parallel", int(expert_parallel), 1),
-                                 ("pipeline_parallel", int(pipeline_parallel), 1)):
-            if value != off:
-                raise NotImplementedError(f"trainer.{name}={value} is not ported yet "
-                                          "(ROADMAP §1 M12)")
+        self.n_devices = self._check_devices(devices, accelerator, fsdp, int(expert_parallel),
+                                             int(pipeline_parallel))
         self.device = resolve_device(accelerator)
+        self.fsdp = bool(fsdp)
+        self.expert_parallel = int(expert_parallel)
+        self.pipeline_parallel = int(pipeline_parallel)
+        self.pp_microbatches = int(pp_microbatches or self.pipeline_parallel)
+        self.plan = make_plan(self.device.type, self.n_devices, self.expert_parallel,
+                              self.pipeline_parallel)
         self.max_epochs = max_epochs
         self.precision = str(precision)
         self.gradient_clip_val = gradient_clip_val
@@ -224,17 +244,69 @@ class Trainer:
         self._pool_dev = self._test_pool_dev = None
         self._train_step = self._eval_step = None
 
+    # -- devices ---------------------------------------------------------------
+    @staticmethod
+    def _check_devices(devices, accelerator, fsdp: bool, ep: int, pp: int) -> int:
+        """The number of devices, after the JAX Trainer's checks
+        (``dlsc_tpu/train/loop.py:216-251``) and the port's own: one rank
+        per device, in a process group that this process has joined."""
+        gpu = str(accelerator).lower() != "cpu"
+        visible = torch.cuda.device_count() if gpu else None
+        if devices in ("auto", None):
+            # every visible GPU; none: one, and resolve_device raises
+            n = world_size() if dist.is_initialized() else (max(visible, 1) if gpu else 1)
+        else:
+            n = int(devices)
+        if gpu and n > max(visible, 1):   # one device without a GPU: resolve_device raises
+            raise ValueError(f"trainer.devices={n} but {visible} GPU(s) are visible")
+        if pp > 1:
+            if ep > 1:
+                raise ValueError(
+                    "pipeline_parallel does not compose with expert_parallel (the pipeline "
+                    "stages hold whole blocks; parallel/pp.py) — MoE models still run under "
+                    "PP, with experts local to each stage")
+            if fsdp:
+                raise ValueError("pipeline_parallel does not compose with fsdp: stage sharding "
+                                 "already partitions the encoder params (the dominant memory); "
+                                 "pick one")
+        for name, k in (("pipeline_parallel", pp), ("expert_parallel", ep)):
+            if n < k:
+                raise ValueError(f"{name}={k} needs at least that many devices (have {n})")
+        if n > 1 and n != world_size():
+            raise ValueError(
+                f"trainer.devices={n} runs one rank per device, and this process group has "
+                f"{world_size()}: start the ranks with `python -m dlsc_tpu_torch.scripts.train "
+                f"trainer.devices={n}`, `torchrun --nproc-per-node {n}` or "
+                "dlsc_tpu_torch.parallel.mesh.spawn")
+        return max(n, 1)
+
+    def _layout(self, model, datamodule) -> Layout | None:
+        """The model's layout over the ranks (None in one process)."""
+        if self.pipeline_parallel > 1:
+            check_batch(datamodule.batch_size, self.plan.n_data, self.pp_microbatches)
+            S, M = self.pipeline_parallel, self.pp_microbatches
+            if is_writer():
+                print(f"[pp] pipeline parallelism: {S} stages × {self.plan.n_data} data "
+                      f"shards, {M} microbatches (bubble {(S - 1) / (M + S - 1):.0%})")
+        return make_layout(model, self.plan, self.device, fsdp=self.fsdp,
+                           expert_parallel=self.expert_parallel,
+                           pipeline_parallel=self.pipeline_parallel, n_micro=self.pp_microbatches)
+
     # -- state -----------------------------------------------------------------
     def init_state(self, model, datamodule, optim_spec: OptimizerSpec,
                    sched_spec: SchedulerSpec | None, swa_lr_cfg: dict | None = None
                    ) -> TrainState:
-        """The model on the trainer's device, its optimizer, the LR schedule
-        over the datamodule's steps per epoch, and a generator seeded by
-        ``seed``."""
+        """The model on the trainer's device, laid out over the ranks
+        (``_layout``), its optimizer over this rank's parameters, the LR
+        schedule over the datamodule's steps per epoch, and a generator
+        seeded by ``seed``."""
         model.to(self.device)
-        return TrainState.create(model, optim_spec, sched_spec,
-                                 max(datamodule.steps_per_epoch, 1), self.gradient_clip_val,
-                                 seed=self.seed, swa=swa_lr_cfg)
+        layout = self._layout(model, datamodule)
+        state = TrainState.create(model, optim_spec, sched_spec,
+                                  max(datamodule.steps_per_epoch, 1), self.gradient_clip_val,
+                                  seed=self.seed, swa=swa_lr_cfg)
+        state.parallel = layout
+        return state
 
     def _make_steps(self, pipeline, criterion) -> None:
         indexed = self._use_device_data
@@ -318,8 +390,9 @@ class Trainer:
         self._test_pool_dev = self._upload([test_w])
         self._use_device_data = True
         self._sync()
-        print(f"[data] device-resident pool: {nbytes / 1e6:.0f} MB uploaded in "
-              f"{time.perf_counter() - t0:.2f} s (per-step transfer: indices and labels)")
+        if is_writer():
+            print(f"[data] device-resident pool: {nbytes / 1e6:.0f} MB uploaded in "
+                  f"{time.perf_counter() - t0:.2f} s (per-step transfer: indices and labels)")
 
     # -- fit -------------------------------------------------------------------
     def fit(
@@ -346,7 +419,11 @@ class Trainer:
         state = self.init_state(model, datamodule, optim_spec, sched_spec,
                                 swa_lr_cfg=swa.lr_cfg if swa else None)
         if pretrained_path:
-            state.model.load_state_dict(load_params(pretrained_path, state.model))
+            sd = load_params(pretrained_path, state.model)
+            if state.parallel is not None:
+                state.parallel.load_model_state(sd)
+            else:
+                state.model.load_state_dict(sd)
             print(f"Warm start: params loaded from {pretrained_path}")
         ckpt_cfg = dict(checkpoint_cfg or {})
         dirpath = ckpt_cfg.pop("dirpath", self.checkpoint_dir)
@@ -358,7 +435,11 @@ class Trainer:
         if ckpt_path:
             restore_state(ckpt_path, state)
             print(f"Resumed from {ckpt_path} at step {state.step}")
-        extras = MOE_METRICS if getattr(state.model, "config", {}).get("moe") else ()
+        # the MoE stats stream as in JAX, which cannot surface them under PP
+        extras = (MOE_METRICS if getattr(state.model, "config", {}).get("moe")
+                  and self.pipeline_parallel == 1 else ())
+        layout = state.parallel
+        tracker = tracker if is_writer() else None
         self._setup_device_data(datamodule)
         self._make_steps(pipeline, criterion)
         self.ckpt_manager = (
@@ -406,11 +487,13 @@ class Trainer:
                 batches.close()   # stop the prefetch thread now
                 self._sync()
             dt = time.perf_counter() - t0
+            if layout is not None:
+                ms = layout.reduce_metrics(ms)
             metrics = {
                 "train/acc": float(MT.accuracy(ms)),
                 "train/loss": float(MT.mean_loss(ms)),
                 "lr": float(state.lr_fn(state.step)),
-                "perf/clips_per_sec_per_chip": n_clips / dt,
+                "perf/clips_per_sec_per_chip": n_clips / dt / world_size(),
             }
             metrics.update({k: float(v) for k, v in ms.extra_means().items()})
 
@@ -424,6 +507,8 @@ class Trainer:
                         break
                     args, _keep = self._step_args(batch, train=False)
                     vms, _ = self._eval_step(state, vms, *args)
+                if layout is not None:
+                    vms = layout.reduce_metrics(vms)
                 if int(vms.count) > 0:
                     metrics["val/acc"] = float(MT.accuracy(vms))
                     metrics["val/loss"] = float(MT.mean_loss(vms))
@@ -432,8 +517,9 @@ class Trainer:
             history.append({"epoch": epoch, **metrics})
             if tracker:
                 tracker.log_metrics(metrics, step=epoch)
-            msg = " ".join(f"{k}={v:.4f}" for k, v in metrics.items())
-            print(f"[epoch {epoch}] {msg}", flush=True)
+            if is_writer():
+                msg = " ".join(f"{k}={v:.4f}" for k, v in metrics.items())
+                print(f"[epoch {epoch}] {msg}", flush=True)
 
             if self.ckpt_manager and "val/acc" in metrics:
                 self.ckpt_manager.save(state, epoch, metrics)
@@ -479,15 +565,20 @@ class Trainer:
             return
         pipeline = datamodule.pipeline
         model.train()
+        layout = state.parallel
         for i, batch in enumerate(datamodule.train_batches(epoch=0, seed=self.seed)):
             if self.limit_train_batches and i >= self.limit_train_batches:
                 break
             wave = torch.as_tensor(batch["wave"], device=self.device)
             labels = torch.as_tensor(batch["label"], device=self.device)
             rng = state.step_rng()
-            x, _ = pipeline.train_batch(wave, labels,
-                                        pipeline.draw(len(labels), wave.shape[-1], rng))
-            model(x, dropout_seed=int(rng.integers(2**62)))
+            B = len(labels)
+            lo, hi = (0, B) if layout is None else layout.plan.rows(B)
+            x, _ = pipeline.train_batch_rows(wave, labels,
+                                             pipeline.draw(B, wave.shape[-1], rng), lo, hi)
+            (model if layout is None else layout.module)(
+                x, dropout_seed=int(rng.integers(2**62)),
+                rows=None if layout is None or layout.plan.n_batch == 1 else (lo, B))
         self._sync()
 
     # -- test ------------------------------------------------------------------
@@ -515,14 +606,20 @@ class Trainer:
         all_probs, all_labels = [], []
         tit = (datamodule.test_index_batches() if self._use_device_data
                else datamodule.test_batches())
+        layout = state.parallel
         for batch in tit:
             args, _keep = self._step_args(batch, train=False)
             ms, logits = self._eval_step(state, ms, *args)
+            if layout is not None:   # the global batch's outputs, for AUROC
+                logits = layout.gather_rows(logits, len(batch["mask"]))
             keep = batch["mask"]
             all_probs.append(torch.softmax(logits.float(), -1).cpu().numpy()[keep])
             all_labels.append(batch["label"][keep])
         probs = np.concatenate(all_probs)
         labels = np.concatenate(all_labels)
+        if layout is not None:
+            ms = layout.reduce_metrics(ms)
+        tracker = tracker if is_writer() else None
         confmat = ms.confmat.cpu().numpy()
         results = {
             "test/acc": float(MT.accuracy(ms)),

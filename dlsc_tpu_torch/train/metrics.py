@@ -52,6 +52,25 @@ class MetricState:
         return {k: v / b for k, v in self.extra_sums.items()}
 
     @torch.no_grad()
+    def reduced(self, group) -> "MetricState":
+        """The state of the global batch from the ranks' states of their
+        rows (``group``: the data-parallel ranks, ``parallel/``): the
+        confusion matrix, loss sum and sample count summed. Batches count
+        global steps and the extras (the MoE stats) are the global batch's
+        already, so both are kept."""
+        if group is None:
+            return self
+        import torch.distributed as dist
+
+        flat = torch.cat([self.confmat.flatten().double(), self.loss_sum.double()[None],
+                          self.count.double()[None]])
+        dist.all_reduce(flat, group=group)
+        C = self.confmat.shape[0]
+        return MetricState(flat[:C * C].round().long().view(C, C),
+                           flat[C * C].float(), flat[C * C + 1].round().long(),
+                           self.batches, self.extra_sums)
+
+    @torch.no_grad()
     def update(self, logits: torch.Tensor, hard_labels: torch.Tensor, loss: torch.Tensor,
                mask: torch.Tensor | None = None) -> "MetricState":
         """``loss`` is the batch's mean over valid samples; it is weighted by

@@ -7,13 +7,20 @@ updates them where they lie).
 
 The pipeline's random draws come from ``generator``, an explicit
 ``torch.Generator``: each step seeds one ``numpy.random.Generator`` from it
-(``step_rng``), which draws the step's B-sized vectors on the host.
+(``step_rng``), which draws the step's B-sized vectors on the host. Every
+rank of a data-parallel run seeds it alike, so all draw the same.
+
+``parallel`` is the model's layout over the ranks (``dlsc_tpu_torch.parallel``:
+DDP, FSDP, expert or pipeline parallelism), None on one process: it runs
+the forward (``parallel.module``), reduces the gradients it does not reduce
+in the backward (``sync_grads``), clips by the norm over all the ranks'
+shares (``clip_``), and gathers and scatters checkpoints.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -31,6 +38,7 @@ class TrainState:
     generator: torch.Generator
     clip: float | None = None   # global-norm clip ahead of the update
     step: int = 0               # optimizer steps taken
+    parallel: Any = None        # the layout over the ranks, or None
 
     @classmethod
     def create(cls, model: nn.Module, optim: OptimizerSpec, sched: SchedulerSpec | None,
@@ -54,8 +62,12 @@ class TrainState:
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.parallel is not None:
+            self.parallel.sync_grads()
         grads = [p.grad for p in params]
-        if self.clip:
+        if self.clip and self.parallel is not None:
+            self.parallel.clip_(self.clip)
+        elif self.clip:
             clip_by_global_norm_(grads, self.clip)
         lr = self.lr_fn(self.step)
         for group in self.optimizer.param_groups:

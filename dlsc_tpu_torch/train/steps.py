@@ -28,9 +28,24 @@ The step's random draws, and the seed of its dropout masks, come from
 sequences, one entry per micro-batch. The ``*_indexed`` steps take the
 waveforms from a pool on the device (the Trainer's device-resident
 dataset) by an index vector.
+
+Under data parallelism (``state.parallel``, ``parallel/``) ``wave`` and
+``labels`` are still the global batch, as under the JAX mesh, and so are
+the draws and the dropout seed: every rank draws the same. A rank computes
+the inputs of its rows (``DevicePipeline.train_batch_rows``), runs the
+model on them with ``rows=`` so that its dropout masks are the global
+batch's, and its loss is the mean over its rows: the ranks' gradients,
+averaged by DDP (or reduced by FSDP, or by ``parallel.sync_grads``), are
+the global batch's. BatchNorm statistics and the MoE aux loss are reduced
+over the ranks inside the model. ``accum`` micro-batches are slices of the
+global batch, each split over the ranks. Under pipeline parallelism the
+step is ``parallel/pp.py``'s GPipe schedule. The eval step computes the
+metrics of the rank's rows; the Trainer reduces the metric states.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 from typing import Callable
 
@@ -62,7 +77,8 @@ def make_train_step(pipeline: DevicePipeline, criterion: Callable, accum: int = 
         rng = state.step_rng() if draws is None or dropout_seed is None else None
         if accum == 1:
             draws, dropout_seed = [draws], [dropout_seed]
-        model = state.model.train()
+        par = state.parallel
+        state.model.train()
         loss_sum = 0.0
         for i in range(accum):
             w, lab = wave[i * mb:(i + 1) * mb], labels[i * mb:(i + 1) * mb]
@@ -70,14 +86,27 @@ def make_train_step(pipeline: DevicePipeline, criterion: Callable, accum: int = 
                 else draws[i]
             seed = int(rng.integers(2**62)) if dropout_seed is None or dropout_seed[i] is None \
                 else dropout_seed[i]
-            x, y = pipeline.train_batch(w, lab, d)
-            logits, aux, stats = model(x, dropout_seed=seed, return_aux=True, **ops)
-            loss = criterion(logits, y) + aux
-            (loss / accum).backward()   # accum 1: the same gradients, bit for bit
-            loss = loss.detach()
+            if par is not None and par.runs_step:
+                loss, logits, y, stats = par.train_micro(pipeline, criterion, w, lab, d, seed,
+                                                         accum, ops)
+            else:
+                lo, hi = (0, mb) if par is None else par.plan.rows(mb)
+                x, y = pipeline.train_batch_rows(w, lab, d, lo, hi)
+                rows = None if par is None or par.plan.n_batch == 1 else (lo, mb)
+                module = state.model if par is None else par.module
+                last = i == accum - 1
+                with (par.no_sync() if par is not None and not last
+                      else contextlib.nullcontext()):
+                    logits, aux, stats = module(x, dropout_seed=seed, return_aux=True,
+                                                rows=rows, **ops)
+                    loss = criterion(logits, y) + aux
+                    (loss / accum).backward()   # accum 1: the same gradients, bit for bit
+                loss = loss.detach()
             ms = ms.update(logits.detach(), y.argmax(-1), loss).add_extras(stats)
             loss_sum = loss_sum + loss
         state.apply_gradients()
+        if par is not None:   # the global batch's loss, as the one-process step's
+            loss_sum = par.mean_over_batch(loss_sum)
         return state, ms, loss_sum / accum
 
     return train_step
@@ -104,10 +133,17 @@ def make_eval_step(pipeline: DevicePipeline, criterion: Callable) -> Callable:
     def eval_step(state: TrainState, ms: MetricState, wave: torch.Tensor,
                   labels: torch.Tensor, mask: torch.Tensor):
         with torch.no_grad():
-            model = state.model.eval()
+            par = state.parallel
+            state.model.eval()
+            if par is not None:   # this rank's rows of the global batch
+                lo, hi = par.plan.rows(wave.shape[0])
+                wave, labels, mask = wave[lo:hi], labels[lo:hi], mask[lo:hi]
             x = pipeline.eval_batch(wave)
             y = one_hot(labels.to(x.device), pipeline.cfg.num_classes)
-            logits = pipeline.forward_eval(model, x)
+            if par is not None and par.runs_step:
+                logits = par.eval_forward(pipeline, x)
+            else:
+                logits = pipeline.forward_eval(state.model if par is None else par.module, x)
             loss = criterion(logits, y, mask=mask.to(x.device, torch.float32))
             return ms.update(logits, y.argmax(-1), loss, mask=mask), logits
 

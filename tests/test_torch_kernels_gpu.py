@@ -736,3 +736,52 @@ def test_vmapped_runner_step_through_the_kernels(cuda_device, tmp_path):
     assert (MK.launches, A.launches, A.bwd_launches) == (1, depth, depth)
     assert (LN.launches, LN.bwd_launches) == (2 * depth, 2 * depth)
     assert torch.isfinite(st.flat).all() and ((st.flat - before).abs().amax(1) > 0).all()
+
+
+@pytest.mark.parametrize("layout", ["ddp", "fsdp"])
+def test_data_parallel_layouts_at_one_rank_over_nccl(layout, cuda_device, tmp_path):
+    """DDP and FSDP (``dlsc_tpu_torch.parallel``) on a process group of one
+    NCCL rank: one train step of a small ViT with ``ln_fused`` (f32) launches
+    K2 and K3 through the layout and gives the one-process step's
+    parameters within 1e-6 normalised (the same kernels on the same rows;
+    the gradients cross an all-reduce or reduce-scatter of one rank)."""
+    import torch.distributed as dist
+
+    from dlsc_tpu_torch import parallel
+
+    def run(par: bool):
+        model = ASTViT(num_classes=5, emb_dim=128, depth=2, num_heads=2, dtype=torch.float32,
+                       ln_fused=True, remat=True, remat_policy="attn_res", device=cuda_device,
+                       generator=torch.Generator().manual_seed(0))
+        lay = None
+        if par:
+            plan = parallel.MeshPlan(parallel.get_mesh(1, 1, "cuda"))
+            lay = parallel.make_layout(model, plan, cuda_device, fsdp=layout == "fsdp")
+        state = TrainState.create(model, sgd(lr=0.1), None, 1)
+        state.parallel = lay
+        pipe = DevicePipeline(PipelineConfig(mode="ast", num_classes=5, enable_mixup=True))
+        rng = np.random.default_rng(0)
+        wave = torch.from_numpy((rng.standard_normal((2, 44_100)) * 0.3).astype(np.float32))
+        before = (A.launches, A.bwd_launches, LN.launches, LN.bwd_launches)
+        _, _, loss = make_train_step(pipe, CrossEntropyLoss())(
+            state, MetricState.create(5, cuda_device), wave.to(cuda_device),
+            torch.tensor([1, 3], device=cuda_device), pipe.draw(2, 44_100, rng), 7)
+        torch.cuda.synchronize()
+        after = (A.launches, A.bwd_launches, LN.launches, LN.bwd_launches)
+        full = (lay.full_state(state)["model"] if lay is not None
+                else {k: v.detach().cpu() for k, v in model.state_dict().items()})
+        return loss.item(), full, [b - a for a, b in zip(before, after)]
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        loss, got, launches = run(True)
+    finally:
+        dist.destroy_process_group()
+    want_loss, want, _ = run(False)
+    assert all(n > 0 for n in launches), launches
+    assert loss == pytest.approx(want_loss, rel=1e-6)
+    for k, v in want.items():
+        if v.is_floating_point():
+            assert _norm_err(got[k].float(), v.float()) < 1e-6 if v.abs().max() > 0 else \
+                torch.equal(got[k], v), k

@@ -234,8 +234,19 @@ def test_moe_spec_takes_every_jax_pair():
                       (dict(group_size=0), "group_size"), (dict(top_k=5), "top_k")):
         with pytest.raises(ValueError, match=match):
             TM.MoeSpec(4, **kw)
-    with pytest.raises(NotImplementedError, match="M12"):
-        ASTMoE(emb_dim=32, depth=1, num_heads=2, n_experts=4, expert_sharding=object())
+    # expert_sharding keeps one rank's share of each layer's experts (here the
+    # second half of 4) and lowers the ragged dispatch to einsum, as in JAX
+    from dlsc_tpu_torch.parallel.ep import ExpertSharding
+
+    full, half = (ASTMoE(emb_dim=32, depth=1, num_heads=2, n_experts=4, expert_sharding=sh,
+                         generator=torch.Generator().manual_seed(0))
+                  for sh in (None, ExpertSharding(None, 1, 2)))
+    moe, full_moe = half.blocks[0].moe, full.blocks[0].moe
+    assert moe.wi.shape[0] == 2 and torch.equal(moe.wi, full_moe.wi[2:])
+    assert moe.spec.dispatch == "einsum" and half.config["moe"]["dispatch"] == "ragged"
+    with pytest.raises(ValueError, match="n_experts=4 must be divisible"):
+        ASTMoE(emb_dim=32, depth=1, num_heads=2, n_experts=4,
+               expert_sharding=ExpertSharding(None, 0, 3))
 
 
 @pytest.mark.parametrize("route", ["einsum", "scatter", "expert"])

@@ -41,6 +41,8 @@ from dlsc_tpu_torch.data.synthetic import make_synthetic_dataset
 from dlsc_tpu_torch.models.ast import ASTModel
 from dlsc_tpu_torch.models.convert import params_from_jax
 from dlsc_tpu_torch.models.vit import ASTViT
+from dlsc_tpu_torch.parallel import MeshPlan, make_layout
+from dlsc_tpu_torch.parallel.pp import check_batch
 from dlsc_tpu_torch.train import checkpoint as C
 from dlsc_tpu_torch.train import losses as L
 from dlsc_tpu_torch.train import metrics as M
@@ -365,11 +367,35 @@ def test_accelerator_auto_raises_without_a_gpu():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(devices=2), dict(fsdp=True), dict(expert_parallel=2),
-                                dict(pipeline_parallel=2)])
-def test_multi_device_options_name_m12(kw):
-    with pytest.raises(NotImplementedError, match="M12"):
-        Trainer(accelerator="cpu", **kw)
+def _moe_model(n_experts=4):
+    from dlsc_tpu_torch.models.ast_moe import ASTMoE
+
+    return ASTMoE(num_classes=C_, emb_dim=32, depth=1, num_heads=2, n_experts=n_experts,
+                  dtype=torch.float32)
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: Trainer(accelerator="cpu", pipeline_parallel=2, expert_parallel=2),
+     "does not compose with expert_parallel"),
+    (lambda: Trainer(accelerator="cpu", pipeline_parallel=2, fsdp=True),
+     "does not compose with fsdp"),
+    (lambda: Trainer(accelerator="gpu", devices=max(torch.cuda.device_count(), 1) + 1),
+     "GPU\\(s\\) are visible"),
+    (lambda: make_layout(ASTModel(**SMALL, dtype=torch.float32), MeshPlan(),
+                         torch.device("cpu"), expert_parallel=2), "requires a MoE model"),
+    (lambda: check_batch(8, 2, 3), "must be divisible by data-parallel degree \\(2\\) × "
+                                   "pp_microbatches \\(3\\)"),
+    (lambda: make_layout(_moe_model(4), MeshPlan(), torch.device("cpu"), expert_parallel=3),
+     "n_experts=4 must be divisible by trainer.expert_parallel=3"),
+    (lambda: Trainer(accelerator="cpu", devices=2), "one rank per device"),
+], ids=["pp+ep", "pp+fsdp", "devices>gpus", "ep-without-moe", "batch%(data*micro)",
+        "experts%ep", "devices-without-ranks"])
+def test_multi_device_option_errors(make, match):
+    """The JAX Trainer's errors (``dlsc_tpu/train/loop.py:221-247``,
+    ``:466-474``, ``:584-596``) and the port's own: N devices need N ranks
+    of a process group (``scripts/train.py`` starts them)."""
+    with pytest.raises(ValueError, match=match):
+        make()
 
 
 def test_device_pool_upload_and_cap(root):
