@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small, AST-Mini, EnvNet-v2, the spectrogram CNN and LEAF serving and training, its training entry point, AST's remat policies, the timm/DeiT weight import, int8 serving, AST-MoE's capacity dispatches and expert-choice router, the HPO layer and its vmapped multi-trial runner, and its multi-device layer, on the visible GPUs (one by default).
+"""Drive the PyTorch/CUDA port (dlsc_tpu_torch) of AST-Base, AST-MoE, AST-Small, AST-Mini, EnvNet-v2, the spectrogram CNN and LEAF serving and training, its training entry point, AST's remat policies, the timm/DeiT weight import, int8 serving, AST-MoE's capacity dispatches and expert-choice router, the HPO layer and its vmapped multi-trial runner (its trials over ranks too), its multi-device layer (MoE blocks under tensor parallelism too) and its counter-based dropout draw, on the visible GPUs (one by default).
 
     python3 chip_smoke.py [--seed 0]
 
 Phases, each printing its own lines; any failure raises (exit code != 0):
 
 0. start-up: require CUDA, print the card's name and power limit, turn TF32
-   off for matmuls and cuDNN, build the five kernel sources from csrc/ (one
+   off for matmuls and cuDNN, build the six kernel sources from csrc/ (one
    nvcc each, all at once);
 1. kernel K1 (mel power, an FFT in shared memory): registers and no spill
    (``-Xptxas -v``, printed); against its plain version, both mel configs
@@ -48,7 +48,9 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    and both tgmm, bf16 with the group sizes of a real router draw and with
    a skewed set, each also by graph replay (K4b: both of its kernels) beside
    ``torch._grouped_mm``'s, with its share of the bound, and two calls
-   bit-identical, f32 at one shape;
+   bit-identical, f32 at one shape; then each product at F/2 (a
+   tensor-parallel rank's, phase 31) by graph replay beside
+   ``torch._grouped_mm``;
 9. AST-MoE serving: exported with seeded weights, loaded on the card, one
    batch of 8 clips (per device batch K1 1, K2f 12, gmm 24, K2b and tgmm
    0), held against the same weights in f32 with plain attention and plain
@@ -60,6 +62,14 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     (``ExpertTokens``; in the last block only the CLS token's): every
     parameter changed, and every expert that got such a token; the experts
     that got none are printed and counted; then the bench's profiled record;
+10b. the dropout draw (``csrc/dropout_draw.cu``, Philox4x32-10; no TPU
+    kernel): registers and no spill; bit-equal to its plain version at
+    AST-Base's MLP sites and AST-MoE's experts' (sorted rows) and output
+    sites at batch 64 in bf16, in f32, in its keep-mask mode, at a rank's
+    rows and units of the unsplit draw, and under its vmap rule (4 trials
+    in one launch); each site timed beside the plain version, the
+    ``torch.rand`` draw it replaced and ``F.dropout``. Every phase counts
+    the draw's launches (one a site, forward, re-forward and backward);
 11. AST-MoE card parity of one train step at batch 4, dropout 0.1 with one
     seed: f32 kernels vs f32 plain ops, and bf16 kernels (remat
     ``attn_res``) vs bf16 plain ops that round where the TPU kernels round
@@ -130,7 +140,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 22. each family exported by ``scripts/export.py`` and serving a batch of 8
     (K1 once for the CNN), EnvNet-v2 with ten test crops over HTTP, then
     every row of ``scripts/bench_infer.py`` (the AST family's, these and the
-    10 int8 rows; the batch-1 rows at 100 calls, not the bench's 1000), each
+    10 int8 rows; the batch-1 rows at 100 calls, not the bench's 1000, the
+    others at 10, not 20), each
     row's device time (graph replay) at most its median
     latency; each int8 row's sigmoid outputs against the bf16 row of its
     model and batch from the same float weights (0.05 w8a8, 0.06 w8);
@@ -187,7 +198,9 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     vmapped step at K 2 (AST-Base widths, depth 2, draws replayed) against
     each trial's step in plain ops on the CPU: loss, the clipped gradient
     and its square (Adam's moments) and the parameter change where the
-    gradient sets it, 1e-4;
+    gradient sets it, 1e-4; the AST-Base step timed again without dropout
+    (per-trial dropout's cost); the study passes ``optuna.vmapped.mesh``,
+    which on one card runs in one process;
 29. the multi-device layer (``dlsc_tpu_torch/parallel``) at W = the
     visible cards over NCCL, the ranks started by ``parallel.mesh.spawn``:
     DDP, FSDP, TP (degree W), PP (W stages, 2 microbatches) on AST-Base
@@ -202,10 +215,21 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 30. two DDP ranks on the one card over gloo (CUDA tensors; NCCL refuses two
     ranks on one device): AST-Base bf16 with SpecAugment and Mixup, batch
     16 = 2 x 8, against the one-process step; each rank launches K1 once,
-    K2f and K2b 12 times a step. It measures no interconnect.
+    K2f and K2b 12 times a step. It measures no interconnect;
+31. two ranks on the one card over gloo: AST-MoE (full width and depth,
+    ragged, dropout 0.1) under tensor parallelism 2 (each rank half of
+    every expert's hidden units: K4a and K4b at F/2), 2 steps at batch 16
+    in f32 and in bf16 against the one-process step on the same routes
+    (f32 1e-4, bf16 5e-2: the partial outputs are rounded to bf16 before
+    the sum), the launches per rank per step; then a vmapped AST-Base study
+    (bf16, ``ln_fused``, K 4 = 2 a rank, per-trial dropout and mixup α, 3
+    steps at batch 8 a trial) through ``VmappedTrialRunner(plan=...)``
+    against the same study in one process: the trials equal, each trial's
+    accuracies within one validation sample, its parameters within 1e-3 of
+    their largest, the launches exact. It measures no interconnect.
 
-``python3 chip_smoke.py --multi-device`` runs phases 29 and 30 alone (after
-the build, with its own copy of phase 18's shards).
+``python3 chip_smoke.py --multi-device`` runs phases 29, 30 and 31 alone
+(after the build, with its own copy of phase 18's shards).
 
 Routes: a near-tie between two router gates flips a token's expert under a
 perturbation as small as bf16 rounding, and a flipped route moves a whole
@@ -230,6 +254,7 @@ import copy
 import dataclasses
 import functools
 import http.client
+import itertools
 import json
 import os
 import re
@@ -255,7 +280,7 @@ from dlsc_tpu_torch.models.layers import BatchNorm
 from dlsc_tpu_torch.models.moe import MOE_METRICS, as_moe_spec
 from dlsc_tpu_torch.models.moe import capacity as moe_capacity
 from dlsc_tpu_torch.models.vit import ASTViT
-from dlsc_tpu_torch.ops import attn_fast, mel_kernel
+from dlsc_tpu_torch.ops import attn_fast, dropout_draw, mel_kernel
 from dlsc_tpu_torch.ops import gmm as gmm_ops
 from dlsc_tpu_torch.ops import ln_fused
 from dlsc_tpu_torch.ops import mel as M
@@ -278,6 +303,8 @@ N_PAD, N_REAL = 1664, 1645  # AST-Base tokens at 5 s, padded to the 128 grain
 SERVE_BATCH = 8
 BURST = 16              # concurrent /predict_raw requests, plus one /predict
 LATENCY_SAMPLES = 100   # batch-1 calls timed: p90 has 10 samples beyond it
+SERVING_ROW_CALLS = 10  # phase 22's batched bench_infer rows (the bench's own: 20), which
+                        # keeps the script near 1000 s of its 1200-s limit
 TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 64, 2, 10
 PARITY_BATCH = 4
 AST_MOE = bench.AST_MOE  # configs/model/ast_moe.yaml, written out
@@ -423,18 +450,34 @@ def _reset_launches() -> None:
     attn_fast.reset_launches()
     gmm_ops.reset_launches()
     ln_fused.reset_launches()
+    dropout_draw.reset_launches()
 
 
 def _launch_counts() -> dict:
     """Every kernel's launches since the last ``_reset_launches``."""
     return dict(k1=mel_kernel.launches, k2f=attn_fast.launches, k2b=attn_fast.bwd_launches,
                 gmm=gmm_ops.launches, tgmm=gmm_ops.tgmm_launches, k3f=ln_fused.launches,
-                k3b=ln_fused.bwd_launches)
+                k3b=ln_fused.bwd_launches, drop=dropout_draw.launches)
 
 
-def _counts(k1=0, k2f=0, k2b=0, gmm=0, tgmm=0, k3f=0, k3b=0) -> dict:
-    """The launch counts a path must show, every kernel named."""
-    return dict(k1=k1, k2f=k2f, k2b=k2b, gmm=gmm, tgmm=tgmm, k3f=k3f, k3b=k3b)
+def _counts(k1=0, k2f=0, k2b=0, gmm=0, tgmm=0, k3f=0, k3b=0, drop=0) -> dict:
+    """The launch counts a path must show, every kernel named. ``drop``: the
+    dropout draw's, one launch a site (a ViT block has 2 in its MLP or MoE)
+    in each forward, re-forward (remat) and backward (``_draws``)."""
+    return dict(k1=k1, k2f=k2f, k2b=k2b, gmm=gmm, tgmm=tgmm, k3f=k3f, k3b=k3b, drop=drop)
+
+
+def _draws(blocks: int, remat: bool) -> int:
+    """The dropout draw's launches in one train step of ``blocks`` ViT
+    blocks with MLP (or expert) dropout: 2 sites, each drawn in the forward,
+    the backward and, under remat, the re-forward."""
+    return 2 * blocks * (3 if remat else 2)
+
+
+# the dropout draw's launches in one train step of the CNN families: one site
+# a dropout layer (EnvNet-v2's two FC layers, the CNN's one, LEAF's three MLP
+# layers), each drawn in the forward and the backward
+FAMILY_DRAWS = {"envnet_v2": 4, "cnn_esc50": 2, "leaf": 6}
 
 
 class RouteLog:
@@ -664,11 +707,12 @@ KERNEL_NAMES = {
             "gmm_f32_kernel", "tgmm_f32_kernel"),
     "mel_power": ("mel_power_kernel",),
     "ln_fused": ("add_ln_fwd_kernel", "add_ln_bwd_kernel", "add_ln_bwd_reduce_kernel"),
+    "dropout_draw": ("dropout_draw_kernel",),
 }
 WGMMA_KERNELS = {"attn_fwd": ("attn_fwd_bf16_kernel",),
                  "attn_bwd": ("attn_bwd_dq_bf16_kernel", "attn_bwd_dkv_bf16_kernel"),
                  "gmm": ("gmm_bf16_wgmma_kernel", "tgmm_bf16_wgmma_kernel"),
-                 "mel_power": (), "ln_fused": ()}
+                 "mel_power": (), "ln_fused": (), "dropout_draw": ()}
 _TEMPLATE_ARGS = {"13__nv_bfloat16": "bf16", "f": "f32"}
 
 
@@ -1252,6 +1296,39 @@ def phase_gmm(dev: torch.device, gen: torch.Generator, seed: int) -> tuple[dict,
         require(err <= GMM_F32_ERR, f"K4 {name} f32 disagrees")
     del x32, wi32, gh32
 
+    # tensor parallelism 2 (phase 31): a rank's products at F/2 (n of gmm1, k of
+    # gmm2), on the router draw
+    Fh, real_offs = Fd // 2, torch.cumsum(real, 0, dtype=torch.int32)
+    wi_h, wo_h = wi[:, :, :Fh].contiguous(), wo[:, :Fh].contiguous()
+    h_h, gh_h = h[:, :Fh].contiguous(), gh[:, :Fh].contiguous()
+    bd_h = bound(flops / 2, BF16_TENSOR_FLOPS, 2.0 * (M * D + M * Fh + E * D * Fh))
+    half = {}
+    for name, kernel, plain, lib in (
+            ("gmm1 x @ wi", lambda: gmm_ops.gmm(x, wi_h, real),
+             lambda: gmm_ops.gmm_reference(x, wi_h, real),
+             lambda: torch._grouped_mm(x, wi_h, offs=real_offs)),
+            ("gmm2 h @ wo", lambda: gmm_ops.gmm(h_h, wo_h, real),
+             lambda: gmm_ops.gmm_reference(h_h, wo_h, real),
+             lambda: torch._grouped_mm(h_h, wo_h, offs=real_offs)),
+            ("tgmm1 x^T dh", lambda: gmm_ops.tgmm(x, gh_h, real),
+             lambda: gmm_ops.tgmm_reference(x, gh_h, real),
+             lambda: torch._grouped_mm(x.t(), gh_h, offs=real_offs)),
+            ("tgmm2 h^T dy", lambda: gmm_ops.tgmm(h_h, gy, real),
+             lambda: gmm_ops.tgmm_reference(h_h, gy, real),
+             lambda: torch._grouped_mm(h_h.t(), gy, offs=real_offs))):
+        err = norm_err(kernel(), plain())
+        g_ms = graph_ms(kernel)
+        lib_ms, lib_g_ms, why = _library_ms(lib)
+        half[name] = dict(graph_ms=g_ms, library_graph_ms=lib_g_ms, norm_err=err,
+                          bound_share=bd_h["bound_ms"] / g_ms)
+        print(f"K4 bf16 {name} at F/2 = {Fh} (a tensor-parallel rank's), router draw: norm_err "
+              f"{err:.3e} (<= {GMM_BF16_ERR}); {g_ms:.4f} ms by graph replay, "
+              f"{bd_h['bound_ms'] / g_ms:.3f} of the bound {bd_h['bound_ms']:.4f} ms "
+              f"({bd_h['bound_by']}); torch._grouped_mm "
+              f"{f'{lib_g_ms:.4f} ms' if lib_g_ms is not None else f'null ({why})'}", flush=True)
+        require(err <= GMM_BF16_ERR, f"K4 {name} at F/2 disagrees")
+    del wi_h, wo_h, h_h, gh_h
+
     def entry(key, name):
         r = results[("router draw", name)]
         mine = {f"{n} ({sn})": v for (sn, n), v in results.items()
@@ -1266,7 +1343,9 @@ def phase_gmm(dev: torch.device, gen: torch.Generator, seed: int) -> tuple[dict,
                     ms_by_product={p: v["ms"] for p, v in mine.items()},
                     graph_ms_by_product={p: v["graph_ms"] for p, v in mine.items()},
                     library_graph_ms_by_product={p: v["library_graph_ms"]
-                                                 for p, v in mine.items()}, **build)
+                                                 for p, v in mine.items()},
+                    tp_half={p: v for p, v in half.items() if p.startswith("tgmm")
+                             == (key == "tgmm")}, tp_half_bound_ms=bd_h["bound_ms"], **build)
 
     return entry("gmm", "gmm1 x @ wi"), entry("tgmm", "tgmm1 x^T dh")
 
@@ -1455,7 +1534,7 @@ def phase_moe_train(dev: torch.device, seed: int, card: str) -> tuple[dict, dict
     require(not unchanged, f"parameters that did not change: {unchanged[:8]}")
     require(not experts, f"experts whose weights did not change: {experts[:8]}")
     require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n, gmm=6 * DEPTH * n,
-                              tgmm=2 * DEPTH * n),
+                              tgmm=2 * DEPTH * n, drop=_draws(DEPTH, True) * n),
             f"AST-MoE launch counts {counts} over {n} steps")
     return counts, dict(experts_without_tokens=len(idle), idle_experts=idle, record=rec)
 
@@ -1610,10 +1689,14 @@ def phase_moe_parity(dev: torch.device, seed: int, readings: dict | None = None,
     # the remat re-forward asks the router again: every recorded call, in order
     q16, scales = one_step(torch.bfloat16, True, True, r16.replay(len(r16.routes)), terms=True)
     p16 = one_step(torch.float32, False, True, r16.replay(DEPTH))
-    zero = _counts(k1=1)
-    require(k32[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, gmm=4 * DEPTH, tgmm=2 * DEPTH)
-            and b16[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, gmm=6 * DEPTH, tgmm=2 * DEPTH)
-            and p32[3] == zero and q16[3] == zero and p16[3] == zero,
+    # the plain runs' dropout is the draw kernel too (the same masks)
+    d32, d16 = _draws(DEPTH, False), _draws(DEPTH, True)
+    require(k32[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, gmm=4 * DEPTH, tgmm=2 * DEPTH,
+                              drop=d32)
+            and b16[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, gmm=6 * DEPTH, tgmm=2 * DEPTH,
+                                  drop=d16)
+            and p32[3] == _counts(k1=1, drop=d32) and q16[3] == _counts(k1=1, drop=d16)
+            and p16[3] == _counts(k1=1, drop=d32),
             f"AST-MoE parity launches {k32[3]} {p32[3]} {b16[3]} {q16[3]} {p16[3]}")
     flips = r16.flips(r32, MOE_N_REAL)
     print(f"AST-MoE step parity (seed {seed}{f', fault {fault} planted' if fault else ''}): the "
@@ -1962,7 +2045,7 @@ def phase_small_train(dev: torch.device, seed: int, card: str, base_step_ms: flo
     print(json.dumps(rec), flush=True)
     require(not unchanged, f"AST-Small parameters that did not change: {unchanged[:8]}")
     require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n, k3f=2 * DEPTH * n,
-                              k3b=DEPTH * n),
+                              k3b=DEPTH * n, drop=_draws(DEPTH, True) * n),
             f"AST-Small launch counts {counts} over {n} steps")
     del step, state, ms, wave, labels
     torch.cuda.empty_cache()
@@ -2011,9 +2094,11 @@ def phase_small_parity(dev: torch.device, seed: int) -> None:
     k32 = one_step(torch.float32, False, False)
     p32 = one_step(torch.float32, False, True)
     b16 = one_step(torch.bfloat16, True, False)
-    require(k32[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, k3f=DEPTH, k3b=DEPTH)
-            and p32[3] == _counts(k1=1)
-            and b16[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, k3f=2 * DEPTH, k3b=DEPTH),
+    d32, d16 = _draws(DEPTH, False), _draws(DEPTH, True)
+    require(k32[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, k3f=DEPTH, k3b=DEPTH, drop=d32)
+            and p32[3] == _counts(k1=1, drop=d32)
+            and b16[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, k3f=2 * DEPTH, k3b=DEPTH,
+                                  drop=d16),
             f"AST-Small parity launches {k32[3]} {p32[3]} {b16[3]}")
     _compare_steps(k32, p32, "f32 K2 + K3 vs f32 plain attention and add + LN (AST-Small "
                    "ln_fused, dropout 0.1", STEP_F32_LOSS, STEP_F32_GRAD)
@@ -2058,7 +2143,8 @@ def phase_mini(dev: torch.device, seed: int, tmp: Path, card: str) -> tuple[dict
           flush=True)
     require(not unchanged, f"AST-Mini parameters that did not change: {unchanged[:8]}")
     require(counts == _counts(k1=steps, k2f=MINI_DEPTH * steps, k2b=MINI_DEPTH * steps,
-                              k3f=MINI_DEPTH * steps, k3b=MINI_DEPTH * steps),
+                              k3f=MINI_DEPTH * steps, k3b=MINI_DEPTH * steps,
+                              drop=_draws(MINI_DEPTH, False) * steps),
             f"AST-Mini launch counts {counts} over {steps} steps")
     return serve_counts, counts
 
@@ -2458,7 +2544,8 @@ def phase_family_train(dev: torch.device, seed: int, card: str) -> tuple[dict, d
         print(json.dumps(rec), flush=True)
         require(not unchanged, f"{name} parameters that did not change: {unchanged[:8]}")
         require(not bn_same, f"{name} BatchNorm statistics that did not change: {bn_same[:8]}")
-        require(counts[name] == _counts(k1=n if name == "cnn_esc50" else 0),
+        require(counts[name] == _counts(k1=n if name == "cnn_esc50" else 0,
+                                        drop=FAMILY_DRAWS[name] * n),
                 f"{name} launch counts {counts[name]} over {n} steps")
         del step, state, ms, wave, labels, before
         torch.cuda.empty_cache()
@@ -2601,9 +2688,10 @@ def phase_family_serving(dev: torch.device, seed: int, tmp: Path, card: str) -> 
         rows = []
         t0 = time.perf_counter()
         for name, (_, batch, *_) in bench_infer.ROWS.items():
-            # batch-1 rows at phase 4's 100 calls (p90 has 10 beyond it), not 1000
-            rows.append(bench_infer.run_row(name, dev,
-                                            calls=LATENCY_SAMPLES if batch == 1 else None))
+            # batch-1 rows at phase 4's 100 calls (p90 has 10 beyond it), not 1000;
+            # the others at SERVING_ROW_CALLS
+            rows.append(bench_infer.run_row(name, dev, calls=LATENCY_SAMPLES if batch == 1
+                                            else SERVING_ROW_CALLS))
             print(json.dumps({**rows[-1], "card": card}), flush=True)
             torch.cuda.empty_cache()
         print(f"bench_infer: {len(rows)} rows in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2683,7 +2771,9 @@ def phase_envnet_trainer(dev: torch.device, seed: int, tmp: Path, card: str) -> 
                 f"EnvNet checkpoints: best {best}, {len(writes)} writes")
         require(all(np.isfinite(res[k]) for k in ("test/acc", "test/f1", "test/auroc",
                                                   "test/loss")), f"EnvNet test {res}")
-        require(counts == _counts(), f"EnvNet trainer launches {counts}")
+        # the fit's steps and SWA's BatchNorm refresh draw dropout (train mode)
+        require(counts == _counts(drop=counts["drop"]) and counts["drop"] > 0,
+                f"EnvNet trainer launches {counts}")
         t0 = time.perf_counter()
         ev = evaluate.main(["model=envnet_v2", *common, f"+ckpt_path={best}"])
         ev_s = time.perf_counter() - t0
@@ -2815,9 +2905,11 @@ def phase_remat(dev: torch.device, seed: int, card: str) -> dict:
           f"launches {c_moe} vs {c_res}", flush=True)
     require(err <= REMAT_GRAD_ERR, "attn_res_moe gradients differ from attn_res's")
     moe_depth = DEPTH
-    require(c_moe == _counts(k2f=moe_depth, k2b=moe_depth, gmm=4 * moe_depth, tgmm=2 * moe_depth)
+    # both policies rerun the draw (neither keeps a dropout's output)
+    require(c_moe == _counts(k2f=moe_depth, k2b=moe_depth, gmm=4 * moe_depth, tgmm=2 * moe_depth,
+                             drop=_draws(moe_depth, True))
             and c_res == _counts(k2f=moe_depth, k2b=moe_depth, gmm=6 * moe_depth,
-                                 tgmm=2 * moe_depth),
+                                 tgmm=2 * moe_depth, drop=_draws(moe_depth, True)),
             f"AST-MoE remat launches {c_moe} vs {c_res}")
     del runs
     torch.cuda.empty_cache()
@@ -3077,7 +3169,8 @@ def phase_moe_lowerings(dev: torch.device, seed: int, card: str, ragged: dict) -
               f"{ {k: v / n for k, v in counts.items() if v} }", flush=True)
         require(not unchanged, f"{path}: parameters that did not change: {unchanged[:8]}")
         require(not experts, f"{path}: experts whose weights did not change: {experts[:8]}")
-        require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n),
+        require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n,
+                                  drop=_draws(DEPTH, True) * n),
                 f"{path} launch counts {counts} over {n} steps")
         del step, state, ms, named
         torch.cuda.empty_cache()
@@ -3106,7 +3199,9 @@ def phase_moe_lowerings(dev: torch.device, seed: int, card: str, ragged: dict) -
             dev, seed, moe, PARITY_BATCH, torch.float32, True, log.replay(DEPTH))
         if (router, dispatch) == ("token", "einsum"):
             einsum_routes = log
-        require(k32[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH) and p32[3] == _counts(k1=1),
+        d32 = _draws(DEPTH, False)
+        require(k32[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, drop=d32)
+                and p32[3] == _counts(k1=1, drop=d32),
                 f"{router}/{dispatch} parity launches {k32[3]} {p32[3]}")
         _compare_steps(k32, p32, f"f32 kernels vs f32 plain attention, same routes (AST-MoE "
                        f"{router}-choice, {dispatch} dispatch, dropout 0.1", STEP_F32_LOSS,
@@ -3188,7 +3283,7 @@ def phase_hpo(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
         token = trial.params["model.router"] == "token"
         want = _counts(k1=steps + evals, k2f=DEPTH * (steps + evals), k2b=DEPTH * steps,
                        gmm=token * (6 * DEPTH * steps + 2 * DEPTH * evals),
-                       tgmm=token * 2 * DEPTH * steps)
+                       tgmm=token * 2 * DEPTH * steps, drop=_draws(DEPTH, True) * steps)
         require(launches == want, f"hpo trial {trial.number} ({trial.params['model.router']}, "
                 f"batch {b}) launches {launches}, expected {want}")
     print(f"hpo study: {HPO_TRIALS} trials in {study_s:.2f} s, states "
@@ -3279,7 +3374,9 @@ def _vm_row(name: str, k: int, dropout: bool, wave, labels, dev: torch.device,
     torch.cuda.synchronize()
     counts = _launch_counts()
     # ----------------------------------------------------------------------------------
-    require(counts == _counts(k1=1, k2f=depth, k2b=depth, k3f=depth * k, k3b=depth * k),
+    # the K trials' masks in one launch a site and direction (no remat under vmap)
+    require(counts == _counts(k1=1, k2f=depth, k2b=depth, k3f=depth * k, k3b=depth * k,
+                              drop=_draws(depth, False) if dropout or model.dropout else 0),
             f"vmapped {name} step launches {counts}")
     require(bool(torch.isfinite(loss).all()), f"vmapped {name} losses {loss}")
     t0 = time.perf_counter()
@@ -3312,8 +3409,10 @@ def _vm_timed_rows(dev: torch.device, seed: int, card: str) -> None:
     labels = torch.from_numpy(rng.integers(0, AST_BASE["num_classes"], VM_BATCH)).to(dev)
     print("  model      K  dropout  vmapped ms  clips/s  peak GiB  busy  |  K single steps "
           "ms  clips/s  peak GiB  busy", flush=True)
+    with_dropout = None
     for name, k, dropout in (("ast", VM_K, True), ("ast_small", VM_SMALL_K, False)):
         r = _vm_row(name, k, dropout, wave, labels, dev, seed)
+        with_dropout = with_dropout or r
         depth = DEPTH   # AST-Base and AST-Small alike
         step, state, ms, w, lab = bench.build(VM_BATCH, seed, dev, name, ln_fused=True)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3325,8 +3424,10 @@ def _vm_timed_rows(dev: torch.device, seed: int, card: str) -> None:
         seq_peak = torch.cuda.max_memory_allocated(dev) / 2**30
         seq_prof = bench.profile_steps(step, state, ms, w, lab)
         n = 1 + k
+        seq_drop = _draws(depth, True) * n if name == "ast_small" else 0   # AST-Base: none
         require(counts_seq == _counts(k1=n, k2f=depth * n, k2b=depth * n, k3f=2 * depth * n,
-                                      k3b=depth * n), f"single {name} steps {counts_seq}")
+                                      k3b=depth * n, drop=seq_drop),
+                f"single {name} steps {counts_seq}")
         del step, state, ms
         torch.cuda.empty_cache()
         vm_s = r["step_s"]
@@ -3346,6 +3447,15 @@ def _vm_timed_rows(dev: torch.device, seed: int, card: str) -> None:
               f"{_kinds(r['prof'], 'device_ms_per_call')}, {r['prof']['kernels_per_call']:.0f} "
               f"kernels; top { {m: round(v, 2) for m, v in list(r['prof']['top_kernels_ms'].items())[:6]} }; "
               f"one single step {_kinds(seq_prof, 'device_ms_per_step')}", flush=True)
+    # per-trial dropout's cost: the same AST-Base step without it
+    r = _vm_row("ast", VM_K, False, wave, labels, dev, seed)
+    print(f"vmapped step ast: K {VM_K}, without dropout {r['step_s'] * 1e3:.3f} ms (device "
+          f"{r['prof']['device_ms_per_call']:.3f} ms), with per-trial dropout "
+          f"{with_dropout['step_s'] * 1e3:.3f} ms (device "
+          f"{with_dropout['prof']['device_ms_per_call']:.3f} ms): dropout's cost "
+          f"{(with_dropout['step_s'] - r['step_s']) * 1e3:+.3f} ms, device "
+          f"{with_dropout['prof']['device_ms_per_call'] - r['prof']['device_ms_per_call']:+.3f}"
+          f" ms  [{card}]", flush=True)
 
 
 def _vm_folded_k2(dev: torch.device, gen: torch.Generator) -> None:
@@ -3512,6 +3622,7 @@ def phase_vmapped_hpo(dev: torch.device, seed: int, tmp: Path, card: str,
         f"optuna.storage_path=sqlite:///{db}", f"optuna.output_dir={out}",
         "optuna.study_name=ast_vmapped_card", "+optuna.vmapped.enabled=true",
         f"+optuna.vmapped.k={VM_K}", "+optuna.vmapped.continuous=true",
+        "+optuna.vmapped.mesh=true",   # one card: one process, as without it
         f"+optuna.vmapped.spaces={VM_SPACES}"])
     torch.cuda.synchronize()
     study_s = time.perf_counter() - t0
@@ -3534,7 +3645,8 @@ def phase_vmapped_hpo(dev: torch.device, seed: int, tmp: Path, card: str,
     epochs = lockstep_epochs(trials, VM_K)
     steps, evals = epochs * shapes["steps"], epochs * shapes["val_batches"]
     want = _counts(k1=steps + evals, k2f=DEPTH * (steps + evals), k2b=DEPTH * steps,
-                   k3f=DEPTH * VM_K * (steps + evals), k3b=DEPTH * VM_K * steps)
+                   k3f=DEPTH * VM_K * (steps + evals), k3b=DEPTH * VM_K * steps,
+                   drop=_draws(DEPTH, False) * steps)
     require(counts == want, f"vmapped study launches {counts}, expected {want} for "
             f"{epochs} lockstep epochs of {shapes['steps']} steps and "
             f"{shapes['val_batches']} eval batches")
@@ -3556,6 +3668,113 @@ def phase_vmapped_hpo(dev: torch.device, seed: int, tmp: Path, card: str,
         took[part] = time.perf_counter() - t0
     print(f"phase 28 parts: { {part: round(t, 1) for part, t in took.items()} } s", flush=True)
     return counts
+
+
+# --- the dropout draw (csrc/dropout_draw.cu) ------------------------------------------
+
+# the main paths' dropout sites, bf16, at the training batch 64: AST-Base's MLP
+# (phase 5's model; its bench step has no dropout, the vmapped study's does)
+# and AST-MoE's ragged experts' hidden units (the sorted rows) and block output
+# (phase 10); (name, shape, row-indexed)
+DRAW_SITES = (("AST-Base MLP hidden", (TRAIN_BATCH, N_PAD, 4 * AST_BASE_WIDTH), False),
+              ("AST-Base MLP output", (TRAIN_BATCH, N_PAD, AST_BASE_WIDTH), False),
+              ("AST-MoE experts' hidden, sorted rows", (MOE_ROWS, MOE_FF), True),
+              ("AST-MoE block output", (TRAIN_BATCH, MOE_N_PAD, MOE_DIM), False))
+DRAW_RATE = 0.1
+DRAW_OPS = 30   # integer operations an element: a Philox block's ~100 over its 4
+                # elements, the compare, the divide and the select; counted
+                # against the f32 rate, which is no lower than the integer one
+
+
+def _draw_args(shape: tuple, rows: bool, dev: torch.device, g: torch.Generator,
+               dtype=torch.bfloat16) -> dict:
+    """``dropout_draw._run``'s arguments at a site: x on the card, its
+    unsplit geometry, and for the sorted rows their (token, choice) pairs."""
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    row_ids = None
+    if rows:   # a permutation of the pairs of the batch's real tokens
+        row_ids = torch.randperm(shape[0], generator=g, device=dev)
+        strides, base = [shape[-1]], 0
+    else:
+        strides, base = dropout_draw.geometry(shape)
+    return dict(x=x[None], seeds=torch.tensor([int(torch.randint(2**62, (), generator=g,
+                                                                   device=dev))]),
+                keep=torch.tensor([1.0 - DRAW_RATE]), block=3, site=1, strides=strides,
+                base=base, row_ids=None if row_ids is None else row_ids[None])
+
+
+def phase_draw(dev: torch.device, gen: torch.Generator) -> dict:
+    """The dropout draw's kernel against its plain version, bit for bit: at
+    the ``DRAW_SITES`` (bf16), at one f32 site, in its keep-mask mode, at a
+    rank's rows and heads (a slice of the unsplit draw), and under the vmap
+    rule (4 trials' seeds and rates, one launch) against each trial's plain
+    draw; registers and no spill (``-Xptxas -v``). Timed at each site
+    (events): the kernel, the plain version, the draw it replaced
+    (``torch.rand`` of the same count, the compare and the scale), and
+    ``F.dropout`` (its own bits; the yardstick of one PyTorch call)."""
+    from torch.func import vmap
+
+    build = _build_report("dropout_draw")
+    g = torch.Generator(dev).manual_seed(int(torch.randint(2**31, (1,), generator=gen)))
+    D = dropout_draw
+    rows, worst = [], None
+    for name, shape, by_row in DRAW_SITES:
+        a = _draw_args(shape, by_row, dev, g)
+        args = (a["x"], a["seeds"], a["keep"], a["block"], a["site"], a["strides"], a["base"],
+                a["row_ids"])
+        got, want = D._run(1, *args), D._plain(1, *args)
+        require(torch.equal(got, want), f"dropout draw at {name}: kernel != plain version")
+        x, keep = a["x"][0], 1.0 - DRAW_RATE
+        k_ms = float(np.median(cuda_times(lambda: D._run(1, *args))))
+        p_ms = float(np.median(cuda_times(lambda: D._plain(1, *args), iters=2, warmup=1)))
+        rand_ms = float(np.median(cuda_times(lambda: torch.where(
+            torch.rand(x.shape, device=dev) < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                                          device=dev)))))
+        lib_ms = float(np.median(cuda_times(lambda: F.dropout(x, DRAW_RATE, True))))
+        n = x.numel()
+        b = bound(DRAW_OPS * n, F32_FLOPS, 2 * n * x.element_size()
+                  + (8 * shape[0] if by_row else 0))
+        kept = (got[0] != 0).float().mean().item()
+        rows.append(dict(site=name, shape=list(shape), ms=k_ms, plain_ms=p_ms, rand_ms=rand_ms,
+                         library_ms=lib_ms, kept=kept, **b))
+        print(f"dropout draw, {name} {tuple(shape)} bf16 rate {DRAW_RATE}: bit-equal to the "
+              f"plain version; kernel {k_ms:.4f} ms (bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']}, share {b['bound_ms'] / k_ms:.3f}), plain {p_ms:.2f} ms, "
+              f"torch.rand + compare + scale {rand_ms:.4f} ms, F.dropout {lib_ms:.4f} ms; kept "
+              f"{kept:.5f}", flush=True)
+        del got, want, a, args, x
+        torch.cuda.empty_cache()
+    # f32, the mask mode, a rank's rows and heads, the vmap rule
+    x = torch.randn((TRAIN_BATCH, MOE_N_PAD, MOE_DIM), generator=g, device=dev)
+    whole = D.dropout(x, DRAW_RATE, D.Draw(5, 2), 2)
+    require(torch.equal(whole, D._plain(1, x[None], torch.tensor([5]), torch.tensor([0.9]), 2,
+                                        2, *D.geometry(tuple(x.shape)), None)[0]),
+            "dropout draw f32: kernel != plain version")
+    mask = D.keep_mask(tuple(x.shape), DRAW_RATE, 5, 2, 2, device=dev)
+    require(torch.equal(mask, D._plain(0, x[None], torch.tensor([5]), torch.tensor([0.9]), 2, 2,
+                                       *D.geometry(tuple(x.shape)), None)[0]),
+            "dropout draw: the keep mask differs from the plain version's")
+    part = D.dropout(x[16:48, :, 128:256].contiguous(), DRAW_RATE,
+                     D.Draw(5, 2, (16, 32, TRAIN_BATCH)), 2, part=(2, 1, 3))
+    require(torch.equal(part, whole[16:48, :, 128:256]),
+            "dropout draw: a rank's rows and units != that slice of the unsplit draw")
+    seeds = D.trial_seeds(9, range(VM_K))
+    rates = torch.linspace(0.0, 0.3, VM_K, device=dev)
+    xs = x[:VM_K * 4].view(VM_K, 4, MOE_N_PAD, MOE_DIM)
+    before = D.launches
+    folded = vmap(lambda xi, s, r: D.dropout(xi, r, D.Draw(s, 1), 1), randomness="error")(
+        xs, seeds, rates)
+    require(D.launches - before == 1, f"vmapped draw: {D.launches - before} launches, not 1")
+    for i in range(VM_K):
+        want = D._plain(1, xs[i][None], seeds[i:i + 1], 1.0 - rates[i:i + 1], 1, 1,
+                        *D.geometry(tuple(xs[i].shape)), None)[0]
+        require(torch.equal(folded[i], want), f"vmapped draw: trial {i} != its plain draw")
+    print(f"dropout draw: f32, the keep mask, a rank's rows x units and {VM_K} vmapped trials "
+          "(one launch) bit-equal to the plain version", flush=True)
+    site = rows[2]
+    return dict(max_abs_err=0.0, ms=site["ms"], plain_ms=site["plain_ms"],
+                bound_ms=site["bound_ms"], bound_by=site["bound_by"],
+                library_ms=site["library_ms"], rand_ms=site["rand_ms"], sites=rows, build=build)
 
 
 # --- phases 29-30: the multi-device layer (dlsc_tpu_torch/parallel) --------------------
@@ -3581,7 +3800,8 @@ def _multi_model(kind: str, seed: int, dev: torch.device) -> torch.nn.Module:
     if kind == "ast_base":
         return ASTModel(**AST_BASE, dtype=torch.bfloat16, **remat)
     dispatch = "einsum" if kind == "ast_moe_einsum" else "ragged"
-    return ASTMoE(**{**AST_MOE, "dispatch": dispatch}, **remat)
+    dtype = torch.float32 if kind == "ast_moe_f32" else torch.bfloat16
+    return ASTMoE(**{**AST_MOE, "dispatch": dispatch}, dtype=dtype, **remat)
 
 
 def _multi_layout(mode: str, model, n: int, dev: torch.device):
@@ -3612,17 +3832,18 @@ def _multi_batch(seed: int, dev: torch.device):
     return pipe, wave, labels, [pipe.draw(MULTI_BATCH, CLIP, rng) for _ in range(MULTI_STEPS)]
 
 
-def _multi_steps(model, layout, seed: int, dev: torch.device) -> dict:
+def _multi_steps(model, layout, seed: int, dev: torch.device, topk=None) -> dict:
     """``MULTI_STEPS`` SGD + momentum steps (momentum buffers after step 1 =
     the gradients): step 1's loss and gathered gradients (on rank 0), the
-    launches per step, the second step's time, the peak memory."""
+    launches per step, the second step's time, the peak memory. ``topk``:
+    the MoE routers' choice (a ``RouteLog``'s record or replay)."""
     from dlsc_tpu_torch.parallel.data import is_writer
     from dlsc_tpu_torch.train.checkpoint import plain_state_dict
 
     pipe, wave, labels, draws = _multi_batch(seed, dev)
     state = TrainState.create(model, sgd(lr=1e-4, momentum=0.9), None, 1)
     state.parallel = layout
-    step = make_train_step(pipe, CrossEntropyLoss())
+    step = make_train_step(pipe, CrossEntropyLoss(), topk=topk)
     ms = MetricState.create(AST_BASE["num_classes"], dev)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3818,6 +4039,201 @@ def phase_two_ranks_one_card(dev: torch.device, seed: int, card: str) -> dict:
     return r["total"]
 
 
+# --- phase 31: two ranks on one card: TP on AST-MoE, the sharded vmapped study ----------
+
+SHARD_BATCH, SHARD_TRAIN, SHARD_VAL = 8, 3, 2   # a trial's batch, train and val batches
+SHARD_LR = {"low": 1e-5, "high": 1e-4, "log": True}   # the sharded study's lr space
+SHARD_PARAM_ERR = 1e-3  # a trial's parameters (one f32 vector) after the study, two ranks
+                        # against one process, over the vector's largest value: where the
+                        # two runs round apart, an Adam step moves an entry whose gradient
+                        # cancels by lr times the sign of its rounding, so 3 steps at lr
+                        # <= 1e-4 move it by <= 6e-4 apart (the LayerNorm weights are 1)
+
+
+class _FewBatches:
+    """A datamodule's first ``train`` train batches an epoch and ``val``
+    validation batches (a study of a few steps)."""
+
+    def __init__(self, dm, train: int, val: int):
+        self.dm, self.train, self.val = dm, train, val
+        self.num_classes = dm.num_classes
+        self.steps_per_epoch = train
+
+    def setup(self) -> None:
+        self.dm.setup()
+
+    def train_batches(self, epoch: int = 0, seed: int | None = None):
+        return itertools.islice(self.dm.train_batches(epoch=epoch, seed=seed), self.train)
+
+    def val_batches(self):
+        return itertools.islice(self.dm.val_batches(), self.val)
+
+
+def _sharded_study(seed: int, root: str, out: str, dev: torch.device) -> dict:
+    """A vmapped AST-Base study (bf16, ``ln_fused``, K ``VM_K``, per-trial
+    dropout and mixup α, one epoch of ``SHARD_TRAIN`` steps at batch
+    ``SHARD_BATCH`` a trial) through ``VmappedTrialRunner.run_batch``; in a
+    process group its trials split over the ranks (``plan``), the study on
+    rank 0. Each rank saves its trials' parameters under ``out``; returns
+    the history, values, trial numbers, the trials' hyperparameters (rank 0),
+    the launches and the seconds."""
+    import torch.distributed as dist
+
+    from dlsc_tpu_torch import hpo, parallel
+    from dlsc_tpu_torch.data.datamodule import ESC50DataModule
+    from dlsc_tpu_torch.hpo.vmapped import VmappedTrialRunner
+
+    grouped = dist.is_initialized()
+    lead = not grouped or dist.get_rank() == 0
+    tag = "two" if grouped else "one"
+    dm = ESC50DataModule(root=root, num_classes=TRAINER_CLASSES, fold=0, val_split=0.2,
+                         batch_size=SHARD_BATCH, preprocessing_mode="ast", is_spectrogram=True)
+    study = hpo.Study(f"sharded_{tag}", Path(out) / f"{tag}.db", "maximize",
+                      sampler=hpo.TPESampler(seed=seed)) if lead else None
+    runner = VmappedTrialRunner(
+        study, bench.build_model("ast", seed, None, ln_fused=True), bench.bench_pipeline(),
+        _FewBatches(dm, SHARD_TRAIN, SHARD_VAL), epochs=1, seed=seed, device=dev,
+        lr_space=SHARD_LR, do_space={"low": 0.0, "high": 0.3},
+        ma_space={"low": 0.1, "high": 1.0},
+        plan=parallel.make_plan("cuda") if grouped else None)
+    torch.cuda.synchronize(dev)
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = runner.run_batch(k=VM_K)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    counts = _launch_counts()
+    st = res.states
+    for j in range(st.k):
+        torch.save(st.flat[j].cpu(), Path(out) / f"{tag}-slot{runner.slot0 + j}.pt")
+    return dict(history=res.history, values=res.values, numbers=res.trial_numbers,
+                params=[t.params for t in study.trials] if lead else None, counts=counts,
+                seconds=secs, peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def _phase31_rank(seed: int, root: str, out: str) -> dict:
+    """One of phase 31's two ranks (gloo, CUDA tensors, one card): AST-MoE's
+    TP = 2 train steps in f32 and in bf16 (rank 0 adds the one-process
+    steps on the same routes and compares), then its half of the sharded
+    vmapped study."""
+    import torch.distributed as dist
+
+    from dlsc_tpu_torch import parallel
+    from dlsc_tpu_torch.parallel import tp
+    from dlsc_tpu_torch.parallel.mesh import local_device
+
+    dev = local_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_tp = {}
+    for kind in ("ast_moe_f32", "ast_moe"):
+        model = _multi_model(kind, seed, dev)
+        log = RouteLog()
+        got = _multi_steps(model, tp.tensor_parallel(model, parallel.get_mesh(2, 2, "cuda")),
+                           seed, dev, topk=log.record)
+        del model
+        torch.cuda.empty_cache()
+        if dist.get_rank() == 0:
+            want = _multi_steps(_multi_model(kind, seed, dev), None, seed, dev,
+                                topk=log.replay(len(log.routes)))
+            errs = sorted(((norm_err(got["grads"][k], g), k) for k, g in want["grads"].items()
+                           if g.abs().max() > 0), reverse=True)
+            out_tp[kind] = dict(loss=got["loss"], ref_loss=want["loss"],
+                                loss_err=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                                grad_err=errs[0][0], worst=errs[:3], counts=got["counts"],
+                                total=got["total"], ref_counts=want["counts"],
+                                step_ms=got["step_ms"], ref_step_ms=want["step_ms"],
+                                peak_gib=got["peak_gib"])
+            del want
+        del got
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return dict(tp=out_tp, study=_sharded_study(seed, root, out, dev))
+
+
+def phase_two_ranks_tp_study(dev: torch.device, seed: int, tmp: Path, card: str
+                             ) -> tuple[dict, dict]:
+    """Phase 31: two ranks on the one card over gloo (CUDA tensors). (a)
+    AST-MoE (full width and depth, ragged, remat attn_res, dropout 0.1)
+    with tensor parallelism 2: each rank holds half of every expert's
+    hidden units (K4a at n = F/2, K4b at k = F/2) and half the heads; 2
+    steps at batch ``MULTI_BATCH``, step 1's loss and gathered gradients
+    against the one-process step on the TP run's routes, in f32
+    (``STEP_F32_GRAD``: the split changes the summation order only) and in
+    bf16 (``STEP_BF16_GRAD``: each rank's partial expert output is rounded
+    to bf16 before the sum, one rounding more than in one process; a router
+    weight's gradient, a cancelling sum, and the LayerNorm weight before it
+    read 3.6e-2 of their largest in the first run, above phase 29's 2e-2),
+    the launches per rank per step. (b) The sharded vmapped study
+    (``_sharded_study``, K ``VM_K`` = 2 a rank) against the same study in
+    one process: the trials' hyperparameters equal, each trial's accuracies
+    within one validation sample, its parameters within ``SHARD_PARAM_ERR``
+    (bit-equal when the card's batched products do not depend on the batch
+    count; printed). It measures no interconnect. Returns the launches of
+    rank 0's TP steps and of its share of the study."""
+    from dlsc_tpu_torch.parallel.mesh import spawn
+
+    out = tmp / "sharded"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = spawn(_phase31_rank, 2, seed, str(tmp / "data"), str(out), backend="gloo",
+                  device_type="cuda", device_ids=[0, 0], timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    for kind, (name, loss_tol, grad_tol) in (("ast_moe_f32", ("f32", STEP_F32_LOSS, STEP_F32_GRAD)),
+                                             ("ast_moe", ("bf16", STEP_BF16_LOSS, STEP_BF16_GRAD))):
+        r = ranks[0]["tp"][kind]
+        print(f"two ranks on one card, AST-MoE tensor parallel 2 (gloo, ragged, {name}, batch "
+              f"{MULTI_BATCH}, K4a/K4b at F/2 = {MOE_FF // 2}): loss {r['loss']:.6f} vs one "
+              f"process {r['ref_loss']:.6f} on the same routes (rel {r['loss_err']:.2e}, <= "
+              f"{loss_tol}); gradients {r['grad_err']:.3e} (<= {grad_tol}; largest "
+              f"{', '.join(f'{k} {e:.1e}' for e, k in r['worst'])}); launches per rank per step "
+              f"{r['counts']} (one process {r['ref_counts']}); step 2 {r['step_ms']:.1f} ms vs "
+              f"{r['ref_step_ms']:.1f} ms one process; peak {r['peak_gib']:.2f} GiB a rank  "
+              f"[{card}]", flush=True)
+        require(r["loss_err"] <= loss_tol and r["grad_err"] <= grad_tol,
+                f"phase 31: the {name} TP step differs from the one-process step")
+        require(r["counts"] == r["ref_counts"] == _counts(
+            k1=1, k2f=DEPTH, k2b=DEPTH, gmm=6 * DEPTH, tgmm=2 * DEPTH, drop=_draws(DEPTH, True)),
+            f"phase 31 TP launches per rank per step {r['counts']}, one process "
+            f"{r['ref_counts']}")
+
+    # --- the sharded study against one process ------------------------------------
+    one = _sharded_study(seed, str(tmp / "data"), str(out), dev)
+    two = [rk["study"] for rk in ranks]
+    lead = two[0]
+    n_val = SHARD_VAL * SHARD_BATCH
+    acc_gap = max(abs(a - b) for h1, h2 in zip(lead["history"], one["history"])
+                  for key in ("val_acc", "train_acc") for a, b in zip(h1[key], h2[key]))
+    worst, bitwise = 0.0, True
+    for slot in range(VM_K):
+        a = torch.load(out / f"two-slot{slot}.pt")
+        b = torch.load(out / f"one-slot{slot}.pt")
+        bitwise &= torch.equal(a, b)
+        worst = max(worst, _rel_err(a, b))
+    per_step = {k: v / SHARD_TRAIN for k, v in lead["counts"].items()}
+    print(f"sharded vmapped study on two ranks of one card (AST-Base bf16 ln_fused, K {VM_K} = "
+          f"2 a rank, per-trial dropout and mixup α, {SHARD_TRAIN} steps at batch {SHARD_BATCH} "
+          f"a trial, {SHARD_VAL} val batches): trials {lead['numbers']} as one process "
+          f"{one['numbers']}; params equal {lead['params'] == one['params']}; accuracies "
+          f"{[h['val_acc'] for h in lead['history']]} vs {[h['val_acc'] for h in one['history']]} "
+          f"(largest gap {acc_gap:.4f}, <= {1 / n_val:.4f}); parameters bit-equal {bitwise}, "
+          f"largest normalised difference {worst:.3e} (<= {SHARD_PARAM_ERR}); rank 0's launches "
+          f"{lead['counts']} ({per_step} a step and its eval); {lead['seconds']:.1f} s on two "
+          f"ranks vs {one['seconds']:.1f} s one process (peak {lead['peak_gib']:.2f} vs "
+          f"{one['peak_gib']:.2f} GiB); phase 31's ranks {ranks_s:.1f} s  [{card}]", flush=True)
+    require(lead["numbers"] == one["numbers"] and lead["params"] == one["params"]
+            and all(rk["numbers"] == one["numbers"] for rk in two),
+            "phase 31: the sharded study's trials differ from one process's")
+    require(acc_gap <= 1 / n_val + 1e-9 and worst <= SHARD_PARAM_ERR,
+            f"phase 31: sharded study accuracies (gap {acc_gap}) or parameters ({worst})")
+    steps, evals = SHARD_TRAIN, SHARD_VAL
+    require(lead["counts"] == _counts(k1=steps + evals, k2f=DEPTH * (steps + evals),
+                                      k2b=DEPTH * steps, k3f=DEPTH * 2 * (steps + evals),
+                                      k3b=DEPTH * 2 * steps, drop=_draws(DEPTH, False) * steps),
+            f"phase 31 sharded study launches {lead['counts']}")
+    return r["total"], lead["counts"]   # the bf16 TP run's
+
+
 def moe_parity_sweep(dev: torch.device, seeds: str, card: str, fault: str | None = None
                      ) -> None:
     """Phase 11 at each seed of ``seeds`` ("A-B"), every reading kept, with
@@ -3840,7 +4256,7 @@ def moe_parity_sweep(dev: torch.device, seeds: str, card: str, fault: str | None
             + (f" with {fault} planted" if fault else ""))
 
 
-def _clock(phase: int, fn, *args):
+def _clock(phase: int | str, fn, *args):
     """``fn(*args)``, then the phase's seconds printed and the allocator's
     cache emptied."""
     t0 = time.perf_counter()
@@ -3860,8 +4276,8 @@ def main() -> None:
                     help="with --moe-parity-seeds: plant this fault in the bf16 kernels' "
                          "run, a negative control of phase 11's gate")
     ap.add_argument("--multi-device", action="store_true",
-                    help="run only phases 29 and 30 (after the build; phase 29 writes its "
-                         "own copy of phase 18's shards)")
+                    help="run only phases 29, 30 and 31 (after the build, on their own "
+                         "copy of phase 18's shards)")
     args = ap.parse_args()
     if args.moe_parity_fault and args.moe_parity_seeds is None:
         ap.error("--moe-parity-fault needs --moe-parity-seeds")
@@ -3876,7 +4292,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False   # the patch conv would run in TF32
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    names = ("mel_power", "attn_fwd", "attn_bwd", "gmm", "ln_fused")
+    names = ("mel_power", "attn_fwd", "attn_bwd", "gmm", "ln_fused", "dropout_draw")
     _kernels.build(*names)   # one nvcc per source, all started together
     for name in names:
         _kernels.load(name)
@@ -3895,7 +4311,8 @@ def main() -> None:
                                    clips_per_class_per_fold=TRAINER_CLIPS, n_folds=TRAINER_FOLDS,
                                    clip_samples=CLIP, seed=args.seed)
             _clock(29, phase_multi_device, dev, args.seed, Path(tmp), card)
-        _clock(30, phase_two_ranks_one_card, dev, args.seed, card)
+            _clock(30, phase_two_ranks_one_card, dev, args.seed, card)
+            _clock(31, phase_two_ranks_tp_study, dev, args.seed, Path(tmp), card)
         return
 
     gen = torch.Generator().manual_seed(args.seed)
@@ -3912,6 +4329,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         moe_serve = _clock(9, phase_moe_slice, dev, seed, Path(tmp), card)
     moe_train, moe_train_run = _clock(10, phase_moe_train, dev, seed, card)
+    draw = _clock("10b", phase_draw, dev, gen)
     _clock(11, phase_moe_parity, dev, seed)
     k3f, k3b = _clock(12, phase_ln, dev, gen)
     k5_k6 = _clock(13, phase_attn_k5_k6, dev, gen)
@@ -3938,7 +4356,9 @@ def main() -> None:
         hpo_run = _clock(27, phase_hpo, dev, seed, trainer_tmp, card)
         vm_run = _clock(28, phase_vmapped_hpo, dev, seed, trainer_tmp, card, gen)
         multi_run = _clock(29, phase_multi_device, dev, seed, trainer_tmp, card)
-    one_card_run = _clock(30, phase_two_ranks_one_card, dev, seed, card)
+        one_card_run = _clock(30, phase_two_ranks_one_card, dev, seed, card)
+        tp_moe_run, sharded_run = _clock(31, phase_two_ranks_tp_study, dev, seed, trainer_tmp,
+                                         card)
 
     # launches: the training runs' (ast_trainer, envnet_v2_trainer: the train
     # CLI's fit, its validation and its test); launches_serving: the serving runs';
@@ -3949,7 +4369,8 @@ def main() -> None:
                       **{f"{k}_train": c for k, c in fam_train.items()},
                       envnet_v2_trainer=envnet_trainer, ast_remat_train=remat_runs,
                       **lowering_runs, hpo_study=hpo_run, hpo_vmapped=vm_run,
-                      multi_device_ddp=multi_run, two_ranks_one_card=one_card_run)
+                      multi_device_ddp=multi_run, two_ranks_one_card=one_card_run,
+                      two_ranks_tp_moe=tp_moe_run, hpo_vmapped_sharded=sharded_run)
     serve_runs = dict(ast_serve=serve, ast_moe_serve=moe_serve, ast_small_serve=small_serve,
                       ast_mini_serve=mini_serve, **{f"{k}_serve": c for k, c in fam_serve.items()},
                       ast_import_int8_serve=import_serve)
@@ -3987,6 +4408,10 @@ def main() -> None:
              replaces="dlsc_tpu/ops/ln_fused.py:53", **launches("k3f"), **k3f),
         dict(name="add_ln_bwd", route="cuda", source="dlsc_tpu_torch/csrc/ln_fused.cu",
              replaces="dlsc_tpu/ops/ln_fused.py:93", **launches("k3b"), **k3b),
+        dict(name="dropout_draw", route="cuda", source="dlsc_tpu_torch/csrc/dropout_draw.cu",
+             replaces="none: the dropout masks that jax.random draws in XLA "
+                      "(dlsc_tpu/models/moe.py:437, dlsc_tpu/models/vit.py:582)",
+             **launches("drop"), **{k: v for k, v in draw.items() if k != "build"}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

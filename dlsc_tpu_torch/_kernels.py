@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # flags of one library beside NVCC_FLAGS (part of its hash): the registers
 # and spills of every library's kernels, which chip_smoke.py prints
 EXTRA_FLAGS = {name: ("-Xptxas", "-v")
-               for name in ("attn_fwd", "attn_bwd", "gmm", "mel_power", "ln_fused")}
+               for name in ("attn_fwd", "attn_bwd", "gmm", "mel_power", "ln_fused",
+                            "dropout_draw")}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

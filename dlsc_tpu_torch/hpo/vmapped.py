@@ -13,8 +13,13 @@ Mechanics:
   (BatchNorm statistics, ``hyper_rate``) stacked (K, ...) tensors, their
   Adam moments two more (K, P) tensors;
 - a step runs ``vmap(grad_and_value(loss))`` over the stacked parameters
-  and buffers through ``torch.func.functional_call`` of the one model
-  (``randomness='different'``: each trial draws its own dropout masks);
+  and buffers through ``torch.func.functional_call`` of the one model; each
+  trial draws its own dropout masks from its own seed, made from the step's
+  seed and the trial's global slot index (``ops.dropout_draw.trial_seeds``:
+  a counter-based draw, so a trial's masks do not depend on which trials
+  share its step or its rank, as JAX's per-trial keys, ``split(key(seed),
+  k)``), and no op in the step draws from torch's generators
+  (``randomness='error'``);
   the kernel ops register vmap rules that fold the trial axis into their
   batch (``ops/attn_fast.py``, ``ops/gmm.py``; ``ops/ln_fused.py``
   launches once a trial where γ and β are per trial), and BatchNorm updates
@@ -40,6 +45,19 @@ Two deviations from the JAX runner, neither changing a value:
 - **No remat.** ``torch.utils.checkpoint`` runs on saved-tensor hooks,
   which ``torch.func.grad`` does not support, so the vmapped step runs the
   model with ``remat`` off (the JAX runner keeps the model's remat).
+
+Trials over several ranks (``plan``, the JAX runner's ``plan=``,
+``:196``, ``:363-397``): the K trials are split over the plan's 'data'
+ranks, K / W a rank (K must be a multiple of W), with the batch replicated:
+every rank walks the same batches and draws the same step seeds; rank r
+trains the trials of the global slots [r·K/W, (r+1)·K/W), whose inits,
+pipeline draws and dropout seeds are keyed by the global slot as on one
+process. No collective runs inside the step. Rank 0 alone holds the study:
+it asks and tells, and broadcasts the hyperparameters (and, when a slot is
+recycled, its new trial's); every rank's per-trial accuracies are gathered
+for the reports and the pruning, whose decisions rank 0 broadcasts. Every
+rank returns the global history, values and trial numbers; ``states`` holds
+its own trials.
 
 Two execution modes:
 
@@ -67,6 +85,8 @@ import torch
 from torch.func import functional_call, grad_and_value, vmap
 
 from dlsc_tpu_torch.hpo.study import Study, Trial, TrialState
+from dlsc_tpu_torch.ops.dropout_draw import trial_seeds
+from dlsc_tpu_torch.parallel.mesh import MeshPlan, broadcast_object, gather_objects
 from dlsc_tpu_torch.train.losses import CrossEntropyLoss
 
 VMAPPABLE = ("optimizer.lr", "optimizer.weight_decay", "loss.label_smoothing",
@@ -215,14 +235,14 @@ def adam_step_(st: TrialStates, g: torch.Tensor, clip: float | None) -> None:
 class VmappedResult:
     trial_numbers: list[int]
     values: list[float]
-    states: TrialStates
+    states: TrialStates    # this rank's trials
     history: list[dict]
 
 
 class VmappedTrialRunner:
     def __init__(
         self,
-        study: Study,
+        study: Study | None,
         model: torch.nn.Module,
         pipeline,
         datamodule,
@@ -239,10 +259,12 @@ class VmappedTrialRunner:
         min_epochs: int = 0,
         seed: int = 0,
         device: torch.device | str | None = None,
+        plan: MeshPlan | None = None,
     ):
         """``model``: the template (its weights are re-initialised per trial);
         ``device``: where the trials train (default ``cuda``; the CPU only
-        when asked)."""
+        when asked); ``plan``: the trials split over its 'data' ranks (the
+        module docstring), ``study`` then on its rank 0 (None elsewhere)."""
         self.study = study
         if do_space is not None:
             if "hyper_dropout" not in getattr(model, "config", {}):
@@ -281,6 +303,35 @@ class VmappedTrialRunner:
         self.min_epochs = min_epochs
         self.seed = seed
         self.device = torch.device("cuda" if device is None else device)
+        self.plan = plan
+        self.n_ranks = 1 if plan is None else plan.n_data
+        self.rank = 0 if plan is None else plan.coordinate("data")
+        self.group = None if plan is None else plan.group("data")
+        self.slot0 = 0   # the global slot of this rank's first trial
+
+    # -- the ranks ------------------------------------------------------------------
+    def _check_k(self, k: int) -> None:
+        if k % self.n_ranks:
+            raise ValueError(
+                f"k={k} trials must be a multiple of the mesh data axis "
+                f"({self.n_ranks}) for mesh-sharded trial parallelism")
+
+    def _share(self, obj):
+        """Rank 0's ``obj`` on every rank."""
+        return obj if self.group is None else broadcast_object(obj, self.group)
+
+    def _gathered(self, local: np.ndarray) -> np.ndarray:
+        """The ranks' per-trial values, in global slot order."""
+        return local if self.group is None else np.concatenate(
+            gather_objects(local, self.group))
+
+    def _ask_shared(self, k: int) -> tuple[list[Trial | None], dict[str, np.ndarray],
+                                           list[int]]:
+        """K trials asked on rank 0: (the trials there, [None] * K elsewhere;
+        the hyperparameter columns and the trial numbers on every rank)."""
+        trials, hp = self._ask_batch(k) if self.rank == 0 else (None, None)
+        numbers, hp = self._share((trials and [t.number for t in trials], hp))
+        return trials or [None] * k, hp, numbers
 
     # -- trial batch construction ------------------------------------------------
     def _ask_batch(self, k: int) -> tuple[list[Trial], dict[str, np.ndarray]]:
@@ -340,13 +391,16 @@ class VmappedTrialRunner:
         - ``train(states, ms, ls, ma, wave, labels, draws=None,
           dropout_seed=None)`` → (states, ms, loss (K,)): one lockstep step,
           states updated in place; ``draws`` (one per trial, the pipeline's
-          ``draw``) and ``dropout_seed`` default to the trials' own streams;
+          ``draw``) default to the trials' own streams, ``dropout_seed`` (the
+          step's, from which each trial's is made by its global slot,
+          ``slot0`` onwards) to the run's stream;
         - ``eval(states, ms, wave, labels, mask)`` → (ms, logits (K, B, C));
         - ``acc(ms)`` → (K,) accuracies.
         """
         dm = self.datamodule
         dm.setup()
         dev = self.device
+        runner = self
         pipe = self.pipeline
         template = copy.deepcopy(self.model).cpu()   # re-initialised once a trial
         names = [n for n, _ in template.named_parameters()]
@@ -392,10 +446,9 @@ class VmappedTrialRunner:
                                           {"dropout_seed": seed, "return_aux": True})
             return crit(out, y) + aux, out
 
-        def step_grads(params, buffers, xs, ys, seed):
-            return vmap(grad_and_value(loss_one, has_aux=True),
-                        in_dims=(0, 0, 0, 0, None), randomness="different")(
-                params, buffers, xs, ys, seed)
+        def step_grads(params, buffers, xs, ys, seeds):
+            return vmap(grad_and_value(loss_one, has_aux=True), randomness="error")(
+                params, buffers, xs, ys, seeds)
 
         def train(st: TrialStates, ms: TrialMetrics, ls, ma, wave, labels, draws=None,
                   dropout_seed=None):
@@ -412,8 +465,8 @@ class VmappedTrialRunner:
             ls_t = torch.as_tensor(np.asarray(ls, np.float32).reshape(-1, 1, 1), device=dev)
             ys_s = ys * (1.0 - ls_t) + ls_t / ys.shape[-1]
             model.train()
-            grads, (loss, logits) = step_grads(st.params, st.buffers, xs, ys_s,
-                                               int(dropout_seed))
+            seeds = trial_seeds(int(dropout_seed), range(runner.slot0, runner.slot0 + st.k))
+            grads, (loss, logits) = step_grads(st.params, st.buffers, xs, ys_s, seeds)
             adam_step_(st, torch.cat([grads[n].reshape(st.k, -1).float() for n in names], 1),
                        clip)
             ms.update(logits.detach(), ys.argmax(-1))
@@ -437,26 +490,32 @@ class VmappedTrialRunner:
 
     def _epoch(self, fns: dict, states: TrialStates, ls_arr, ma_arr, epoch: int
                ) -> tuple[np.ndarray, np.ndarray]:
-        """One lockstep epoch and the validation pass: (val accs, train accs)."""
+        """One lockstep epoch and the validation pass: (val accs, train accs)
+        of every trial, gathered over the ranks."""
         ms = self._metrics(states.k)
         for batch in self.datamodule.train_batches(epoch=epoch, seed=self.seed):
             fns["train"](states, ms, ls_arr, ma_arr, batch["wave"], batch["label"])
         vms = self._metrics(states.k)
         for batch in self.datamodule.val_batches():
             fns["eval"](states, vms, batch["wave"], batch["label"], batch["mask"])
-        return fns["acc"](vms), fns["acc"](ms)
+        return self._gathered(fns["acc"](vms)), self._gathered(fns["acc"](ms))
 
     def _init_states(self, fns: dict, hp: dict) -> TrialStates:
-        k = len(hp["lr"])
-        return fns["init_v"]([_slot_seed(self.seed, i) for i in range(k)], hp["lr"],
-                             hp["wd"], hp["do"], hp["tm"], hp["wu"])
+        """This rank's trials: the global slots [slot0, slot0 + K / W)."""
+        k = len(hp["lr"]) // self.n_ranks
+        self.slot0 = self.rank * k
+        mine = slice(self.slot0, self.slot0 + k)
+        return fns["init_v"]([_slot_seed(self.seed, i) for i in range(mine.start, mine.stop)],
+                             *(hp[n][mine] for n in ("lr", "wd", "do", "tm", "wu")))
 
     # -- lockstep training ------------------------------------------------------
     def run_batch(self, k: int = 8) -> VmappedResult:
+        self._check_k(k)
         fns = self._build_exec()
-        trials, hp = self._ask_batch(k)
+        trials, hp, numbers = self._ask_shared(k)
         states = self._init_states(fns, hp)
-        ls_arr, ma_arr = hp["ls"], hp["ma"]
+        mine = slice(self.slot0, self.slot0 + states.k)
+        ls_arr, ma_arr = hp["ls"][mine], hp["ma"][mine]
 
         pruned = [False] * k
         history = []
@@ -464,25 +523,28 @@ class VmappedTrialRunner:
             val_accs, train_accs = self._epoch(fns, states, ls_arr, ma_arr, epoch)
             history.append({"epoch": epoch, "val_acc": val_accs.tolist(),
                             "train_acc": train_accs.tolist()})
-            for i, t in enumerate(trials):
-                if pruned[i]:
-                    continue
-                t.report(float(val_accs[i]), epoch)
-                if epoch >= self.min_epochs and t.should_prune():
-                    pruned[i] = True  # lockstep: slot keeps computing
+            if self.rank == 0:
+                for i, t in enumerate(trials):
+                    if pruned[i]:
+                        continue
+                    t.report(float(val_accs[i]), epoch)
+                    if epoch >= self.min_epochs and t.should_prune():
+                        pruned[i] = True  # lockstep: slot keeps computing
+            pruned = self._share(pruned)
 
         values = []
         for i, t in enumerate(trials):
             final = float(history[-1]["val_acc"][i]) if history else None
+            values.append(float("nan") if pruned[i] else final)
+            if self.rank != 0:
+                continue
             if pruned[i]:
                 self.study.tell(t, t.intermediate_values.get(t.last_step),
                                 TrialState.PRUNED)
-                values.append(float("nan"))
             else:
                 self.study.tell(t, final, TrialState.COMPLETE)
-                values.append(final)
         return VmappedResult(
-            trial_numbers=[t.number for t in trials],
+            trial_numbers=numbers,
             values=values, states=states, history=history,
         )
 
@@ -492,13 +554,17 @@ class VmappedTrialRunner:
 
         A slot's trial trains until it is pruned (Hyperband) or reaches the
         ``epochs`` budget; the slot is then re-initialised with a fresh
-        suggestion. K stays constant so nothing is rebuilt.
+        suggestion. K stays constant so nothing is rebuilt. Returns the
+        finished trials in order (on ranks other than 0, copies without
+        their study).
         """
+        self._check_k(k)
         fns = self._build_exec()
-        trials, hp = self._ask_batch(k)
+        trials, hp, _ = self._ask_shared(k)
         asked = k
         states = self._init_states(fns, hp)
-        ls_arr, ma_arr = hp["ls"].copy(), hp["ma"].copy()
+        mine = range(self.slot0, self.slot0 + states.k)
+        ls_arr, ma_arr = (hp[n][mine.start:mine.stop].copy() for n in ("ls", "ma"))
         slot_epoch = [0] * k
         active = [True] * k
         finished: list[Trial] = []
@@ -508,7 +574,8 @@ class VmappedTrialRunner:
             val_accs, _ = self._epoch(fns, states, ls_arr, ma_arr, global_epoch)
             global_epoch += 1
 
-            for i in range(k):
+            recycled = []   # (slot, its new trial's hyperparameter row, asked)
+            for i in range(k) if self.rank == 0 else ():
                 if not active[i]:
                     continue
                 t = trials[i]
@@ -529,16 +596,24 @@ class VmappedTrialRunner:
                     new_trials, nhp = self._ask_batch(1)
                     trials[i] = new_trials[0]
                     asked += 1
-                    new_state = fns["init_one"](
-                        _slot_seed(self.seed, 1000 + asked), nhp["lr"][0], nhp["wd"][0],
-                        nhp["do"][0], nhp["tm"][0], nhp["wu"][0])
-                    states.scatter(new_state, i)
-                    ls_arr[i] = nhp["ls"][0]
-                    ma_arr[i] = nhp["ma"][0]
+                    recycled.append((i, {n: v[0] for n, v in nhp.items()}, asked))
                     slot_epoch[i] = 0
                 else:
                     active[i] = False
-        return finished
+            recycled, active = self._share((recycled, active))
+            for i, row, n in recycled:
+                if i not in mine:
+                    continue
+                new_state = fns["init_one"](_slot_seed(self.seed, 1000 + n), row["lr"],
+                                            row["wd"], row["do"], row["tm"], row["wu"])
+                states.scatter(new_state, i - mine.start)
+                ls_arr[i - mine.start] = row["ls"]
+                ma_arr[i - mine.start] = row["ma"]
+        if self.group is None:
+            return finished
+        copies = self._share([dataclasses.replace(t, study=None) for t in finished]
+                             if self.rank == 0 else None)
+        return finished if self.rank == 0 else copies
 
 
 __all__ = ["VMAPPABLE", "schedule_factor", "TrialStates", "TrialMetrics", "VmappedResult",

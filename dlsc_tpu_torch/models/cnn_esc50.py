@@ -21,7 +21,7 @@ from torch import nn
 
 from dlsc_tpu_torch.models.layers import (BatchNorm, CNNBase, as_dtype, conv, dtype_name,
                                           fans, flax_params, lecun_normal_, linear)
-from dlsc_tpu_torch.models.moe import dropout
+from dlsc_tpu_torch.ops.dropout_draw import Draw, dropout
 
 # (channels, kernel, pool window, pool stride, pool kind) of each block
 BLOCKS = ((109, 2, 4, 4, "avg"), (203, 2, 4, 3, "max"), (181, 3, None, None, None),
@@ -78,7 +78,7 @@ class CNN_ESC50(CNNBase):
         names.update(flax_params("Dense_1", "fc2", "dense"))
         return names
 
-    def logits(self, x: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
+    def logits(self, x: torch.Tensor, draw: Draw | None) -> torch.Tensor:
         if x.ndim == 4:
             x = x.mean(dim=1) if x.shape[1] > 1 else x[:, 0]
         B = x.shape[0]
@@ -90,5 +90,5 @@ class CNN_ESC50(CNNBase):
             elif kind == "max":
                 x = F.max_pool2d(x, pool, stride)
         x = x.permute(0, 2, 3, 1).reshape(B, -1)               # the NHWC flatten
-        x = dropout(F.relu(linear(x, self.fc1)), DROPOUT, gen)
+        x = dropout(F.relu(linear(x, self.fc1)), DROPOUT, draw, 0)
         return F.linear(x.float(), self.fc2.weight.float(), self.fc2.bias.float())

@@ -30,7 +30,7 @@ from torch import nn
 
 from dlsc_tpu_torch.models.layers import (BatchNorm, CNNBase, as_dtype, conv, dtype_name,
                                           fans, flax_params, linear, normal_)
-from dlsc_tpu_torch.models.moe import dropout
+from dlsc_tpu_torch.ops.dropout_draw import Draw, dropout
 
 # (channels, kernel, stride) of the two front-end convolutions
 FRONT = ((32, (1, 64), (1, 2)), (64, (1, 16), (1, 2)))
@@ -121,7 +121,7 @@ class EnvNetV2(CNNBase):
             names.update(flax_params(f"Dense_{i}", f"fc.{i}", "dense"))
         return names
 
-    def logits(self, x: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
+    def logits(self, x: torch.Tensor, draw: Draw | None) -> torch.Tensor:
         if x.ndim == 3:
             x = x[:, 0]
         elif x.ndim == 4:
@@ -139,7 +139,7 @@ class EnvNetV2(CNNBase):
             x = self.trunk[2 * i + 1](self.trunk[2 * i](x))
             x = F.max_pool2d(x, pool)
         x = x.permute(0, 2, 3, 1).reshape(B, -1)               # the NHWC flatten
-        for layer in self.fc[:-1]:
-            x = dropout(F.relu(linear(x, layer)), self.rate, gen)
+        for site, layer in enumerate(self.fc[:-1]):
+            x = dropout(F.relu(linear(x, layer)), self.rate, draw, site)
         head = self.fc[-1]
         return F.linear(x.float(), head.weight.float(), head.bias.float())

@@ -29,7 +29,7 @@ import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 
-from dlsc_tpu_torch.models.moe import RowGenerator
+from dlsc_tpu_torch.ops.dropout_draw import make_draw
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -135,8 +135,9 @@ def flax_params(flax_path: str, torch_path: str, kind: str) -> dict[str, str]:
 class CNNBase(nn.Module):
     """Shared forward contract and construction of the CNN families. A
     subclass builds its layers, then calls ``_finish``, and defines
-    ``_init(generator)`` (its seeded init), ``logits(x, gen)`` (dropout
-    masks from ``gen``, none when it is None) and ``flax_names()``."""
+    ``_init(generator)`` (its seeded init), ``logits(x, draw)`` (dropout
+    masks keyed by ``draw``, ``ops.dropout_draw.Draw``, none when it is
+    None; each dropout layer its own site) and ``flax_names()``."""
 
     config: dict
 
@@ -152,14 +153,13 @@ class CNNBase(nn.Module):
         """Logits (B, num_classes) f32; with ``return_aux``, (logits, 0.0,
         {}). ``dropout_seed`` seeds this call's dropout masks in train mode
         (drawn from torch's default generator when None); ``rows`` =
-        (start, total) cuts them from a global batch's (``moe.RowGenerator``)."""
-        gen = None
+        (start, total): x's rows of a global batch, whose masks they are
+        (``ops.dropout_draw.Draw``)."""
+        draw = None
         if self.training:
-            seed = int(torch.randint(2**62, ())) if dropout_seed is None else int(dropout_seed)
-            gen = torch.Generator(x.device).manual_seed(seed)
-            if rows is not None:
-                gen = RowGenerator(gen, rows[0], rows[0] + x.shape[0], rows[1])
-        out = self.logits(x, gen)
+            seed = int(torch.randint(2**62, ())) if dropout_seed is None else dropout_seed
+            draw = make_draw(seed if torch.is_tensor(seed) else int(seed), rows, x.shape[0])
+        out = self.logits(x, draw)
         return (out, 0.0, {}) if return_aux else out
 
 

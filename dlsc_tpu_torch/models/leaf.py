@@ -32,7 +32,7 @@ from torch import nn
 
 from dlsc_tpu_torch.models.layers import (BatchNorm, CNNBase, as_dtype, conv, dtype_name,
                                           fans, flax_params, lecun_normal_, linear)
-from dlsc_tpu_torch.models.moe import dropout
+from dlsc_tpu_torch.ops.dropout_draw import Draw, dropout
 from dlsc_tpu_torch.ops.mel import hann_window_np
 
 POOL = 160                 # the energy's downsampling before PCEN
@@ -140,13 +140,13 @@ class LeafModel(CNNBase):
         names.update(flax_params(f"Dense_{len(MLP)}", "head", "dense"))
         return names
 
-    def logits(self, x: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
+    def logits(self, x: torch.Tensor, draw: Draw | None) -> torch.Tensor:
         if x.ndim == 3:
             x = x[:, 0]
         x = self.pcen(self.gabor(x.to(self.dtype)))                  # (B, F, T // 160)
         for (_, k, pool), cv, bn in zip(BLOCKS, self.convs, self.conv_bns):
             x = F.max_pool1d(F.relu(bn(conv(x, cv, padding=(k - 1) // 2))), pool)
         x = x.mean(dim=-1)                                           # (B, 512)
-        for layer, bn in zip(self.mlp, self.mlp_bns):
-            x = dropout(F.relu(bn(linear(x, layer))), DROPOUT, gen)
+        for site, (layer, bn) in enumerate(zip(self.mlp, self.mlp_bns)):
+            x = dropout(F.relu(bn(linear(x, layer))), DROPOUT, draw, site)
         return F.linear(x.float(), self.head.weight.float(), self.head.bias.float())

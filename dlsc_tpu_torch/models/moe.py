@@ -9,7 +9,9 @@ Under data parallelism (``group``) the aux loss's sums and the stats are
 reduced over the ranks, so that they are the global batch's (the JAX step
 computes them over the global batch); under expert parallelism
 (``ep_group``, ``parallel/ep.py``) the capacity buffers cross ranks to
-their experts (``_expert_parallel``).
+their experts (``_expert_parallel``); under tensor parallelism (``tp``, a
+``parallel/tp.MoeSplit``) each rank holds a slice of every expert's hidden
+units (``_tp_copy``, ``_tp_out``).
 
 Routing, as in the JAX package: a bias-free router in f32 → softmax, and
 the z-loss over real tokens (pads, >= ``n_real``, are left out of every
@@ -58,13 +60,16 @@ row, and a dropped or pad row adds an exact zero (its weight and its
 cotangent are 0), so the order of the atomic adds cannot change a sum, in
 the forward nor in the gather's backward.
 
-Dropout (``dropout``) draws its masks from the generator it is given; the
-blocks in ``models/vit.py`` seed one per block and step, so a
-rematerialised block draws the same masks again. A ``RowGenerator`` (a
-data-parallel rank's rows, a microbatch) draws the global batch's masks
-and keeps its rows; on the ragged path the experts' masks are drawn per
-real (token, choice) pair and their boolean keep masks follow the sort, so
-that no mask depends on which rows share the batch. On the ragged path the
+Dropout (``ops/dropout_draw.dropout``) is a counter-based draw keyed by the
+block's ``Draw`` (the step's seed, the block, the forward's rows of the
+global batch): a mask bit is a hash of (seed, block, site, the element's
+index in the unsplit tensor), so a rematerialised block, a data-parallel
+rank's rows, a microbatch, a rank's experts (``_expert_parallel``) or its
+slice of the hidden units (tensor parallelism) draw the masks of the
+one-process step. The ragged path draws its experts' masks in the sort
+order directly: the counter of a sorted row's unit is its (token, choice,
+unit) index in the unsplit (global batch, n_real, K, F) tensor, so no mask
+depends on which rows share the batch or on the sort. On the ragged path the
 routing index tensors, the gate weights and both grouped products' outputs
 are tagged ``moe_res`` (``utils/remat.remat_tag``, ``moe.py:417-442``),
 which remat ``attn_res_moe`` keeps: its backward reruns neither product's
@@ -87,6 +92,8 @@ import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 
+from dlsc_tpu_torch.ops.dropout_draw import (SITE_HIDDEN, SITE_OUT, Draw, Part, dropout,
+                                             dropout_rows)
 from dlsc_tpu_torch.ops.gmm import grouped_matmul as gmm_op
 from dlsc_tpu_torch.utils.remat import remat_tag
 
@@ -155,65 +162,6 @@ def capacity(spec: MoeSpec, n: int, n_real: int) -> tuple[int, int, int]:
 def topk_routes(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The default router choice: the k largest gates, largest first."""
     return torch.topk(gates, k, dim=-1, sorted=True)
-
-
-@dataclasses.dataclass(frozen=True)
-class RowGenerator:
-    """A dropout generator for the rows [start, stop) of a global batch of
-    ``total`` rows (a data-parallel rank's share, or a pipeline's
-    microbatch): ``dropout`` draws the masks of the whole global batch from
-    ``gen`` and keeps this forward's rows, so every row gets the mask that
-    a one-process step over the global batch gives it."""
-
-    gen: torch.Generator
-    start: int
-    stop: int
-    total: int
-
-
-Part = tuple[int, int, int]   # (dim, index, count): x's dim is part index of count
-
-
-def _uniform(shape: torch.Size, gen: torch.Generator | RowGenerator, device: torch.device,
-             dim: int = 0, part: Part | None = None) -> torch.Tensor:
-    """f32 uniforms of ``shape``. With a ``RowGenerator``, dim ``dim`` holds
-    the forward's rows (k entries a row) and the draw is the global batch's,
-    sliced. ``part`` = (d, i, n): dim d is the i-th of n equal parts of the
-    unsplit tensor (a rank's experts, heads, hidden units or tokens under
-    expert or tensor parallelism), also cut from the unsplit draw."""
-    rows = isinstance(gen, RowGenerator)
-    if not rows and part is None:
-        return torch.rand(shape, generator=gen, device=device)
-    full, idx = list(shape), [slice(None)] * len(shape)
-    if rows:
-        k = shape[dim] // (gen.stop - gen.start)
-        full[dim], idx[dim] = gen.total * k, slice(gen.start * k, gen.stop * k)
-    if part is not None:
-        d, i, n = part
-        full[d], idx[d] = shape[d] * n, slice(i * shape[d], (i + 1) * shape[d])
-    return torch.rand(full, generator=gen.gen if rows else gen, device=device)[tuple(idx)]
-
-
-def dropout(x: torch.Tensor, rate: float | torch.Tensor,
-            gen: torch.Generator | RowGenerator | None, dim: int = 0,
-            part: Part | None = None, mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Inverted dropout with masks from ``gen`` (no dropout when ``gen`` is
-    None or ``rate`` is 0): kept entries are scaled by 1/(1 - rate). The
-    uniform draws are f32 whatever x's dtype, so that a bf16 and an f32 run
-    with the same generator drop the same entries. A tensor ``rate`` (a
-    trial's rate, ``HyperDropout`` of ``dlsc_tpu/models/vit.py``) always
-    draws, a rate of 0 keeping every entry, and rescales by 1/keep in x's
-    dtype. ``dim`` and ``part``: see ``_uniform``; ``mask``, when given,
-    is the boolean keep mask to use (already laid out as x)."""
-    if gen is None:
-        return x
-    if not isinstance(rate, torch.Tensor) and rate == 0.0:
-        return x
-    keep = 1.0 - rate
-    if mask is None:
-        mask = _uniform(x.shape, gen, x.device, dim, part) < keep
-    scale = keep.to(x.dtype) if isinstance(rate, torch.Tensor) else keep
-    return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -307,6 +255,9 @@ class MoeMlp(nn.Module):
         # expert parallelism (parallel/ep.py): the ranks that hold the other
         # experts; wi, bi, wo and bo then hold this rank's E / ep experts
         self.ep_group: dist.ProcessGroup | None = None
+        # tensor parallelism (parallel/tp.py): a ``MoeSplit``; wi, bi and wo
+        # then hold this rank's slice of every expert's hidden units
+        self.tp = None
 
     def _global(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over ``group`` (autograd-aware), or ``t`` itself."""
@@ -314,9 +265,40 @@ class MoeMlp(nn.Module):
             return t
         return dist_nn.all_reduce(t, group=self.group)
 
+    def _tp_copy(self, t: torch.Tensor) -> torch.Tensor:
+        """The experts' input or the combine weights: under tensor
+        parallelism their gradient, a partial sum through this rank's hidden
+        units, is summed over the ranks, so that the router, the gates and
+        the aux loss see the whole gradient once (the router's input is not
+        passed through: its gradient is whole)."""
+        return t if self.tp is None else self.tp.copy_in(t)
+
+    def _tp_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The rank's partial output, summed over the tensor-parallel ranks."""
+        return y if self.tp is None else self.tp.reduce_out(y)
+
+    def _bias_out(self, dt: torch.dtype) -> torch.Tensor:
+        """bo in ``dt``; divided by tp under tensor parallelism, so that the
+        sum over the ranks adds it once (``pp_tp.py:162`` of the JAX package;
+        the layout sums its gradient over the ranks)."""
+        bo = self.bo.to(dt)
+        return bo if self.tp is None else bo / self.tp.tp
+
+    def _out_part(self) -> Part | None:
+        """The rank's tokens of the (B, N, D) output under sequence
+        parallelism."""
+        return (1, self.tp.t, self.tp.tp) if self.tp is not None and self.tp.sp else None
+
+    def _hidden_part(self) -> Part | None:
+        """The rank's slice of the (E, rows, F) hidden units under tensor
+        parallelism."""
+        return None if self.tp is None else (2, self.tp.t, self.tp.tp)
+
     def forward(self, x: torch.Tensor, n_real: int | None = None,
                 grouped_matmul: GroupedMatmulFn = gmm_op, topk: TopkFn = topk_routes,
-                gen: torch.Generator | None = None):
+                draw: Draw | None = None):
+        if self.tp is not None:
+            x = self.tp.gather(x)   # sequence parallelism: every rank routes every token
         B, N, D = x.shape
         E, K = self.spec.n_experts, self.spec.top_k
         n_real = N if n_real is None else min(n_real, N)
@@ -331,8 +313,9 @@ class MoeMlp(nn.Module):
         z2 = (torch.logsumexp(logits, dim=-1).square() * valid).sum()
         if self.spec.router == "expert":
             z2, nv = self._global(torch.stack([z2, _scalar(B * n_real, z2)])).unbind()
-            y, stats = self._expert_choice(x, gates, valid, n_real, topk, gen)
-            return dropout(y, self.rate, gen), self.spec.router_z_weight * z2 / nv, stats
+            y, stats = self._expert_choice(x, gates, valid, n_real, topk, draw)
+            return (dropout(self._tp_out(y), self.rate, draw, SITE_OUT, part=self._out_part()),
+                    self.spec.router_z_weight * z2 / nv, stats)
 
         # --- token-choice top-k and the load-balance loss: the aux loss is a
         # product of means over the global batch, so its sums are reduced
@@ -347,10 +330,11 @@ class MoeMlp(nn.Module):
         aux = (self.spec.router_z_weight * z2 / nv
                + self.spec.aux_weight * E * (frac * prob).sum())
         if self.spec.dispatch == "ragged":
-            y, stats = self._ragged(x, topi, topv, valid, n_real, grouped_matmul, gen)
+            y, stats = self._ragged(x, topi, topv, valid, n_real, grouped_matmul, draw)
         else:
-            y, stats = self._capacity(x, topi, topv, valid, n_real, gen)
-        return dropout(y, self.rate, gen), aux, stats
+            y, stats = self._capacity(x, topi, topv, valid, n_real, draw)
+        return (dropout(self._tp_out(y), self.rate, draw, SITE_OUT, part=self._out_part()), aux,
+                stats)
 
     @torch.no_grad()
     def _stats(self, dropped: torch.Tensor, pairs: float, load: torch.Tensor) -> torch.Tensor:
@@ -371,7 +355,7 @@ class MoeMlp(nn.Module):
         if self.route_hook is not None:
             self.route_hook(kept())
 
-    def _ragged(self, x, topi, topv, valid, n_real, grouped_matmul, gen):
+    def _ragged(self, x, topi, topv, valid, n_real, grouped_matmul, draw):
         """Dropless dispatch on the grouped products (``moe.py:367-455``):
         nothing is dropped; util from the routed load."""
         B, N, D = x.shape
@@ -390,35 +374,34 @@ class MoeMlp(nn.Module):
             tok = order // K
 
         # --- expert FFN on the sorted rows ----------------------------------
-        xs = _GatherRows.apply(x.reshape(T, D), tok, inv)             # (m_real, D)
+        xs = _GatherRows.apply(self._tp_copy(x).reshape(T, D), tok, inv)   # (m_real, D)
         wi, wo = self.wi.to(dt), self.wo.to(dt)
         with remat_tag("moe_res"):   # the first product, before its bias
             h = grouped_matmul(xs, wi, group_sizes)
-        # the masks are drawn per real (token, choice) pair, (B, n_real, K)
-        # in row-major order, so that they do not depend on which rows share
-        # the batch; the 1-byte keep mask, not the f32 draw, follows the sort,
-        # and neither the draw nor the unsorted mask outlives this statement
-        mask = None
-        if gen is not None and self.rate != 0.0:
-            pair = order // (N * K) * (n_real * K) + order % (N * K)
-            mask = (_uniform(torch.Size((m_real, h.shape[1])), gen, x.device)
-                    < 1.0 - self.rate)[pair]
-        h = dropout(F.gelu(h + _one_hot(e_sorted, E, dt) @ self.bi.to(dt)), self.rate, gen,
-                    mask=mask)
+        # the masks are drawn in the sort order: a sorted row's counter is its
+        # (token, choice) pair's row of the unsplit (global batch, n_real, K, F)
+        # tensor, so no mask depends on the sort or on which rows share the batch
+        h = F.gelu(h + _one_hot(e_sorted, E, dt) @ self.bi.to(dt))
+        if draw is not None and self.rate != 0.0:
+            first = 0 if draw.rows is None else draw.rows[0]
+            pair = (order // (N * K) + first) * (n_real * K) + order % (N * K)
+            F_ = h.shape[1]
+            t, tp = (0, 1) if self.tp is None else (self.tp.t, self.tp.tp)
+            h = dropout_rows(h, self.rate, draw, SITE_HIDDEN, pair, F_ * tp, t * F_)
         with remat_tag("moe_res"):
             out = grouped_matmul(h, wo, group_sizes)                  # (m_real, D)
 
         # --- combine with the gates; bo in token space ----------------------
         with remat_tag("moe_res"):
-            wk = topv.to(dt) * valid[:, None].to(dt)                  # pads weigh 0
+            wk = self._tp_copy(topv.to(dt) * valid[:, None].to(dt))   # pads weigh 0
         y = (_CombineRows.apply(out, inv, order) * wk.reshape(T, K, 1)).sum(1)
         aw = (_one_hot(topi, E, dt) * wk[..., None]).sum(2)           # (B, N, E)
-        y = y.reshape(B, N, D) + aw @ self.bo.to(dt)
+        y = y.reshape(B, N, D) + aw @ self._bias_out(dt)
         self._report(lambda: (_one_hot(topi, E, torch.float32).sum(2)
                               * valid[:, None].float()))
         return y, self._stats(torch.zeros((), device=x.device), 1.0, group_sizes)
 
-    def _capacity(self, x, topi, topv, valid, n_real, gen):
+    def _capacity(self, x, topi, topv, valid, n_real, draw):
         """Token-choice on the capacity dispatches (``moe.py:246-300``)."""
         B, N, D = x.shape
         E, K = self.spec.n_experts, self.spec.top_k
@@ -432,21 +415,21 @@ class MoeMlp(nn.Module):
         pos = (pos.reshape(B, G, K, S, E).transpose(2, 3) * a4).sum(-1)   # (B, G, S, K)
         keep = (pos < C).to(dt) * valid.reshape(G, S)[None, :, :, None].to(dt)
         pi = pos.clamp(0, C - 1).long()
-        wk = topv.to(dt).reshape(B, G, S, K) * keep                  # combine weights
+        wk = self._tp_copy(topv.to(dt).reshape(B, G, S, K) * keep)   # combine weights
         keep32 = keep.float()
         stats = self._stats(K * B * n_real - keep32.sum(), K * B * n_real,
                             (a4 * keep32[..., None]).sum((0, 1, 2, 3)))
         self._report(lambda: (a4 * keep32[..., None]).sum(3).reshape(B, N, E))
 
         # --- dispatch → expert FFN → combine ---------------------------------
-        xg = x.reshape(B, G, S, D)
+        xg = self._tp_copy(x).reshape(B, G, S, D)
         if self.spec.dispatch == "einsum":
             # one-hot products: (B, G, S, E, C) dispatch and combine tensors
             keep_e = _one_hot(topi, E, dt).reshape(B, G, S, K, E) * keep[..., None]
             oc = _one_hot(pi, C, dt) * keep[..., None]                # (B, G, S, K, C)
             disp = torch.einsum("bgske,bgskc->bgsec", keep_e, oc)
             buf = torch.einsum("bgsec,bgsd->ebgcd", disp, xg)
-            out = self._ffn(buf.reshape(E, B * G * C, D), gen).view(E, B, G, C, D)
+            out = self._ffn(buf.reshape(E, B * G * C, D), draw).view(E, B, G, C, D)
             comb = torch.einsum("bgske,bgskc,bgsk->bgsec", keep_e, oc, wk)
             y = torch.einsum("bgsec,ebgcd->bgsd", comb, out)
         else:
@@ -457,11 +440,11 @@ class MoeMlp(nn.Module):
             rows = (xg[:, :, :, None, :] * keep[..., None]).reshape(-1, D)
             buf = torch.zeros(E * B * G * C, D, dtype=dt, device=x.device).index_add(
                 0, slot, rows)
-            out = self._ffn(buf.view(E, B * G * C, D), gen).reshape(-1, D)
+            out = self._ffn(buf.view(E, B * G * C, D), draw).reshape(-1, D)
             y = (out[slot].view(B, G, S, K, D) * wk[..., None]).sum(3)
         return y.reshape(B, N, D), stats
 
-    def _expert_choice(self, x, gates, valid, n_real, topk, gen):
+    def _expert_choice(self, x, gates, valid, n_real, topk, draw):
         """Expert-choice (``moe.py:316-354``): per group each expert takes
         its top-C tokens by gate; dispatch and combine are one-hot products."""
         B, N, D = x.shape
@@ -475,9 +458,9 @@ class MoeMlp(nn.Module):
         wv, ti = topk(scores, C)                                      # (B, G, E, C)
         # an all-pad group would still pick pads: zero their rows
         oh = _one_hot(ti, S, dt) * vmask[None, :, None, None, :].to(dt)   # (B, G, E, C, S)
-        wv = wv.clamp_min(0.0).to(dt)
-        buf = torch.einsum("bgecs,bgsd->ebgcd", oh, x.reshape(B, G, S, D))
-        out = self._ffn(buf.reshape(E, B * G * C, D), gen).view(E, B, G, C, D)
+        wv = self._tp_copy(wv.clamp_min(0.0).to(dt))
+        buf = torch.einsum("bgecs,bgsd->ebgcd", oh, self._tp_copy(x).reshape(B, G, S, D))
+        out = self._ffn(buf.reshape(E, B * G * C, D), draw).view(E, B, G, C, D)
         y = torch.einsum("bgecs,ebgcd->bgsd", oh * wv[..., None], out).reshape(B, N, D)
         # 'dropped' here: real tokens taken by no expert (they ride the
         # residual); the load is each expert's taken slots
@@ -487,27 +470,29 @@ class MoeMlp(nn.Module):
         self._report(lambda: oh32.sum(3).transpose(2, 3).reshape(B, N, E))
         return y, stats
 
-    def _ffn(self, buf: torch.Tensor, gen: torch.Generator | RowGenerator | None
-             ) -> torch.Tensor:
+    def _ffn(self, buf: torch.Tensor, draw: Draw | None) -> torch.Tensor:
         """The stacked experts over their (E, M, D) capacity rows
         (``moe.py:457-467``): two batched products, bias, exact GELU. M is
         the batch's rows times G·C slots. Under expert parallelism the rows
         cross to their experts' ranks and back (``_expert_parallel``)."""
         if self.ep_group is not None:
-            return _expert_parallel(self, buf, gen)
-        return self._experts(buf, gen)
+            return _expert_parallel(self, buf, draw)
+        return self._experts(buf, draw, self._hidden_part())
 
-    def _experts(self, buf: torch.Tensor, gen, part: Part | None = None,
+    def _experts(self, buf: torch.Tensor, draw: Draw | None, part: Part | None = None,
                  grad_scale: float = 1.0) -> torch.Tensor:
         """This module's experts on their (E_local, M, D) rows; dropout
-        masks per (expert, row, unit), dim 1 holding the rows. The experts'
-        gradients are scaled by ``grad_scale`` (``_expert_parallel``)."""
+        masks per (expert, row, unit), dim 1 holding the rows, ``part`` the
+        rank's experts or hidden units. The experts' gradients are scaled by
+        ``grad_scale`` (``_expert_parallel``)."""
         dt = buf.dtype
-        wi, bi, wo, bo = (w if grad_scale == 1.0 else _ScaleGrad.apply(w, grad_scale)
-                          for w in (self.wi, self.bi, self.wo, self.bo))
+        wi, bi, wo = (w if grad_scale == 1.0 else _ScaleGrad.apply(w, grad_scale)
+                      for w in (self.wi, self.bi, self.wo))
+        bo = self._bias_out(dt)
+        bo = bo if grad_scale == 1.0 else _ScaleGrad.apply(bo, grad_scale)
         h = torch.bmm(buf, wi.to(dt)) + bi.to(dt)[:, None]
-        h = dropout(F.gelu(h), self.rate, gen, dim=1, part=part)
-        return torch.bmm(h, wo.to(dt)) + bo.to(dt)[:, None]
+        h = dropout(F.gelu(h), self.rate, draw, SITE_HIDDEN, dim=1, part=part)
+        return torch.bmm(h, wo.to(dt)) + bo[:, None]
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -523,16 +508,15 @@ class _ScaleGrad(torch.autograd.Function):
         return g * ctx.scale, None
 
 
-def _expert_parallel(m: MoeMlp, buf: torch.Tensor,
-                     gen: torch.Generator | RowGenerator | None) -> torch.Tensor:
+def _expert_parallel(m: MoeMlp, buf: torch.Tensor, draw: Draw | None) -> torch.Tensor:
     """``m``'s experts on (E, M, D) capacity rows, E split over
     ``m.ep_group``: an all-to-all sends each rank the rows of its E / ep
     experts from every rank of the group, the local experts run on them, and
     a second all-to-all brings the outputs back (autograd-aware, so the
     backward runs the same exchanges in reverse). The group's ranks hold
     consecutive row shares of the batch (``parallel/ep.py``), so the rows a
-    rank's experts see are the group's rows in order, which is how their
-    dropout masks are cut from the global draw. A rank's experts collect
+    rank's experts see are the group's rows in order, which places their
+    dropout masks' rows in the unsplit draw. A rank's experts collect
     the gradients of the rows of its whole group, each rank's loss being the
     mean over its own rows: they are scaled by 1 / ep, so that the experts'
     gradients, like every other parameter's, are then averaged over the
@@ -542,10 +526,9 @@ def _expert_parallel(m: MoeMlp, buf: torch.Tensor,
     El = E // ep
     recv = dist_nn.all_to_all_single(torch.empty_like(buf), buf.contiguous(), group=m.ep_group)
     local = recv.view(ep, El, M, D).transpose(0, 1).reshape(El, ep * M, D)
-    if isinstance(gen, RowGenerator):
-        b = gen.stop - gen.start
-        first = gen.start - me * b
-        gen = RowGenerator(gen.gen, first, first + ep * b, gen.total)
-    out = m._experts(local, gen, (0, me, ep), 1.0 / ep)
+    if draw is not None and draw.rows is not None:
+        first, b, total = draw.rows
+        draw = dataclasses.replace(draw, rows=(first - me * b, ep * b, total))
+    out = m._experts(local, draw, (0, me, ep), 1.0 / ep)
     out = out.view(El, ep, M, D).transpose(0, 1).reshape(E, M, D)
     return dist_nn.all_to_all_single(torch.empty_like(out), out.contiguous(), group=m.ep_group)

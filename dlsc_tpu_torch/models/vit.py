@@ -62,9 +62,11 @@ MoE blocks (``moe=``, ``models/moe.py``) replace the dense MLP with the
 routed experts; ``forward(..., return_aux=True)`` then also returns the
 sum over blocks of the pre-weighted aux losses and the block means of the
 MoE stats, carried through the checkpoints as block outputs. Dropout
-(``dropout``, the MLP's or the experts') draws its masks from a generator
-that each block seeds from ``dropout_seed`` and its index at the point of
-use, so the re-forward of a rematerialised block draws the same masks.
+(``dropout``, the MLP's or the experts') is a counter-based draw
+(``ops/dropout_draw.py``) keyed by ``dropout_seed``, the block's index and
+the mask's site, over the element's index in the unsplit tensor, so the
+re-forward of a rematerialised block draws the same masks, and so does a
+rank, a microbatch or a tensor-parallel slice of the one-process step.
 
 Int8 serving (``quant``: ``'w8a8'`` or ``'w8'``, ``vit.py:210-271`` and
 ``:552-641``): qkv, proj, fc1 and fc2 compute through ``ops/quant.py``
@@ -98,7 +100,7 @@ nothing reads. ``'dense'`` is the JAX package's einsum branch
 (``vit.py:132-140``), which it also takes in train mode whenever
 ``attn_dropout > 0`` (its kernels have no attention dropout): scores with
 the pad keys masked, an f32 softmax, dropout on P under the block's
-generator, then P·V (``dense_attention``, plain torch, as the JAX branch is
+draw, then P·V (``dense_attention``, plain torch, as the JAX branch is
 plain XLA).
 """
 
@@ -115,10 +117,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
 from dlsc_tpu_torch.models.layers import as_dtype, dtype_name, lecun_normal_, trunc_normal_
-from dlsc_tpu_torch.models.moe import (MOE_METRICS, GroupedMatmulFn, MoeMlp, MoeSpec, Part,
-                                       RowGenerator, TopkFn, as_moe_spec, dropout,
-                                       topk_routes)
+from dlsc_tpu_torch.models.moe import (MOE_METRICS, GroupedMatmulFn, MoeMlp, MoeSpec, TopkFn,
+                                       as_moe_spec, topk_routes)
 from dlsc_tpu_torch.ops.attn_fast import fast_mha_lse
+from dlsc_tpu_torch.ops.dropout_draw import (SITE_ATTN, SITE_HIDDEN, SITE_OUT, Draw, Part,
+                                             dropout, make_draw)
 from dlsc_tpu_torch.ops.gmm import grouped_matmul as gmm_op
 from dlsc_tpu_torch.ops.ln_fused import add_ln as add_ln_op
 from dlsc_tpu_torch.ops.quant import QUANT_MODES, int8_dot, materialize, w8_dot
@@ -182,17 +185,18 @@ def _check_attention(attn_impl: str, attn_dropout: float) -> None:
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_real: int,
-                    rate: float = 0.0, gen: torch.Generator | RowGenerator | None = None,
-                    part: tuple[int, int, int] | None = None) -> torch.Tensor:
+                    rate: float = 0.0, draw: Draw | None = None,
+                    part: Part | None = None) -> torch.Tensor:
     """Masked softmax attention on (B, H, N, dh), q pre-scaled: keys >=
     ``n_real`` masked, softmax in f32, P cast to q's dtype, dropout on P
-    (``rate``, masks from ``gen``; none when ``gen`` is None; ``part``: the
-    heads of a tensor-parallel rank, ``moe.dropout``), then P·V."""
+    (``rate``, masks from ``draw``; none when ``draw`` is None; ``part``: the
+    heads of a tensor-parallel rank, ``ops.dropout_draw.dropout``), then P·V."""
     s = torch.matmul(q, k.transpose(-1, -2))
     n = k.shape[2]
     if n_real < n:
         s = s.masked_fill(torch.arange(n, device=s.device) >= n_real, -1e30)
-    p = dropout(torch.softmax(s.float(), dim=-1).to(q.dtype), rate, gen, part=part)
+    p = dropout(torch.softmax(s.float(), dim=-1).to(q.dtype), rate, draw, SITE_ATTN,
+                part=part)
     return torch.matmul(p, v)
 
 
@@ -220,13 +224,13 @@ def _quant_buffers(layer: nn.Linear) -> None:
 
 class Attention(nn.Module):
     """Packed-qkv attention; ``impl`` 'dense' (or dropout in train mode:
-    ``gen`` given and ``rate`` > 0) takes ``dense_attention``, any other
+    ``draw`` given and ``rate`` > 0) takes ``dense_attention``, any other
     the ``attention`` op. ``quant``: qkv and proj through int8. Tensor
     parallelism's subclass (``parallel/tp.py``) runs a rank's heads: it
     overrides ``project_in`` and ``project_out`` (the products and their
     collectives) and ``part``, the part of the unsplit attention
-    probabilities whose dropout masks this module draws (``moe.dropout``;
-    None: all of them)."""
+    probabilities whose dropout masks this module draws (None: all of
+    them)."""
 
     part: Part | None = None
 
@@ -242,7 +246,7 @@ class Attention(nn.Module):
             _quant_buffers(self.proj)
 
     def forward(self, x: torch.Tensor, n_real: int, attention: AttentionFn,
-                gen: torch.Generator | RowGenerator | None = None) -> torch.Tensor:
+                draw: Draw | None = None) -> torch.Tensor:
         H = self.num_heads
         with remat_tag("qkv"):
             qkv = self.project_in(x)
@@ -250,8 +254,8 @@ class Attention(nn.Module):
         dh = D3 // (3 * H)
         qkv = qkv.view(B, N, 3, H, dh).permute(2, 0, 3, 1, 4)
         q = (qkv[0] * dh**-0.5).contiguous()  # pre-scaled, the kernel's contract
-        if self.impl == "dense" or (gen is not None and self.rate > 0):
-            out = dense_attention(q, qkv[1], qkv[2], n_real, self.rate, gen, self.part)
+        if self.impl == "dense" or (draw is not None and self.rate > 0):
+            out = dense_attention(q, qkv[1], qkv[2], n_real, self.rate, draw, self.part)
         else:
             out, _ = attention(q, qkv[1].contiguous(), qkv[2].contiguous(), n_real)
         with remat_tag("attn_out"):
@@ -271,7 +275,8 @@ class Mlp(nn.Module):
     """fc1 → GELU → dropout → fc2 → dropout. With ``hyper`` the dropout
     rate is the f32 buffer ``hyper_rate`` (``HyperDropout``,
     ``dlsc_tpu/models/vit.py:582-615``): a trial's rate, which the vmapped
-    HPO step stacks per trial, read as a tensor (see ``moe.dropout``).
+    HPO step stacks per trial, read as a tensor (see
+    ``ops.dropout_draw.dropout``).
     Tensor parallelism's subclass (``parallel/tp.py``) overrides
     ``project_in`` and ``project_out`` and the parts of the unsplit hidden
     units (``hidden_part``) and output (``out_part``) whose dropout masks
@@ -292,12 +297,12 @@ class Mlp(nn.Module):
         if hyper:
             self.register_buffer("hyper_rate", torch.tensor(float(dropout)))
 
-    def forward(self, x: torch.Tensor, gen: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, draw: Draw | None = None) -> torch.Tensor:
         rate = getattr(self, "hyper_rate", self.rate)
         with remat_tag("fc1"):
             h = self.project_in(x)
-        h = dropout(F.gelu(h), rate, gen, part=self.hidden_part)
-        return dropout(self.project_out(h), rate, gen, part=self.out_part)
+        h = dropout(F.gelu(h), rate, draw, SITE_HIDDEN, part=self.hidden_part)
+        return dropout(self.project_out(h), rate, draw, SITE_OUT, part=self.out_part)
 
     def project_in(self, x: torch.Tensor) -> torch.Tensor:
         """fc1."""
@@ -312,8 +317,8 @@ class Block(nn.Module):
     """Pre-LN block; the MLP is ``Mlp``, or ``MoeMlp`` (``self.moe``) when
     ``moe`` is given; with ``ln_fused`` the attention residual add and
     norm2 are one ``add_ln`` call. ``forward`` returns (x, aux, stats), aux
-    and stats None for a dense block; ``seed`` (None: no dropout) seeds the
-    block's dropout generator."""
+    and stats None for a dense block; ``draw`` (None: no dropout) keys the
+    block's dropout masks."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  dropout: float = 0.0, moe: MoeSpec | None = None, ln_fused: bool = False,
@@ -331,20 +336,16 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, n_real: int, attention: AttentionFn,
                 grouped_matmul: GroupedMatmulFn = gmm_op, topk: TopkFn = topk_routes,
-                seed: int | None = None, add_ln: AddLnFn = add_ln_op,
-                rows: tuple[int, int] | None = None):
-        gen = None if seed is None else torch.Generator(x.device).manual_seed(seed)
-        if gen is not None and rows is not None:
-            gen = RowGenerator(gen, rows[0], rows[0] + x.shape[0], rows[1])
-        a = self.attn(_layer_norm(x, self.norm1), n_real, attention, gen)
+                draw: Draw | None = None, add_ln: AddLnFn = add_ln_op):
+        a = self.attn(_layer_norm(x, self.norm1), n_real, attention, draw)
         if self.ln_fused:
             x, y, _, _ = add_ln(x, a, self.norm2.weight, self.norm2.bias)
         else:
             x = x + a
             y = _layer_norm(x, self.norm2)
         if not hasattr(self, "moe"):
-            return x + self.mlp(y, gen), None, None
-        out, aux, stats = self.moe(y, n_real, grouped_matmul, topk, gen)
+            return x + self.mlp(y, draw), None, None
+        out, aux, stats = self.moe(y, n_real, grouped_matmul, topk, draw)
         return x + out, aux, stats
 
 
@@ -485,21 +486,27 @@ class ASTViT(nn.Module):
         cls = _layer_norm(x[:, 0], self.norm).float()
         return torch.sigmoid(F.linear(cls, self.head.weight, self.head.bias))
 
-    def dropout_seed(self, dropout_seed: int | None) -> int | None:
+    def dropout_seed(self, dropout_seed: int | torch.Tensor | None
+                     ) -> int | torch.Tensor | None:
         """The step's dropout seed in train mode when something drops (drawn
-        from torch's default generator when not given), else None."""
+        from torch's default generator when not given; a tensor, a trial's
+        seed under the vmapped HPO step, as it is), else None."""
         if self.training and (self.hyper_dropout or self.dropout > 0 or self.attn_dropout > 0):
-            return int(torch.randint(2**62, ())) if dropout_seed is None else int(dropout_seed)
+            if dropout_seed is None:
+                return int(torch.randint(2**62, ()))
+            return dropout_seed if torch.is_tensor(dropout_seed) else int(dropout_seed)
         return None
 
     def run_block(self, i: int, x: torch.Tensor, n_real: int, attention: AttentionFn,
-                  grouped_matmul: GroupedMatmulFn, topk: TopkFn, seed: int | None,
-                  add_ln: AddLnFn, rows: tuple[int, int] | None):
+                  grouped_matmul: GroupedMatmulFn, topk: TopkFn,
+                  seed: int | torch.Tensor | None, add_ln: AddLnFn,
+                  rows: tuple[int, int] | None):
         """Block ``i`` on x, rematerialised as the model is configured (train
-        mode with autograd on); its dropout generator seeded by seed + i."""
+        mode with autograd on); its dropout masks keyed by (seed, i) and x's
+        rows of the global batch (``rows`` = (start, total))."""
         blk = self.blocks[i]
         args = (x, n_real, attention, grouped_matmul, topk,
-                None if seed is None else seed + i, add_ln, rows)
+                make_draw(seed, rows, x.shape[0], block=i), add_ln)
         if self.remat and self.training and torch.is_grad_enabled():
             return checkpoint(_tagged, blk, *args, use_reentrant=False,
                               context_fn=_remat_context_fn(self.remat_policy))
@@ -518,7 +525,7 @@ class ASTViT(nn.Module):
         torch's default generator when None). ``rows`` = (start, total):
         x is the rows [start, start + B) of a global batch of ``total``
         (a data-parallel rank's share, a microbatch), whose dropout masks
-        it takes (``moe.RowGenerator``). Under sequence parallelism
+        it draws (``ops.dropout_draw.Draw``). Under sequence parallelism
         (``parallel/tp.py``) ``token_shard`` cuts the tokens between embed
         and the blocks and gathers them back before ``finalize``."""
         if self.quant and self.training:

@@ -17,7 +17,10 @@ the JAX package gets from its runtime:
   and its row slice of that batch (``rows``). ``batch_size`` stays the
   global batch, as under the JAX mesh;
 - ``shard_batch`` is a host batch's rows of this rank; ``replicate``
-  broadcasts tensors from rank 0;
+  broadcasts tensors from rank 0; ``broadcast_object`` and
+  ``gather_objects`` move picklable host values (gloo has only all-reduce
+  and broadcast for CUDA tensors; its object collectives go through host
+  tensors);
 - ``spawn`` starts N ranks (``multiprocessing`` with the ``spawn`` method,
   a ``file://`` rendezvous), each with a process-group timeout, and joins
   them with a limit: a rank that dies leaves the others waiting in a
@@ -196,6 +199,26 @@ def replicate(tensors: Sequence[torch.Tensor], group: dist.ProcessGroup | None =
     src = dist.get_global_rank(group, 0) if group is not None else 0
     for t in tensors:
         dist.broadcast(t, src, group=group)
+
+
+def broadcast_object(obj: Any, group: dist.ProcessGroup | None = None) -> Any:
+    """The group's first rank's ``obj`` on every rank of ``group``
+    (pickled); ``obj`` itself in a process that has joined no group."""
+    if not dist.is_initialized():
+        return obj
+    box = [obj]
+    src = dist.get_global_rank(group, 0) if group is not None else 0
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
+def gather_objects(obj: Any, group: dist.ProcessGroup | None = None) -> list:
+    """Every rank's ``obj`` of ``group`` in rank order, on every rank."""
+    if not dist.is_initialized():
+        return [obj]
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
 
 
 # --------------------------------------------------------------------------- #

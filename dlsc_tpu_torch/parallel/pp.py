@@ -20,8 +20,9 @@ JAX; the stages idle where JAX's compute masked garbage.
 
 Semantics, against the JAX pipeline:
 
-- a microbatch's dropout masks are cut from the global batch's draw at its
-  rows (``moe.RowGenerator``), with the sequential model's per-block seeds:
+- a microbatch's dropout masks are the global batch's at its rows, keyed
+  by the sequential model's (seed, block) (a counter-based draw,
+  ``ops/dropout_draw.py``: a microbatch computes its own rows' bits only):
   the pipelined step draws what the one-process step draws (JAX folds a
   key from (data shard, microbatch, layer) instead, ``pp.py:290-300``);
 - the MoE aux loss is JAX's estimator: each (microbatch, stage) computes

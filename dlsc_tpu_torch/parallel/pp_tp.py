@@ -13,11 +13,18 @@ over its 'model' ranks; the ranks of one 'model' coordinate form the
 pipeline, and the activations they pass are the replicated residual
 stream. The batch is split over 'data' only.
 
-Dropout masks are cut from the one-process draw at the microbatch's rows
-and the rank's heads and hidden units (``moe.dropout``), where JAX folds
-the 'model' index into the hidden masks' keys. MoE blocks are not split
-over 'model' here (JAX splits the experts' hidden dim): ``tp.py`` raises
-for them.
+MoE blocks split each expert's hidden dim over 'model' (``tp.py``), as
+JAX's ``_block_tp`` does (wi and bi by columns, wo by rows, the router
+replicated, bo divided by tp inside the sum), and so does ``tp.py``
+outside the pipeline, where JAX's GSPMD tensor parallelism leaves the
+experts replicated: the values are the same. The MoE aux loss is the
+pipeline's estimator (``pp.py``), counted once over 'model'.
+
+Dropout masks are the one-process draw's at the microbatch's rows and the
+rank's heads and hidden units (a counter-based draw,
+``ops/dropout_draw.py``), where JAX folds the 'model' index into the dense
+hidden masks' keys and draws the experts' hidden masks with one key on
+every 'model' rank.
 """
 
 from __future__ import annotations
@@ -58,6 +65,10 @@ class PipelineTP(Pipeline):
             group = dist.new_group(ranks[:, :, m].flatten().tolist())
             if m == plan.coordinate("model"):
                 self.shared_group = group
+
+    def sync_grads(self) -> None:
+        self.tp.sync_grads()   # the MoE blocks' bo: partial over 'model'
+        super().sync_grads()
 
     def clip_(self, max_norm: float) -> torch.Tensor:
         named = list(self.model.named_parameters())

@@ -3,9 +3,10 @@
 Counterpart of ``dlsc_tpu/parallel/tp.py`` (column/row ``NamedSharding``s
 over 'model'), the head-sharded attention of ``models/vit.py:87-124`` and
 ``:158-200`` (``_head_sharded_mha``: the kernels under ``shard_map`` on
-H/tp heads) and the token sharding of ``vit.py:691-725``. JAX expresses the
-splits as shardings and GSPMD inserts the collectives; the port writes
-them, the way ``dlsc_tpu/parallel/pp_tp.py`` does inside its pipeline:
+H/tp heads), the token sharding of ``vit.py:691-725`` and the MoE block of
+``dlsc_tpu/parallel/pp_tp.py:150-173``. JAX expresses the splits as
+shardings and GSPMD inserts the collectives; the port writes them, the way
+``dlsc_tpu/parallel/pp_tp.py`` does inside its pipeline:
 
 - attention qkv and MLP fc1 are column-parallel (their output units split),
   proj and fc2 row-parallel (their input units split); norms, embeddings
@@ -20,21 +21,39 @@ them, the way ``dlsc_tpu/parallel/pp_tp.py`` does inside its pipeline:
   tensors, so K2 (and K3 under ``ln_fused``) need no sharding rule: what
   ``shard_map`` does for the Pallas kernels, or ``local_map`` for DTensor
   code. The parameters are plain local tensors too, not DTensors;
+- MoE blocks (``models/moe.MoeMlp``): each expert's hidden dim F is split,
+  wi (E, D, F) and bi (E, F) by columns, wo (E, F, D) by rows; the router
+  and bo are replicated, so every rank routes the replicated input alike
+  and counts the aux loss, the z-loss and the ``moe/*`` stats once. The
+  rank's partial expert outputs are combined with the gates and summed over
+  the ranks, bo divided by tp inside the sum as ``pp_tp.py:162`` does (its
+  gradient is then summed over the ranks: ``sync_grads``); the experts'
+  input and the combine weights take their summed gradient in the backward
+  (``MoeSplit.copy_in``), so the router's gradient is whole on every rank.
+  Every dispatch and router runs so: the ragged one through K4a/K4b at
+  F/tp, the capacity ones, expert-choice. Under sequence parallelism the
+  block gathers its tokens before the router (every rank routes them all)
+  and reduce-scatters its output. Expert parallelism does not compose with
+  it (JAX's message), and tp must divide F;
 - attention dropout takes the dense path, as in JAX (``vit.py:120``); every
-  dropout mask is cut from the unsplit draw (``moe.dropout``'s ``part``),
-  so a TP step draws what the one-process step draws;
+  dropout mask is the unsplit tensor's at the rank's heads, units or
+  tokens (a counter-based draw, ``ops/dropout_draw.py``: a rank computes
+  its own elements' bits only), so a TP step draws what the one-process
+  step draws (the MoE output's mask is the same on every rank);
 - ``sequence_parallel`` is the counterpart of ``token_sharding``: between
   the column and row products the activations are split over the tokens
   (LayerNorm, residuals and dropout on N/tp tokens), the all-reduces become
   an all-gather before each column product and a reduce-scatter after each
   row product, and the replicated parameters inside the blocks, whose
-  gradients are then partial sums, are summed over the ranks.
+  gradients are then partial sums, are summed over the ranks (but the MoE
+  routers, which see every token on every rank).
 
 The split lives in this module alone: ``TensorParallel`` cuts each
-block's qkv, proj, fc1 and fc2 and replaces its ``Attention`` and ``Mlp``
-by ``ParallelAttention`` and ``ParallelMlp``, subclasses that override the
-products (``project_in``, ``project_out``: the collectives) and the parts
-of the unsplit dropout draws (``part``, ``hidden_part``, ``out_part``).
+block's qkv, proj, fc1 and fc2 (or wi, bi and wo) and replaces its
+``Attention`` and ``Mlp`` by ``ParallelAttention`` and ``ParallelMlp``,
+subclasses that override the products (``project_in``, ``project_out``: the
+collectives) and the parts of the unsplit dropout draws (``part``,
+``hidden_part``, ``out_part``); a ``MoeMlp`` gets a ``MoeSplit``.
 The collectives are autograd functions on ``torch.distributed``; the
 reduce-scatter is an all-reduce and a slice (one collective that every
 backend has).
@@ -60,6 +79,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
+from dlsc_tpu_torch.models.moe import MoeMlp
 from dlsc_tpu_torch.models.vit import Attention, Mlp
 from dlsc_tpu_torch.parallel.data import (Layout, clip_shares_, is_writer, optimizer_by_name,
                                           optimizer_from_names, sum_grads)
@@ -226,6 +246,32 @@ class ParallelMlp(Mlp):
         return _row(x, self.fc2, self.group, self.sp)
 
 
+class MoeSplit:
+    """``MoeMlp.tp``: a rank's share of every expert's hidden units, the
+    ``t``-th of ``tp`` over ``group``, and the collectives; ``sp``: the
+    block's tokens are split over the ranks too."""
+
+    def __init__(self, group, t: int, tp: int, sp: bool = False):
+        self.group, self.t, self.tp, self.sp = group, t, tp, sp
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Under sequence parallelism every rank's tokens (the backward
+        keeps the rank's slice of a gradient that is whole on every rank:
+        the router's, and the experts' after ``copy_in``); else x."""
+        return _GatherTokens.apply(x, self.group, False) if self.sp else x
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """Identity; the backward sums the gradient over the ranks."""
+        return _CopyIn.apply(x, self.group)
+
+    def reduce_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks (under sequence parallelism, the rank's
+        tokens of it); the backward is the identity (or the all-gather)."""
+        if self.sp:
+            return _ScatterTokens.apply(y, self.group)
+        return _ReduceOut.apply(y, self.group)
+
+
 def _qkv_rows(D: int, H: int, t: int, tp: int) -> torch.Tensor:
     """The rows of the packed (3·D) qkv output that hold rank t's heads of
     q, k and v, in (3, H/tp, dh) order."""
@@ -234,9 +280,15 @@ def _qkv_rows(D: int, H: int, t: int, tp: int) -> torch.Tensor:
     return torch.cat([p * D + per for p in range(3)])
 
 
-# a block's split layers: qkv (rank's heads of q, k and v), column (output
-# units) or row (input units; the bias stays whole)
-_SPLITS = {"attn.qkv": "qkv", "attn.proj": "row", "mlp.fc1": "column", "mlp.fc2": "row"}
+# a block's split parameters: 'qkv' (the rank's heads of q, k and v) or the
+# dim cut into tp parts (a Linear's output units 0, input units 1; an
+# expert's hidden units: wi's 2, bi's and wo's 1); a row-parallel bias and
+# the MoE router and bo stay whole
+_SPLITS = {"attn.qkv.weight": "qkv", "attn.qkv.bias": "qkv", "attn.proj.weight": 1,
+           "mlp.fc1.weight": 0, "mlp.fc1.bias": 0, "mlp.fc2.weight": 1,
+           "moe.wi": 2, "moe.bi": 1, "moe.wo": 1}
+EP_TP_ERROR = ("pp×tp does not compose with expert_sharding (GSPMD constraints cannot appear "
+               "inside the pipeline's shard_map); build the model with expert_sharding=None")
 
 
 class TensorParallel(Layout):
@@ -257,43 +309,55 @@ class TensorParallel(Layout):
         if self.H % self.tp:
             raise ValueError(f"num_heads={self.H} not divisible by {self.tp} tensor-parallel ranks")
         self.split = {}   # parameter name -> kind
+        partial = set()   # parameters whose gradients are partial sums over the ranks
         with torch.no_grad():
             for i, blk in enumerate(model.blocks):
                 if not hasattr(blk, "attn"):   # a block another pipeline stage holds
                     continue
                 if hasattr(blk, "moe"):
-                    raise ValueError("tensor parallelism splits the dense MLP; MoE blocks take "
-                                     "expert parallelism (parallel/ep.py)")
+                    self._check_moe(blk.moe)
                 for suffix, kind in _SPLITS.items():
-                    owner, name = suffix.split(".")
-                    layer = getattr(getattr(blk, owner), name)
-                    for pname in ("weight", "bias"):
-                        full = getattr(layer, pname)
-                        if kind == "row" and pname == "bias":
-                            continue
-                        setattr(layer, pname, nn.Parameter(self._cut(kind, pname, full)))
-                        self.split[f"blocks.{i}.{suffix}.{pname}"] = kind
+                    *path, pname = suffix.split(".")
+                    owner = blk
+                    for name in path:
+                        owner = getattr(owner, name, None)
+                    if owner is None:
+                        continue
+                    full = getattr(owner, pname)
+                    setattr(owner, pname, nn.Parameter(self._cut(kind, full)))
+                    self.split[f"blocks.{i}.{suffix}"] = kind
                 blk.attn = ParallelAttention(blk.attn, self)
-                blk.mlp = ParallelMlp(blk.mlp, self)
+                if hasattr(blk, "moe"):
+                    blk.moe.tp = MoeSplit(self.group, self.t, self.tp, self.sp)
+                    partial.add(f"blocks.{i}.moe.bo")
+                else:
+                    blk.mlp = ParallelMlp(blk.mlp, self)
         if self.sp:
             model.token_shard = TokenShard(self.group)
-        # replicated parameters inside the blocks: partial gradients under SP
-        self.partial = [p for n, p in model.named_parameters()
-                        if n.startswith("blocks.") and n not in self.split] if self.sp else []
+            # replicated parameters inside the blocks: partial gradients under SP
+            # (the MoE routers' are whole: they route every token on every rank)
+            partial |= {n for n, _ in model.named_parameters()
+                        if n.startswith("blocks.") and n not in self.split
+                        and ".moe.router." not in n}
+        self.partial = [p for n, p in model.named_parameters() if n in partial]
 
-    def _cut(self, kind: str, pname: str, full: torch.Tensor) -> torch.Tensor:
+    def _check_moe(self, moe: MoeMlp) -> None:
+        """The JAX refusals (``pp_tp.py:272-276``, ``:283-288``)."""
+        if moe.ep_group is not None:
+            raise ValueError(EP_TP_ERROR)
+        hidden = moe.wi.shape[-1]
+        if hidden % self.tp:
+            raise ValueError(f"expert hidden {hidden} not divisible by model axis {self.tp}")
+
+    def _cut(self, kind: str | int, full: torch.Tensor) -> torch.Tensor:
         if kind == "qkv":
             return full[_qkv_rows(self.D, self.H, self.t, self.tp)].clone()
-        if kind == "column":
-            return full.chunk(self.tp, 0)[self.t].clone()
-        return full.chunk(self.tp, 1)[self.t].clone()   # row: input units
+        return full.chunk(self.tp, kind)[self.t].clone()
 
     def _merge(self, name: str, parts: list[torch.Tensor]) -> torch.Tensor:
         kind = self.split[name]
-        if kind == "row":
-            return torch.cat(parts, 1)
-        if kind == "column":
-            return torch.cat(parts, 0)
+        if kind != "qkv":
+            return torch.cat(parts, kind)
         full = torch.empty((3 * self.D,) + tuple(parts[0].shape[1:]), dtype=parts[0].dtype)
         for t, p in enumerate(parts):
             full[_qkv_rows(self.D, self.H, t, self.tp)] = p
@@ -339,7 +403,7 @@ class TensorParallel(Layout):
         """This rank's part of the whole parameter or moment ``name``."""
         if name not in self.split:
             return full
-        return self._cut(self.split[name], name.rsplit(".", 1)[1], full)
+        return self._cut(self.split[name], full)
 
     def full_state(self, state) -> dict | None:
         model = self.full_model_state()

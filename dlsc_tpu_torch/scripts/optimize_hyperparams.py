@@ -31,21 +31,30 @@ with the JAX script's keys: ``optuna.vmapped.k`` (8), ``rounds``,
 ranges by name, e.g. ``'+optuna.vmapped.spaces={model.dropout: {low: 0.0,
 high: 0.5}}'``; the port also reads ``scheduler.T_max`` and
 ``scheduler.warmup_frac`` there). ``optuna.vmapped.mesh=true`` shards the
-trials over several GPUs, which waits for the tail of the multi-GPU port
-(ROADMAP M12b): with more than one visible GPU it raises; with one it runs
-as without.
+K trials over the devices that ``trainer.devices`` names (``auto``: every
+visible GPU), K / W a rank (``hpo/vmapped.py``, ``plan``): the script starts
+one rank per device (``parallel.mesh.spawn``), or joins torchrun's group
+(``torchrun --nproc-per-node N -m dlsc_tpu_torch.scripts.optimize_hyperparams
+...``), as ``scripts/train.py`` does; rank 0 alone opens, prints and writes
+the study. On one device, or without the flag, it runs in one process. On
+the CPU, ``trainer.accelerator=cpu trainer.devices=2`` runs two gloo ranks.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from pathlib import Path
 from typing import Callable, Sequence
 
+import torch.distributed as dist
+
 from dlsc_tpu_torch.config import compose
 from dlsc_tpu_torch.hpo import HyperparameterSpace, Study, StudyManager
 from dlsc_tpu_torch.hpo.runner import HPORunner
-from dlsc_tpu_torch.scripts.train import CONFIG_DIR, fix_seed, parse_cli
+from dlsc_tpu_torch.parallel.data import is_writer
+from dlsc_tpu_torch.parallel.mesh import init_distributed, spawn
+from dlsc_tpu_torch.scripts.train import CONFIG_DIR, fix_seed, n_ranks, parse_cli
 from dlsc_tpu_torch.tracking import Tracker
 
 SPACES_DIR = CONFIG_DIR / "optimization" / "hyperparameter_spaces"
@@ -73,12 +82,12 @@ def build_runner(cfg, trainer_overrides: dict | None = None) -> HPORunner:
     )
 
 
-def run_vmapped(cfg) -> Study:
+def run_vmapped(cfg) -> Study | None:
     """K lockstep trials a step (``hpo/vmapped.py``), as the JAX script's
-    ``run_vmapped``; returns the study."""
-    import torch
-
+    ``run_vmapped``; in a process group the trials are split over its ranks.
+    Returns the study (None on ranks other than 0)."""
     from dlsc_tpu_torch.hpo.vmapped import VmappedTrialRunner
+    from dlsc_tpu_torch.parallel import make_plan
     from dlsc_tpu_torch.scripts.train import build_datamodule
     from dlsc_tpu_torch.train.loop import build_from_cfg, resolve_device
 
@@ -87,15 +96,13 @@ def run_vmapped(cfg) -> Study:
     k = int(vm.get("k", 8))
     rounds = int(vm.get("rounds", max(optuna_cfg.get("n_trials", 16) // k, 1)))
     device = resolve_device(cfg.select("trainer.accelerator", default="auto"))
-    if vm.get("mesh", False) and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "optuna.vmapped.mesh=true shards the trials over several GPUs, which waits for "
-            "the tail of the multi-GPU port (ROADMAP §1 M12b); run on one GPU "
-            "(CUDA_VISIBLE_DEVICES) or drop it")
+    plan = make_plan(device.type) if dist.is_initialized() else None
+    lead = is_writer()
 
     datamodule = build_datamodule(cfg)
     built = build_from_cfg(cfg, datamodule.pipeline.cfg)
-    study = StudyManager.from_config(optuna_cfg).create_study(load_if_exists=True)
+    study = StudyManager.from_config(optuna_cfg).create_study(load_if_exists=True) \
+        if lead else None
     sp = vm.get("spaces", {})
     runner = VmappedTrialRunner(
         study, built["model"], datamodule.pipeline, datamodule,
@@ -111,20 +118,45 @@ def run_vmapped(cfg) -> Study:
         min_epochs=int(optuna_cfg.get("min_epochs", 0)),
         seed=int(cfg.select("seed", default=42)),
         device=device,
+        plan=plan,
     )
     if vm.get("continuous", True):
         # slot recycling: pruned/finished slots refill with fresh suggestions
         total = int(optuna_cfg.get("n_trials", k * rounds))
         finished = runner.run_continuous(k=k, total_trials=total)
-        print(f"[vmapped continuous] processed {len(finished)} trials "
-              f"through {k} slots")
+        if lead:
+            print(f"[vmapped continuous] processed {len(finished)} trials "
+                  f"through {k} slots")
     else:
         for r in range(rounds):
             result = runner.run_batch(k=k)
-            print(f"[vmapped round {r}] trials {result.trial_numbers} "
-                  f"values {['%.4f' % v for v in result.values]}")
-    print(study.summary())
+            if lead:
+                print(f"[vmapped round {r}] trials {result.trial_numbers} "
+                      f"values {['%.4f' % v for v in result.values]}")
+    if lead:
+        print(study.summary())
     return study
+
+
+def _vmapped_rank(argv: list[str]) -> None:
+    """One spawned rank of a sharded vmapped study."""
+    cfg, _ = compose_cli(argv)
+    run_vmapped(cfg)
+
+
+def main_vmapped(cfg, argv: list[str]) -> Study:
+    """``run_vmapped``; with ``optuna.vmapped.mesh`` on several devices, on
+    one rank per device (spawned, or torchrun's), the study reopened from
+    its storage when the ranks are done."""
+    n, device_type, _ = n_ranks(cfg)
+    if cfg.select("optuna.vmapped.mesh", default=False) and not dist.is_initialized():
+        if "RANK" in os.environ:   # under torchrun
+            init_distributed(device_type=device_type)
+        elif n > 1:
+            spawn(_vmapped_rank, n, argv, device_type=device_type, timeout_s=24 * 3600)
+            return StudyManager.from_config(cfg.optuna.to_dict()).create_study(
+                load_if_exists=True)
+    return run_vmapped(cfg)
 
 
 def compose_cli(argv: list[str]):
@@ -142,9 +174,10 @@ def main(argv: list[str] | None = None, callbacks: Sequence[Callable] = ()) -> S
     """Run the study and return it: trial by trial through the
     ``HPORunner`` (``callbacks`` (study, trial) are called after each
     trial), or with ``optuna.vmapped.enabled`` through ``run_vmapped``."""
-    cfg, _ = compose_cli(list(argv if argv is not None else sys.argv[1:]))
+    argv = list(argv if argv is not None else sys.argv[1:])
+    cfg, _ = compose_cli(argv)
     if cfg.select("optuna.vmapped.enabled", default=False):
-        return run_vmapped(cfg)
+        return main_vmapped(cfg, argv)
     runner = build_runner(cfg)
     print(f"search space ({len(runner.space)} params): {runner.space.names()}")
     runner.optimize(callbacks)

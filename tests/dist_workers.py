@@ -218,3 +218,71 @@ def option_error(spec: dict) -> str | None:
     except ValueError as e:
         return str(e) if dist.get_rank() == 0 else None
     raise AssertionError("no ValueError")
+
+
+def vmapped_study(spec: dict) -> dict:
+    """A vmapped study of a tiny ViT (per-trial dropout and mixup α) on the
+    shards under ``spec['root']``: ``run_batch(k)`` (``spec['mode']`` 'batch')
+    or ``run_continuous(k, spec['total'])``; in a process group its K trials
+    split over the ranks (``VmappedTrialRunner(plan=...)``), the study on
+    rank 0. Every rank returns what the runner returned and its own trials'
+    stacked states; rank 0 also the study's trials (or ``spec['k']``'s
+    refusal, when ``spec['refusal']``)."""
+    from dlsc_tpu_torch import hpo
+    from dlsc_tpu_torch.data.datamodule import ESC50DataModule
+    from dlsc_tpu_torch.hpo.hyperband import HyperbandPruner
+    from dlsc_tpu_torch.hpo.vmapped import VmappedTrialRunner
+    from dlsc_tpu_torch.models.vit import ASTViT
+
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    dm = ESC50DataModule(root=spec["root"], **spec["dm"])
+    study = hpo.Study(spec["name"], spec["db"], "maximize", sampler=hpo.TPESampler(seed=3),
+                      pruner=HyperbandPruner(min_resource=1, max_resource=2,
+                                             reduction_factor=2)) if lead else None
+    plan = parallel.make_plan("cpu") if dist.is_initialized() else None
+    runner = VmappedTrialRunner(study, ASTViT(**spec["model_kw"]), dm.pipeline, dm, epochs=2,
+                                seed=3, device="cpu", do_space={"low": 0.0, "high": 0.5},
+                                ma_space={"low": 0.2, "high": 2.0}, plan=plan)
+    if spec.get("refusal"):
+        try:
+            runner.run_batch(k=spec["k"])
+        except ValueError as e:
+            return str(e)
+        raise AssertionError("no ValueError")
+    out = {}
+    if spec["mode"] == "batch":
+        res = runner.run_batch(k=spec["k"])
+        st = res.states
+        out = dict(history=res.history, values=res.values, numbers=res.trial_numbers,
+                   flat=st.flat.numpy().copy(), mu=st.mu.numpy().copy(),
+                   nu=st.nu.numpy().copy(), count=st.count.numpy().copy(),
+                   buffers={k: v.numpy().copy() for k, v in st.buffers.items()})
+    else:
+        fin = runner.run_continuous(k=spec["k"], total_trials=spec["total"])
+        out = dict(finished=[(t.number, t.params, t.state, t.value) for t in fin])
+    if lead:
+        out["trials"] = [(t.number, t.params, t.state, t.value, t.intermediate_values)
+                         for t in study.trials]
+    return out
+
+
+def tp_error(spec: dict) -> str | None:
+    """The message of the ValueError that ``tensor_parallel`` raises on a
+    tiny AST-MoE whose experts are split over the ranks (``spec['case']``
+    'ep'), or whose expert hidden dim the ranks do not divide ('hidden'),
+    on rank 0."""
+    from dlsc_tpu_torch.parallel import tp
+    from dlsc_tpu_torch.parallel.ep import ExpertSharding, shard_experts
+
+    model = build_model("vit", spec["model_kw"])
+    W = dist.get_world_size()
+    if spec["case"] == "ep":
+        shard_experts(model, ExpertSharding(dist.group.WORLD, dist.get_rank(), W))
+    else:
+        moe = model.blocks[0].moe
+        moe.wi = torch.nn.Parameter(moe.wi.data[..., :-1].contiguous())
+    try:
+        tp.tensor_parallel(model, parallel.get_mesh(W, W, "cpu"))
+    except ValueError as e:
+        return str(e) if dist.get_rank() == 0 else None
+    raise AssertionError("no ValueError")

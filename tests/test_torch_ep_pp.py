@@ -84,11 +84,15 @@ def _spec(layout, kw, init, wave, labels, draws, **extra):
 
 def _pp_tp_apply(jm, mesh, n_micro):
     """``state.apply_fn`` through ``vit_apply_pp_tp`` (as ``make_pp_apply_fn``
-    wraps ``vit_apply_pp``)."""
+    wraps ``vit_apply_pp``, the MoE aux loss under ``moe_aux``)."""
     def apply_fn(variables, inputs, train=False, rngs=None, mutable=None):
         out = vit_apply_pp_tp(jm, variables, inputs, mesh=mesh, n_micro=n_micro, train=train,
                               rng=(rngs or {}).get("dropout"))
-        return out if mutable is None else (out, {})
+        if mutable is None:
+            return out
+        if isinstance(out, tuple):   # MoE training: (logits, aux)
+            return out[0], {"intermediates": {"moe_aux": (out[1],)}}
+        return out, {}
     return apply_fn
 
 
@@ -164,6 +168,17 @@ def runs():
                               state_sh=lambda st: pp_state_shardings(st, plan.mesh))
     kw = _port_kw()
     four.append(_spec("pp_tp", kw, _sd(params, kw), wave, labels, ref["pp_tp"][2], n_micro=2))
+    # PP x TP ragged AST-MoE (each expert's hidden dim over 'model') against
+    # vit_apply_pp_tp on data=1 x stage=2 x model=2, as the port's 4 ranks
+    plan = JaxMeshPlan(jax_get_pp_tp_mesh(4, 2, 2))
+    jm = _jax_model(_moe("ragged"))
+    params = _init(jm)
+    ref["pp_tp_moe"] = _jax_steps(jm, params, wave, labels, 2, plan,
+                                  apply_fn=_pp_tp_apply(jm, plan.mesh, 2),
+                                  state_sh=lambda st: pp_state_shardings(st, plan.mesh))
+    kw = _port_kw(_moe("ragged"))
+    four.append(_spec("pp_tp", kw, _sd(params, kw), wave, labels, ref["pp_tp_moe"][2],
+                      n_micro=2))
     drop, drop4 = _dropout_specs(), _four_rank_dropout_specs()
     two = spawn(dw.run_all, W, specs + drop, timeout_s=600)[0]
     fours = spawn(dw.run_all, 4, four + drop4, timeout_s=600)[0]
@@ -206,13 +221,43 @@ def test_matches_jax_mesh(runs, i, name):
                                     (4, "pp_tp")])
 def test_modes_match_one_rank_with_dropout(runs, j, name):
     """Two steps with dropout 0.1 (the experts' too), SpecAugment, Mixup
-    and remat on 2 ranks against 1: expert parallelism (a rank's experts
-    cut their masks from the global draw), the ragged MoE under DDP (its
-    masks drawn per (token, choice), so the sort order does not matter),
-    GPipe (a microbatch's masks cut at its rows); on 4 ranks FSDP + EP and
-    PP x TP (a rank's heads and hidden units cut from the draw too)."""
-    got, want = runs["two"][(4, 5, 6, 9, 10)[j]], runs["one"][j]
+    and remat on 2 ranks against 1 (the counter-based draw: a split draws
+    its elements' bits of the unsplit tensor): expert parallelism (a rank's
+    experts), the ragged MoE under DDP (its masks drawn per (token, choice)
+    in the sort order, so the sort does not matter), GPipe (a microbatch's
+    rows); on 4 ranks FSDP + EP and PP x TP (a rank's heads and hidden
+    units too)."""
+    got, want = runs["two"][(4, 5, 6, 10, 11)[j]], runs["one"][j]
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-6)
     for g, w in zip(got["params"], want["params"]):
         for k in w:
             assert np.abs(g[k] - w[k]).max() <= 1e-5 * max(np.abs(w[k]).max(), 1e-3), k
+
+
+def test_pp_tp_moe_matches_jax(runs):
+    """Two steps of the ragged AST-MoE under GPipe over 2 stages with each
+    stage's experts' hidden units over 2 'model' ranks (K4a / K4b at F/2 on
+    the card), against ``vit_apply_pp_tp`` with ``test_moe.py:467``'s bars:
+    the loss 2e-6 relative, the outputs' confusion matrix equal, and the
+    first step's gradient (its change over the learning rate: the clipped
+    gradient, the same clip factor on both sides) within 2e-5 absolute
+    (measured 1.6e-7); each step's parameters
+    within 1e-4 of their largest change, as the other meshes'. A change of
+    wi is a difference of f32 parameters hundreds of times larger than it,
+    so one f32 spacing is a few 1e-5 of it: the absolute bar is the
+    gradient's."""
+    params, losses, _, jms = runs["ref"]["pp_tp_moe"]
+    got, spec = runs["two"][9], runs["specs"][9]
+    np.testing.assert_allclose(got["loss"], losses, rtol=2e-6)
+    np.testing.assert_array_equal(got["confmat"], np.asarray(jms.confmat))   # the outputs
+    before = spec["init"]
+    lr = spec["opt"][1]["lr"]
+    for step in range(2):
+        want = _sd(params[step], spec["model_kw"])
+        errs = _param_errs(got["params"][step], want, before)
+        assert max(errs.values()) < 1e-4, sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+        if step == 0:
+            for k, w in want.items():
+                np.testing.assert_allclose((before[k] - got["params"][0][k]) / lr,
+                                           (before[k] - w) / lr, rtol=0, atol=2e-5, err_msg=k)
+        before = want

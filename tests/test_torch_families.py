@@ -77,7 +77,7 @@ from dlsc_tpu_torch.models.convert import params_from_jax
 from dlsc_tpu_torch.models.envnet_v2 import EnvNetV2, trunk_shape
 from dlsc_tpu_torch.models.layers import BatchNorm
 from dlsc_tpu_torch.models.leaf import LeafModel
-from dlsc_tpu_torch.models.moe import dropout
+from dlsc_tpu_torch.ops.dropout_draw import Draw, dropout
 from dlsc_tpu_torch.ops import augment as A
 from dlsc_tpu_torch.serving import export_model, load_exported, make_infer
 from dlsc_tpu_torch.train import losses as L
@@ -512,9 +512,8 @@ def test_converter_names_shapes_and_flatten(name, families):
 def test_port_dropout_rate_and_seed(families):
     """The port's dropout keeps ~1 - rate and scales by 1/(1 - rate); one
     seed gives one set of masks, another seed another."""
-    g = torch.Generator().manual_seed(0)
-    for rate in (0.5, 0.3):
-        kept = dropout(torch.ones(200_000), rate, g)
+    for site, rate in enumerate((0.5, 0.3)):
+        kept = dropout(torch.ones(200_000), rate, Draw(0), site)
         assert abs((kept > 0).float().mean().item() - (1 - rate)) < 0.005
         assert torch.allclose(kept[kept > 0], torch.tensor(1 / (1 - rate)))
     for name in FAMILIES:

@@ -29,7 +29,14 @@ trial, bit-equal to per-trial calls; K4a/K4b fold K trials' experts into
 K·E groups, one launch each, against per-trial launches f32 1e-5 and bf16
 1e-2 (K4b's row slices follow the folded rows); one vmapped runner step of
 a small AST-Small with ``ln_fused`` launches K1 once, K2 once a block and
-K3 once a block and trial.
+K3 once a block and trial. The dropout draw (``csrc/dropout_draw.cu``):
+bit-equal to its plain version in f32 and bf16, unsplit, at a split's
+offsets, in its keep-mask mode, on row-indexed (sorted) rows and under its
+vmap rule (K trials in one launch, more than one launch past 64 trials).
+One tensor-parallel step (2 ranks on the one card over gloo) of a small
+AST-MoE in f32 against the one-process step: loss 1e-5 relative, gradients
+1e-4 of their largest (the ranks sum partial expert outputs in another
+order).
 """
 
 import re
@@ -43,6 +50,7 @@ from dlsc_tpu_torch.data.pipeline import DevicePipeline, PipelineConfig
 from dlsc_tpu_torch.models.ast import ASTModel
 from dlsc_tpu_torch.models.vit import ASTViT
 from dlsc_tpu_torch.ops import attn_fast as A
+from dlsc_tpu_torch.ops import dropout_draw as DD
 from dlsc_tpu_torch.ops import gmm as G
 from dlsc_tpu_torch.ops import ln_fused as LN
 from dlsc_tpu_torch.ops import mel as M
@@ -785,3 +793,113 @@ def test_data_parallel_layouts_at_one_rank_over_nccl(layout, cuda_device, tmp_pa
         if v.is_floating_point():
             assert _norm_err(got[k].float(), v.float()) < 1e-6 if v.abs().max() > 0 else \
                 torch.equal(got[k], v), k
+
+
+def _draw_pair(x, seeds, keep, strides, base, row_ids=None, mode=1):
+    """(the kernel's, the plain version's) draw of (K, ...) ``x`` on the card."""
+    args = (x, seeds, keep, 3, 2, strides, base, row_ids)
+    return DD._run(mode, *args), DD._plain(mode, *args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_draw_kernel_is_bit_equal_to_plain(dtype, cuda_device):
+    """Unsplit, a split's box (rows, heads, units at offsets), the keep mask
+    and the sorted rows of the ragged MoE, at ragged widths."""
+    g = torch.Generator(cuda_device).manual_seed(0)
+    before = DD.launches
+    for shape in ((3, 37, 129), (64, 6, 96, 96), (5, 1)):
+        x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)[None]
+        strides, base = DD.geometry(shape)
+        got, want = _draw_pair(x, torch.tensor([2**61 + 5]), torch.tensor([0.7]), strides, base)
+        assert torch.equal(got, want), shape
+        got, want = _draw_pair(x, torch.tensor([11]), torch.tensor([0.7]), strides, base, mode=0)
+        assert torch.equal(got, want), shape
+    full = (16, 12, 77, 40)
+    x = torch.randn(full, generator=g, device=cuda_device).to(dtype)
+    whole = DD.dropout(x, 0.25, DD.Draw(7, 4), 0)
+    box = x[3:11, 6:12, :, 8:37].contiguous()
+    strides, _ = DD.geometry(full)
+    base = 3 * strides[0] + 6 * strides[1] + 8
+    got = DD._run(1, box[None], torch.tensor([7]), torch.tensor([0.75]), 4, 0, strides, base,
+                  None)[0]
+    assert torch.equal(got, whole[3:11, 6:12, :, 8:37])
+    rows = torch.randperm(5000, generator=g, device=cuda_device)[:3001]
+    h = torch.randn(3001, 768, generator=g, device=cuda_device).to(dtype)
+    got, want = _draw_pair(h[None], torch.tensor([3]), torch.tensor([0.9]), [1536], 768,
+                           rows[None])
+    assert torch.equal(got, want)
+    assert DD.launches > before
+
+
+def test_dropout_draw_vmap_rule_folds_the_trials(cuda_device):
+    """K trials' seeds and per-trial rates (on the card) in one launch for
+    K <= 64, two for 70; each trial equal to its own plain draw."""
+    from torch.func import vmap
+
+    for k, launches in ((4, 1), (70, 2)):
+        xs = torch.randn(k, 8, 96, device=cuda_device, dtype=torch.bfloat16)
+        seeds = DD.trial_seeds(1, range(k))
+        rates = torch.linspace(0.0, 0.5, k, device=cuda_device)
+        before = DD.launches
+        out = vmap(lambda x, s, r: DD.dropout(x, r, DD.Draw(s, 2), 1), randomness="error")(
+            xs, seeds, rates)
+        assert DD.launches - before == launches
+        for i in range(k):
+            want = DD._plain(1, xs[i][None], seeds[i:i + 1], 1.0 - rates[i:i + 1], 2, 1,
+                             *DD.geometry((8, 96)), None)[0]
+            assert torch.equal(out[i], want), i
+
+
+def _tp_moe_rank(seed: int) -> dict | None:
+    """One rank of the two-rank TP test: a small AST-MoE step under TP 2
+    (gloo, CUDA tensors, one card); rank 0 adds the one-process step."""
+    import torch.distributed as dist
+
+    from dlsc_tpu_torch import parallel
+    from dlsc_tpu_torch.models.ast_moe import ASTMoE
+    from dlsc_tpu_torch.parallel import tp
+    from dlsc_tpu_torch.parallel.mesh import local_device
+
+    dev = local_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def step(layout: bool):
+        model = ASTMoE(num_classes=5, emb_dim=128, depth=2, num_heads=2, dtype=torch.float32,
+                       device=dev, generator=torch.Generator().manual_seed(seed))
+        lay = tp.tensor_parallel(model, parallel.get_mesh(2, 2, "cuda")) if layout else None
+        state = TrainState.create(model, sgd(lr=1.0), None, 1)
+        state.parallel = lay
+        pipe = DevicePipeline(PipelineConfig(mode="ast", num_classes=5, enable_mixup=True))
+        rng = np.random.default_rng(seed)
+        wave = torch.from_numpy((rng.standard_normal((4, 44_100)) * 0.3).astype(np.float32))
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        before = lay.full_model_state() if lay is not None else before
+        _, _, loss = make_train_step(pipe, CrossEntropyLoss())(
+            state, MetricState.create(5, dev), wave.to(dev), torch.tensor([1, 3, 0, 2],
+                                                                          device=dev),
+            pipe.draw(4, 44_100, rng), seed + 1)
+        after = lay.full_model_state() if lay is not None else {
+            n: p.detach().cpu() for n, p in model.named_parameters()}
+        grads = {n: (before[n].cpu() - after[n]).numpy() for n, _ in model.named_parameters()
+                 if n in after}
+        return loss.item(), grads
+
+    loss, grads = step(True)
+    if dist.get_rank() != 0:
+        return None
+    want_loss, want = step(False)
+    return dict(loss=loss, want_loss=want_loss, grads=grads, want=want)
+
+
+def test_two_rank_tp_moe_step_on_one_card(cuda_device):
+    """AST-MoE (ragged: K4a/K4b at F/2) with tensor parallelism 2 on two ranks
+    of the one card over gloo: one step equals the one-process step."""
+    from dlsc_tpu_torch.parallel.mesh import spawn
+
+    r = spawn(_tp_moe_rank, 2, 3, backend="gloo", device_type="cuda", device_ids=[0, 0],
+              timeout_s=600)[0]
+    assert r["loss"] == pytest.approx(r["want_loss"], rel=1e-5)
+    for k, w in r["want"].items():
+        assert k in r["grads"], k
+        assert np.abs(r["grads"][k] - w).max() <= 1e-4 * max(np.abs(w).max(), 1e-12), k

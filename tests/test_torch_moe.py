@@ -48,6 +48,7 @@ from dlsc_tpu_torch.models import moe as TM
 from dlsc_tpu_torch.models.ast_moe import ASTMoE
 from dlsc_tpu_torch.models.convert import params_from_jax
 from dlsc_tpu_torch.models.vit import ASTViT
+from dlsc_tpu_torch.ops.dropout_draw import Draw
 from dlsc_tpu_torch.ops import gmm as G
 from dlsc_tpu_torch.serving import export_model, load_exported, make_infer
 from dlsc_tpu_torch.train import losses as L
@@ -169,15 +170,15 @@ def test_moe_spec_validation():
 
 def test_dropout_masks():
     """About 90% kept at rate 0.1, kept entries scaled by 1/0.9; the same
-    seed gives the same mask; no generator or rate 0: the identity."""
+    seed gives the same mask; no draw or rate 0: the identity."""
     x = torch.ones(200_000)
-    y = TM.dropout(x, 0.1, torch.Generator().manual_seed(1))
+    y = TM.dropout(x, 0.1, Draw(1), 0)
     kept = y != 0
     assert abs(kept.float().mean().item() - 0.9) < 5e-3
     assert torch.allclose(y[kept], torch.tensor(1 / 0.9))
-    assert torch.equal(y, TM.dropout(x, 0.1, torch.Generator().manual_seed(1)))
-    assert not torch.equal(y, TM.dropout(x, 0.1, torch.Generator().manual_seed(2)))
-    assert TM.dropout(x, 0.1, None) is x and TM.dropout(x, 0.0, torch.Generator()) is x
+    assert torch.equal(y, TM.dropout(x, 0.1, Draw(1), 0))
+    assert not torch.equal(y, TM.dropout(x, 0.1, Draw(2), 0))
+    assert TM.dropout(x, 0.1, None, 0) is x and TM.dropout(x, 0.0, Draw(0), 0) is x
 
 
 # ---- the model ------------------------------------------------------------------

@@ -329,9 +329,10 @@ def test_sharded_eval_matches_one_rank(runs, i):
 @pytest.mark.parametrize("i,name", [(7, "ddp"), (8, "fsdp"), (9, "tp"), (10, "sp")])
 def test_modes_match_one_rank_with_dropout(runs, i, name):
     """Two steps with dropout 0.1 (and attention dropout under TP/SP),
-    SpecAugment, Mixup and remat on 2 ranks against 1: the masks of a
-    rank's rows, heads, units and tokens are cut from the global draw, the
-    mixing partners are featurised by the rank that needs them."""
+    SpecAugment, Mixup and remat on 2 ranks against 1: a rank draws the
+    unsplit masks' bits of its rows, heads, units and tokens (a
+    counter-based draw), the mixing partners are featurised by the rank
+    that needs them."""
     got, want = runs["two"][i], runs["one"][name]
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-6)
     for g, w in zip(got["params"], want["params"]):

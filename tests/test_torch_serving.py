@@ -229,7 +229,9 @@ def test_port_imports_no_jax():
         "        'dlsc_tpu_torch.scripts.prepare_esc50',\n"
         "        'dlsc_tpu_torch.scripts.prepare_urbansound8k',\n"
         "        'dlsc_tpu_torch.scripts.check_specs', 'dlsc_tpu_torch.scripts.tracking_ui',\n"
-        "        'dlsc_tpu_torch.scripts.cache_manager'} <= set(names)\n"
+        "        'dlsc_tpu_torch.scripts.cache_manager', 'dlsc_tpu_torch.ops.dropout_draw',\n"
+        "        'dlsc_tpu_torch.parallel.tp', 'dlsc_tpu_torch.parallel.pp_tp',\n"
+        "        'dlsc_tpu_torch.parallel.mesh'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'optax', 'dlsc_tpu', 'sklearn', 'orbax', 'tqdm'))\n"
         "assert not bad, bad\n"
