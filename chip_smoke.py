@@ -66,10 +66,13 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     kernel): registers and no spill; bit-equal to its plain version at
     AST-Base's MLP sites and AST-MoE's experts' (sorted rows) and output
     sites at batch 64 in bf16, in f32, in its keep-mask mode, at a rank's
-    rows and units of the unsplit draw, and under its vmap rule (4 trials
-    in one launch); each site timed beside the plain version, the
-    ``torch.rand`` draw it replaced and ``F.dropout``. Every phase counts
-    the draw's launches (one a site, forward, re-forward and backward);
+    rows and units of the unsplit draw, under its vmap rule (4 trials in
+    one launch), on every edge geometry of its vector and edge parts and
+    over every non-NaN bf16 value; each site timed beside the plain
+    version, the ``torch.rand`` draw it replaced and ``F.dropout``, and
+    the bound from its loop's SASS instructions (the integer pipes' issue
+    rate) beside the byte bound. Every phase counts the draw's launches
+    (one a site, forward, re-forward and backward);
 11. AST-MoE card parity of one train step at batch 4, dropout 0.1 with one
     seed: f32 kernels vs f32 plain ops, and bf16 kernels (remat
     ``attn_res``) vs bf16 plain ops that round where the TPU kernels round
@@ -714,7 +717,7 @@ KERNEL_NAMES = {
             "gmm_f32_kernel", "tgmm_f32_kernel"),
     "mel_power": ("mel_power_kernel",),
     "ln_fused": ("add_ln_fwd_kernel", "add_ln_bwd_kernel", "add_ln_bwd_reduce_kernel"),
-    "dropout_draw": ("dropout_draw_kernel",),
+    "dropout_draw": ("dropout_draw_kernel", "div_check_kernel"),
 }
 WGMMA_KERNELS = {"attn_fwd": ("attn_fwd_bf16_kernel",),
                  "attn_bwd": ("attn_bwd_dq_bf16_kernel", "attn_bwd_dkv_bf16_kernel"),
@@ -3747,9 +3750,172 @@ DRAW_SITES = (("AST-Base MLP hidden", (TRAIN_BATCH, N_PAD, 4 * AST_BASE_WIDTH), 
               ("AST-MoE experts' hidden, sorted rows", (MOE_ROWS, MOE_FF), True),
               ("AST-MoE block output", (TRAIN_BATCH, MOE_N_PAD, MOE_DIM), False))
 DRAW_RATE = 0.1
-DRAW_OPS = 30   # integer operations an element: a Philox block's ~100 over its 4
-                # elements, the compare, the divide and the select; counted
-                # against the f32 rate, which is no lower than the integer one
+# The draw's operation bound: its hot loop's instructions an element, counted
+# in the SASS of the kernel the sites launch (``draw_loop_count``), over the
+# rates at which an H100 SM issues them a clock (the Hopper white paper and the
+# CUDA programming guide's throughput table, compute capability 9.0): 64 lanes
+# for 32-bit integer add, compare, shift and logic (the ALU pipe), 64 for
+# integer multiply-add (IMAD, the FMA-heavy pipe; f32 has 128 lanes), and one
+# warp instruction a scheduler of every kind (128 lanes). The two integer pipes
+# issue side by side, so the bound is the busiest of the three, at the SM clock
+# nvidia-smi gives as the card's most.
+INT_LANES, ISSUE_LANES = 64, 128
+DRAW_SASS_KERNEL = "dropout_draw_kernel<bf16,1,0>"   # bf16, apply, 32-bit indices
+_ALU_OPS = {"LOP3", "LOP", "IADD3", "IADD", "ISETP", "SHF", "SHL", "SHR", "LEA", "SEL", "PRMT",
+            "IMNMX", "IABS", "BMSK", "SGXT", "FLO", "POPC", "MOV", "PLOP3", "F2FP", "FSEL",
+            "FSETP", "FMNMX", "ISCADD", "P2R", "R2P", "VIADD", "VIMNMX"}
+_FMA_INT_OPS = {"IMAD", "IMUL", "IDP"}
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+
+
+def _sass_loops(text: str) -> tuple[list[tuple[int, str]], list[tuple[int, int]]]:
+    """A SASS function's (address, instruction) pairs and its loops: the
+    (target, branch) address range of each backward branch."""
+    ins = [(int(a, 16), t.strip()) for a, t in _SASS_LINE.findall(text)]
+    loops = []
+    for addr, t in ins:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", t)
+        if m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    return ins, loops
+
+
+_PHILOX_MULHI = re.compile(r"\bIMAD\.(?:WIDE\.U32|HI\.U32)\s+[^,]+,\s*[^,]+,\s*"
+                          r"(?:-0x2daee0ad|-0x326172a9|0xd2511f53|0xcd9e8d57)\b")
+
+
+def draw_loop_count(text: str) -> dict:
+    """The instructions an element of the draw's vector loop: an innermost
+    loop of the kernel's SASS ``text`` with the most multiply-highs by the
+    Philox constants (IMAD.WIDE.U32 or IMAD.HI.U32: 19 a Philox block, round
+    0's product of the block word being the host's; elements = 4 x blocks).
+    Only the instructions that run on every iteration count: what a forward
+    branch inside the loop can jump over (a dropped element's division, the
+    division's slow-path call) is left out, so the bound stays a bound.
+    They split into the ALU pipe's, the integer FMA pipe's and the rest
+    (f32, conversions, memory, branches)."""
+    ins, loops = _sass_loops(text)
+    inner = [lp for lp in loops
+             if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+
+    def body(lp):
+        return [(a, t) for a, t in ins if lp[0] <= a <= lp[1]]
+
+    def mulhi(lp):
+        return sum(bool(_PHILOX_MULHI.search(t)) for _, t in body(lp))
+
+    require(inner, "dropout draw: no loop in the kernel's SASS")
+    most = max(mulhi(lp) for lp in inner)
+    blocks, rest = divmod(most, 19)
+    require(blocks > 0 and rest == 0,
+            f"dropout draw: {most} Philox multiply-highs in the hot loop, not 19 a block")
+    counts = []
+    for loop in (lp for lp in inner if mulhi(lp) == most):
+        skipped = set()
+        for a, t in body(loop):
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", t)
+            if m and a < int(m.group(1), 16) <= loop[1]:
+                skipped.update(b for b, _ in body(loop) if a < b < int(m.group(1), 16))
+        ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+                                  for a, t in body(loop) if a not in skipped)
+        alu = sum(n for op, n in ops.items() if op.split(".")[0] in _ALU_OPS)
+        fma = sum(n for op, n in ops.items() if op.split(".")[0] in _FMA_INT_OPS)
+        elements = 4 * blocks
+        counts.append(dict(elements=elements, alu=alu / elements, fma_int=fma / elements,
+                           issued=sum(ops.values()) / elements,
+                           skipped=len(skipped) / elements, opcodes=dict(ops.most_common())))
+    # loops alike in their Philox work (the exact and the multiply-and-correct
+    # division): the one that issues least, so that the bound stays a bound
+    return min(counts, key=lambda c: c["issued"])
+
+
+def draw_bound(count: dict, n: int, nbytes: float, sms: int, clock_hz: float) -> dict:
+    """The draw's bound on ``n`` elements: the larger of the bytes over the
+    memory rate and the busiest issue path of ``count``'s instructions
+    (``INT_LANES`` for each integer pipe, ``ISSUE_LANES`` for all); also
+    ``int_ms``, every integer instruction over ``INT_LANES`` alone (no
+    side-by-side issue)."""
+    lane_s = 1.0 / (sms * clock_hz)
+    t_ops = n * max(count["alu"] / INT_LANES, count["fma_int"] / INT_LANES,
+                    count["issued"] / ISSUE_LANES) * lane_s
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops_ms=t_ops * 1e3, bytes_ms=t_bytes * 1e3,
+                int_ms=n * (count["alu"] + count["fma_int"]) / INT_LANES * lane_s * 1e3)
+
+
+def max_sm_clock_hz() -> float:
+    """The card's most SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def draw_edge_cases(device: torch.device, g: torch.Generator):
+    """(name, kernel draw, plain draw) on geometries that reach every path of
+    the kernel: counter bases = 1, 2, 3 (mod 4), odd and short widths, a view
+    2 bytes past a 16-byte boundary, one row, 64 and 65 trials (one launch,
+    two) and 3 trials whose keeps sit on the host, keep 1 and keep 2^-20, f32
+    and bf16, the keep mask, sorted rows and 3 leading dims.
+    ``tests/test_torch_kernels_gpu.py`` runs the same cases."""
+    D = dropout_draw
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    def pair(x, seeds, keep, strides, base, row_ids=None, mode=1):
+        args = (x, seeds, keep, 3, 2, strides, base, row_ids)
+        return D._run(mode, *args), D._plain(mode, *args)
+
+    one, keep = torch.tensor([2**62 + 3]), torch.tensor([0.8])
+    for dtype in (torch.bfloat16, torch.float32):
+        t = str(dtype).split(".")[1]
+        for shift in (1, 2, 3):   # a box of a (9, 200) tensor from column 4·7 + shift
+            x = rand((9, 40), dtype)[None]
+            yield (f"base+{shift} {t}", *pair(x, one, keep, [200], 4 * 7 + shift))
+            yield (f"base+{shift} mask", *pair(x, one, keep, [200], 4 * 7 + shift, mode=0))
+        for cols in (1, 3, 5, 7, 9, 12, 17, 20):   # f32 12, 20: vector chunks and a tail
+            x = rand((13, cols), dtype)[None]
+            yield (f"cols {cols} {t}", *pair(x, one, keep, *D.geometry((13, cols))))
+        buf = rand(1 + 6 * 3072, dtype)
+        x = buf[1:].view(6, 3072)   # contiguous, data pointer 2 (f32: 4) bytes past 16
+        require(x.data_ptr() % 16 != 0, "dropout draw: the offset view sits on 16 bytes")
+        yield (f"offset view {t}", *pair(x[None], one, keep, *D.geometry((6, 3072))))
+        x = rand((1, 3072), dtype)
+        yield (f"one row {t}", *pair(x[None], one, keep, *D.geometry((1, 3072))))
+        yield (f"keep 1 {t}", *pair(x[None], one, torch.tensor([1.0]),
+                                    *D.geometry((1, 3072))))
+        yield (f"keep 2^-20 {t}", *pair(rand((1, 2**20 + 8), dtype)[None], one,
+                                        torch.tensor([2.0**-20]), *D.geometry((1, 2**20 + 8))))
+        rows = torch.randperm(5000, generator=g, device=device)[:777]
+        yield (f"row_ids {t}", *pair(rand((1, 777, 1536), dtype), one, keep, [1536], 0,
+                                     rows[None]))
+        yield (f"row_ids base+2 {t}", *pair(rand((1, 777, 18), dtype), one, keep, [37], 2,
+                                            rows[None]))
+    for k, on in ((64, device), (65, device), (3, "cpu")):   # per-trial seeds and keeps
+        x = rand((k, 4, 96), torch.bfloat16)
+        seeds = D.trial_seeds(k, range(k))
+        keeps = torch.linspace(0.5, 1.0, k, device=on)
+        yield (f"{k} trials, keeps on {on}", *pair(x, seeds, keeps, *D.geometry((4, 96))))
+    x = rand((2, 5, 7, 48), torch.bfloat16)   # 3 leading dims, a rank's head slice
+    yield ("3 leading dims", *pair(x[None], one, keep, [7 * 12 * 48, 12 * 48, 48], 3 * 48))
+    yield ("mask 16-wide", *pair(x[None], one, keep, *D.geometry((2, 5, 7, 48)), mode=0))
+
+
+def draw_every_bf16(device: torch.device):
+    """(keep, seed, kernel, plain) of the draw over every non-NaN bf16 value
+    at keep 0.9 and 0.7, 4 seeds each (every value kept at least once)."""
+    bits = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16).to(device)
+    x = x[~torch.isnan(x)]
+    x = x[:x.numel() // 8 * 8].reshape(1, -1)
+    for keep in (0.9, 0.7):
+        for seed in range(4):
+            args = (x[None], torch.tensor([seed]), torch.tensor([keep]), 0, 1,
+                    *dropout_draw.geometry(tuple(x.shape)), None)
+            yield keep, seed, dropout_draw._run(1, *args), dropout_draw._plain(1, *args)
 
 
 def _draw_args(shape: tuple, rows: bool, dev: torch.device, g: torch.Generator,
@@ -3772,18 +3938,33 @@ def _draw_args(shape: tuple, rows: bool, dev: torch.device, g: torch.Generator,
 def phase_draw(dev: torch.device, gen: torch.Generator) -> dict:
     """The dropout draw's kernel against its plain version, bit for bit: at
     the ``DRAW_SITES`` (bf16), at one f32 site, in its keep-mask mode, at a
-    rank's rows and heads (a slice of the unsplit draw), and under the vmap
-    rule (4 trials' seeds and rates, one launch) against each trial's plain
-    draw; registers and no spill (``-Xptxas -v``). Timed at each site
-    (events): the kernel, the plain version, the draw it replaced
-    (``torch.rand`` of the same count, the compare and the scale), and
-    ``F.dropout`` (its own bits; the yardstick of one PyTorch call)."""
+    rank's rows and heads (a slice of the unsplit draw), under the vmap rule
+    (4 trials' seeds and rates, one launch) against each trial's plain draw,
+    on every edge geometry (``draw_edge_cases``) and over every non-NaN bf16
+    value (``draw_every_bf16``); registers and no spill (``-Xptxas -v``).
+    Timed at each site (events): the kernel, the plain version, the draw it
+    replaced (``torch.rand`` of the same count, the compare and the scale),
+    and ``F.dropout`` (its own bits; the yardstick of one PyTorch call),
+    beside the bound from the SASS count of the kernel's loop
+    (``draw_loop_count``, ``draw_bound``) and the byte bound."""
     from torch.func import vmap
 
     build = _build_report("dropout_draw")
+    fns = {_kernel_name(f, "dropout_draw"): t
+           for f, t in _kernels.sass_functions("dropout_draw").items()}
+    count = draw_loop_count(fns[DRAW_SASS_KERNEL])
+    sms, clock = torch.cuda.get_device_properties(dev).multi_processor_count, max_sm_clock_hz()
+    print(f"dropout draw SASS ({DRAW_SASS_KERNEL}, the vector loop, {count['elements']} "
+          f"elements an iteration): an element {count['alu']:.3f} ALU-pipe, "
+          f"{count['fma_int']:.3f} integer FMA-pipe, {count['issued']:.3f} issued in all "
+          f"({count['skipped']:.3f} more behind forward branches, not counted); "
+          f"opcodes {count['opcodes']}; {sms} SMs at {clock / 1e6:.0f} MHz at most",
+          flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    Path("chiprun_out/dropout_draw.sass").write_text(_kernels.sass("dropout_draw"))
     g = torch.Generator(dev).manual_seed(int(torch.randint(2**31, (1,), generator=gen)))
     D = dropout_draw
-    rows, worst = [], None
+    rows = []
     for name, shape, by_row in DRAW_SITES:
         a = _draw_args(shape, by_row, dev, g)
         args = (a["x"], a["seeds"], a["keep"], a["block"], a["site"], a["strides"], a["base"],
@@ -3797,17 +3978,26 @@ def phase_draw(dev: torch.device, gen: torch.Generator) -> dict:
             torch.rand(x.shape, device=dev) < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                                           device=dev)))))
         lib_ms = float(np.median(cuda_times(lambda: F.dropout(x, DRAW_RATE, True))))
+        # the kernels alone (a replayed graph): events around a call time the host
+        # where the call's Python is longer than its kernel (the smallest site)
+        k_dev, lib_dev = (graph_ms(lambda: D._run(1, *args)),
+                          graph_ms(lambda: F.dropout(x, DRAW_RATE, True)))
         n = x.numel()
-        b = bound(DRAW_OPS * n, F32_FLOPS, 2 * n * x.element_size()
-                  + (8 * shape[0] if by_row else 0))
+        b = draw_bound(count, n, 2 * n * x.element_size() + (8 * shape[0] if by_row else 0),
+                       sms, clock)
         kept = (got[0] != 0).float().mean().item()
         rows.append(dict(site=name, shape=list(shape), ms=k_ms, plain_ms=p_ms, rand_ms=rand_ms,
-                         library_ms=lib_ms, kept=kept, **b))
+                         library_ms=lib_ms, graph_ms=k_dev, library_graph_ms=lib_dev, kept=kept,
+                         bound_share=b["bound_ms"] / k_dev,
+                         library_bound_share=b["bound_ms"] / lib_dev, **b))
         print(f"dropout draw, {name} {tuple(shape)} bf16 rate {DRAW_RATE}: bit-equal to the "
-              f"plain version; kernel {k_ms:.4f} ms (bound {b['bound_ms']:.4f} ms by "
-              f"{b['bound_by']}, share {b['bound_ms'] / k_ms:.3f}), plain {p_ms:.2f} ms, "
-              f"torch.rand + compare + scale {rand_ms:.4f} ms, F.dropout {lib_ms:.4f} ms; kept "
-              f"{kept:.5f}", flush=True)
+              f"plain version; kernel {k_ms:.4f} ms (graph {k_dev:.4f}), F.dropout "
+              f"{lib_ms:.4f} ms (graph {lib_dev:.4f}); bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} (operations {b['ops_ms']:.4f}, bytes {b['bytes_ms']:.4f}; "
+              f"every integer instruction at {INT_LANES} lanes {b['int_ms']:.4f}), share of "
+              f"the graph times: kernel {b['bound_ms'] / k_dev:.3f}, F.dropout "
+              f"{b['bound_ms'] / lib_dev:.3f}; plain {p_ms:.2f} ms, torch.rand + compare + "
+              f"scale {rand_ms:.4f} ms; kept {kept:.5f}", flush=True)
         del got, want, a, args, x
         torch.cuda.empty_cache()
     # f32, the mask mode, a rank's rows and heads, the vmap rule
@@ -3835,12 +4025,30 @@ def phase_draw(dev: torch.device, gen: torch.Generator) -> dict:
         want = D._plain(1, xs[i][None], seeds[i:i + 1], 1.0 - rates[i:i + 1], 1, 1,
                         *D.geometry(tuple(xs[i].shape)), None)[0]
         require(torch.equal(folded[i], want), f"vmapped draw: trial {i} != its plain draw")
-    print(f"dropout draw: f32, the keep mask, a rank's rows x units and {VM_K} vmapped trials "
-          "(one launch) bit-equal to the plain version", flush=True)
+    del x, whole, mask, part, xs, folded
+    edge = []
+    for name, got, want in draw_edge_cases(dev, g):
+        require(torch.equal(got, want), f"dropout draw, {name}: kernel != plain version")
+        edge.append(name)
+    for keep, seed, got, want in draw_every_bf16(dev):
+        require(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                f"dropout draw: a bf16 value's x / {keep} differs (seed {seed})")
+    t = time.perf_counter()
+    f32_bad, bf16_bad = D.check_division(dev)
+    print(f"dropout draw, x / keep without a division against __fdiv_rn over every bf16 x "
+          f"and every f32 keep in [0.5, 1) (2^39 pairs, {time.perf_counter() - t:.2f} s): "
+          f"{f32_bad} f32 results differ, {bf16_bad} bf16 results differ", flush=True)
+    require(bf16_bad == 0, f"dropout draw: x / keep differs from __fdiv_rn at {bf16_bad} pairs")
+    print(f"dropout draw: f32, the keep mask, a rank's rows x units, {VM_K} vmapped trials "
+          f"(one launch), {len(edge)} edge geometries ({', '.join(edge)}) and every non-NaN "
+          "bf16 value at keep 0.9 and 0.7 bit-equal to the plain version", flush=True)
     site = rows[2]
     return dict(max_abs_err=0.0, ms=site["ms"], plain_ms=site["plain_ms"],
                 bound_ms=site["bound_ms"], bound_by=site["bound_by"],
-                library_ms=site["library_ms"], rand_ms=site["rand_ms"], sites=rows, build=build)
+                library_ms=site["library_ms"], rand_ms=site["rand_ms"],
+                graph_ms=site["graph_ms"], library_graph_ms=site["library_graph_ms"],
+                division_check=dict(f32_differ=f32_bad, bf16_differ=bf16_bad), sites=rows,
+                sass_count=count, build=build)
 
 
 # --- phases 29-30: the multi-device layer (dlsc_tpu_torch/parallel) --------------------

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -58,7 +59,10 @@ PHILOX_ROUNDS = 10
 MASK32 = 0xFFFFFFFF
 MAX_LEAD = 6        # leading dims the kernel takes (csrc/dropout_draw.cu)
 MAX_TRIALS = 64     # seeds a launch (passed by value)
-THREADS = 256       # a block of the kernel's grid-stride loop
+VEC = {1: 8, 0: 16}  # elements a lane's vector chunk, by mode (16 bytes of x or of mask)
+MIN_CHUNKS = 6      # a row's lanes: the most (a power of two, 1 to 32) that leave each
+                    # lane about this many chunks of the row
+NARROW = 2**31      # a launch below this many elements indexes in 32 bits
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 Part = tuple[int, int, int]   # (dim, index, count): x's dim is part index of count
@@ -198,13 +202,109 @@ def _plain(mode: int, x: torch.Tensor, seeds: torch.Tensor, keep: torch.Tensor,
 
 # ---- the kernel ------------------------------------------------------------------------
 
+def magic(d: int) -> tuple[int, int]:
+    """(mul, shr) for dividing by ``d`` (1 <= d < 2^31) as the kernel does:
+    n // d == ((2n · mul) >> 32) >> shr for 0 <= n < 2^31, with shr =
+    ceil(log2 d) and mul = ceil(2^(31 + shr) / d) < 2^32 (the error
+    mul·d − 2^(31+shr) < d keeps n·mul / 2^(31+shr) below the next integer)."""
+    shr = (d - 1).bit_length()
+    return -(-(1 << (31 + shr)) // d), shr
+
+
+def fast_div(n: int, mul: int, shr: int) -> int:
+    """The kernel's quotient: __umulhi(2n, mul) >> shr."""
+    return ((2 * n * mul) >> 32) >> shr
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch's geometry as the kernel takes it (``_plan``)."""
+
+    sizes: tuple[int, ...]      # the leading dims, merged where contiguous in the unsplit x
+    strides: tuple[int, ...]    # their unsplit strides
+    magic: tuple[tuple[int, int], ...]   # (mul, shr) of each size (zeros when wide)
+    rows: int                   # rows of one trial
+    rows_magic: tuple[int, int]
+    vec: int                    # elements a vector chunk
+    nvec: int                   # vector chunks a row: columns [0, nvec·vec); 0 for none
+    log2_group: int             # lanes a row: 2^log2_group
+    wide: bool                  # 64-bit indices (and plain division)
+
+    def slots(self, a: int, cols: int) -> range:
+        """The Philox blocks of a row's edge part, relative to its first
+        element's block, where the row's counter base is ≡ ``a`` (mod 4):
+        block s holds columns 4s − a .. 4s − a + 3, and the edge part takes
+        those in [nvec·vec, cols)."""
+        t0 = self.nvec * self.vec
+        return range((a + t0) >> 2, ((a + cols - 1) >> 2) + 1)
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(mode: int, esize: int, lead: tuple[int, ...], strides: tuple[int, ...], base: int,
+          cols: int, trials: int, by_rows: bool, aligned: bool) -> Plan:
+    """The kernel's launch for ``trials`` trials of (*lead, cols) elements of
+    ``esize`` bytes (mode 1: x's, mode 0: the mask's) whose rows start at
+    the counters the leading dims' unsplit ``strides`` and ``base`` give (or
+    base + row_ids · strides[0] when ``by_rows``); ``aligned``: x's and
+    out's data pointers sit on 16 bytes.
+
+    - Leading dims of size 1 drop out and neighbours that are contiguous in
+      the unsplit tensor (stride_d == size_{d+1} · stride_{d+1}) merge, so a
+      whole unsplit tensor is one dim of rows.
+    - Every row goes by vector chunks of ``vec`` elements (whole Philox
+      blocks, 16-byte accesses) up to its last whole chunk when every row's
+      counter base is a multiple of 4 and every row starts on 16 bytes; the
+      rest of a row (``Plan.slots``), and every row otherwise, goes by Philox
+      blocks, one a lane.
+    """
+    if by_rows:
+        sizes, strd = [lead[0]], [strides[0]]
+    else:
+        sizes, strd = [], []
+        for n, t in zip(lead, strides):
+            if n == 1:
+                continue
+            if sizes and strd[-1] == n * t:
+                sizes[-1], strd[-1] = sizes[-1] * n, t
+            else:
+                sizes.append(n)
+                strd.append(t)
+        if not sizes:
+            sizes, strd = [1], [0]
+    rows = math.prod(lead)
+    wide = trials * rows * cols >= NARROW
+    vec = VEC[mode]
+    vector = (aligned and cols >= vec and (cols * esize) % 16 == 0 and base % 4 == 0
+              and all(t % 4 == 0 for t in strd))
+    nvec = cols // vec if vector else 0
+    chunks = nvec + -(-(cols - nvec * vec) // 4) + (0 if vector else 1)
+    log2_group = min(5, max(0, (chunks // MIN_CHUNKS).bit_length() - 1))
+    mg = (lambda d: (0, 0)) if wide else magic
+    return Plan(tuple(sizes), tuple(strd), tuple(mg(n) for n in sizes), rows, mg(rows), vec,
+                nvec, log2_group, wide)
+
+
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _kernels.load("dropout_draw")
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.dlsc_dropout_draw.argtypes = [i, p, p, i, i, i, p, p, ll, ll, p, p, p, f, i,
-                                      ctypes.c_uint, ctypes.c_uint, i, p]
+    p, i, ll, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, \
+        ctypes.c_uint
+    lib.dlsc_dropout_draw.argtypes = [i, p, p, i, i, i, p, p, p, p, ll, ll, p, p, p, f, i, u, u,
+                                      ll, i, i, u, u, p]
     lib.dlsc_dropout_draw.restype = i
+    lib.dlsc_dropout_div_check.argtypes = [p, p]
+    lib.dlsc_dropout_div_check.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=512)
+def _plan_args(plan: Plan) -> tuple:
+    """``plan``'s leading dims as the C entry point takes them: their count,
+    sizes, strides and magic numbers (ctypes arrays, built once a plan)."""
+    n = len(plan.sizes)
+    return (n, (ctypes.c_longlong * n)(*plan.sizes), (ctypes.c_longlong * n)(*plan.strides),
+            (ctypes.c_uint * n)(*(m for m, _ in plan.magic)),
+            (ctypes.c_uint * n)(*(s for _, s in plan.magic)))
 
 
 def _launch(mode: int, x: torch.Tensor, seeds: list[int], keep: torch.Tensor,
@@ -220,34 +320,50 @@ def _launch(mode: int, x: torch.Tensor, seeds: list[int], keep: torch.Tensor,
     out = torch.empty_like(x) if mode == 1 else torch.empty(x.shape, dtype=torch.bool,
                                                              device=x.device)
     K, per = x.shape[0], x[0].numel()
-    keep_by_value = keep.device.type == "cpu"
-    if not keep_by_value:
-        keep = keep.to(torch.float32).contiguous()
+    keep_by_value = keep.device.type == "cpu" and keep.numel() == 1
+    if keep_by_value:
+        keep_val = float(keep)
+    else:   # a trial's keep each, read by the kernel
+        keep = keep.to(x.device, torch.float32).contiguous()
     if row_ids is not None:
         row_ids = row_ids.to(x.device, torch.int64).contiguous()
-    size = (ctypes.c_longlong * len(lead))(*lead)
-    stride = (ctypes.c_longlong * len(lead))(*strides)
-    rows = per // cols
-    grid = max(1, min(-(-(min(K, MAX_TRIALS) * rows * (cols // 4 + 2)) // THREADS),
-                      torch.cuda.get_device_properties(x.device).multi_processor_count * 16))
     lib = _lib()
+    xp, op = x.data_ptr() if mode == 1 else 0, out.data_ptr()
+    dtype = _DTYPES[x.dtype] if mode == 1 else 1
     global launches
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
         for t0 in range(0, K, MAX_TRIALS):
             n = min(MAX_TRIALS, K - t0)
-            seeds_c = (ctypes.c_longlong * n)(*seeds[t0:t0 + n])
-            kv = keep[t0:t0 + n] if keep.numel() > 1 else keep.reshape(1)
+            xt, ot = xp and xp + t0 * per * x.element_size(), op + t0 * per * out.element_size()
+            plan = _plan(mode, out.element_size(), lead, tuple(strides), base, cols, n,
+                         row_ids is not None, xt % 16 == 0 and ot % 16 == 0)
             err = lib.dlsc_dropout_draw(
-                mode, x[t0].data_ptr() if mode == 1 else None, out[t0].data_ptr(),
-                _DTYPES[x.dtype] if mode == 1 else 1, n, len(lead), size, stride, base, cols,
-                None if row_ids is None else row_ids[t0].data_ptr(), seeds_c,
-                None if keep_by_value else kv.data_ptr(),
-                float(kv[0]) if keep_by_value else 0.0,
-                0 if keep_by_value or keep.numel() == 1 else 1, block, site, grid,
-                torch.cuda.current_stream().cuda_stream)
+                mode, xt or None, ot, dtype, n, *_plan_args(plan), base, cols,
+                None if row_ids is None else row_ids[t0].data_ptr(),
+                (ctypes.c_longlong * n)(*seeds[t0:t0 + n]),
+                None if keep_by_value else keep[t0 if keep.numel() > 1 else 0:].data_ptr(),
+                keep_val if keep_by_value else 0.0,
+                0 if keep_by_value or keep.numel() == 1 else 1, block, site, plan.nvec,
+                plan.log2_group, int(plan.wide), *plan.rows_magic, stream)
             _kernels.check(lib, err, "dropout draw kernel")
             launches += 1
     return out
+
+
+def check_division(device: torch.device | str = "cuda") -> tuple[int, int]:
+    """The kernel's x / keep (its multiply-and-correct form where it applies,
+    else ``__fdiv_rn``) against ``__fdiv_rn`` over every bf16 x and every f32
+    keep in [0.5, 1), on the card: (pairs whose f32 results differ, pairs
+    whose bf16 results differ). A launch of its own, not counted in
+    ``launches``."""
+    lib = _lib()
+    bad = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(bad.device):
+        err = lib.dlsc_dropout_div_check(bad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        _kernels.check(lib, err, "dropout draw division check")
+        f32_bad, bf16_bad = bad.tolist()
+    return f32_bad, bf16_bad
 
 
 def _run(mode: int, x: torch.Tensor, seeds: torch.Tensor, keep: torch.Tensor, block: int,

@@ -19,8 +19,15 @@ Bars, all exact (integer words, and one f32 division a kept entry):
   i equals the unbatched call at seed i, and so do the gradients;
 - the ragged MoE's draw in the sort order (``dropout_rows``) equals the
   unsorted (token, choice) tensor's draw gathered into that order;
-- the keep rate within 5 sigma of the binomial at rates 0.1 and 0.5.
+- the keep rate within 5 sigma of the binomial at rates 0.1 and 0.5;
+- the kernel's launch plan (``_plan``), mirrored here as the kernel reads
+  it: its magic numbers divide exactly like ``//``, its merged leading dims
+  give every row the plain version's counter base, and each row's vector
+  chunks and edge blocks cover every column exactly once, over the boxes
+  the hypothesis tests above draw, the ragged rows and the models' sites.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -206,3 +213,94 @@ def test_cpu_never_launches_and_other_devices_raise():
     with pytest.raises(ValueError, match="no kernel for meta"):
         D._run(1, torch.ones(1, 4, 8, device="meta"), torch.tensor([1]), torch.tensor([0.5]),
                0, 0, [8], 0, None)
+
+
+def _kernel_row_bases(plan: D.Plan, trials: int, base: int, row_ids=None) -> list[int]:
+    """Each row's counter base as the kernel computes it from ``plan``: the
+    trial and the leading dims' indices by its magic numbers (// when wide)."""
+    def div(n, d, mg):
+        q = n // d if plan.wide else D.fast_div(n, *mg)
+        return q, n - q * d
+
+    out = []
+    for row in range(trials * plan.rows):
+        r = div(row, plan.rows, plan.rows_magic)[1] if trials > 1 else row
+        if row_ids is not None:
+            out.append(base + int(row_ids[row]) * plan.strides[0])
+            continue
+        rb = base
+        for d in range(len(plan.sizes) - 1, 0, -1):
+            r, idx = div(r, plan.sizes[d], plan.magic[d])
+            rb += idx * plan.strides[d]
+        out.append(rb + r * plan.strides[0])
+    return out
+
+
+def _check_plan(mode, esize, lead, strides, base, cols, trials, row_ids, aligned):
+    plan = D._plan(mode, esize, tuple(lead), tuple(strides), base, cols, trials,
+                   row_ids is not None, aligned)
+    for d, mg in zip(plan.sizes + (plan.rows,), plan.magic + (plan.rows_magic,)):
+        n = np.concatenate([np.arange(min(4 * d, 4096)), [d - 1, d, d + 1, 2**31 - 1],
+                            np.random.default_rng(d).integers(0, 2**31, 256)]).astype(np.uint64)
+        q = (((2 * n) * np.uint64(mg[0])) >> np.uint64(32)) >> np.uint64(mg[1])
+        np.testing.assert_array_equal(q, n // np.uint64(d))
+    rid = None if row_ids is None else row_ids.reshape(-1)
+    want = D._row_bases(tuple(lead), list(strides), base, None if row_ids is None
+                        else row_ids, "cpu").reshape(-1).tolist()
+    if row_ids is None:
+        want = want * trials
+    got = _kernel_row_bases(plan, trials, base, rid)
+    assert got == want
+    vec_cols = list(range(plan.nvec * plan.vec))
+    for rb in set(got):
+        a = rb & 3
+        if plan.nvec:
+            assert a == 0 and (cols * esize) % 16 == 0 and aligned
+        edge = [c for s in plan.slots(a, cols) for c in range(4 * s - a, 4 * s - a + 4)
+                if plan.nvec * plan.vec <= c < cols]
+        assert sorted(vec_cols + edge) == list(range(cols))
+    assert 0 <= plan.log2_group <= 5 and not plan.wide
+    return plan
+
+
+@pytest.mark.parametrize("mode,esize", [(1, 2), (1, 4), (0, 1)], ids=["bf16", "f32", "mask"])
+@settings(max_examples=25, deadline=None)
+@given(data=st.data())
+def test_launch_plan_divides_and_covers_every_element_once(mode, esize, data):
+    """Boxes of any shape (the draws of ``test_any_box_...``) at a counter
+    base of any residue, 1 to 3 trials, pointers on 16 bytes or not."""
+    ndim = data.draw(st.integers(2, 5))
+    full = [data.draw(st.integers(1, 7)) for _ in range(ndim - 1)]
+    full.append(data.draw(st.sampled_from([1, 3, 5, 7, 8, 9, 16, 17, 24, 32, 40])))
+    box = [data.draw(st.integers(1, n)) for n in full]
+    start = [data.draw(st.integers(0, n - b)) for n, b in zip(full, box)]
+    strides, _ = D.geometry(tuple(full))
+    base = sum(s * t for s, t in zip(start, strides + [1])) + data.draw(st.integers(0, 3)) * 4
+    _check_plan(mode, esize, box[:-1], strides, base, box[-1], data.draw(st.integers(1, 3)),
+                None, data.draw(st.booleans()))
+
+
+@pytest.mark.parametrize("stride,base", [(1536, 0), (1536, 768), (37, 2), (8, 3)])
+def test_launch_plan_of_sorted_rows(stride, base):
+    """The ragged MoE's row-indexed rows (a permutation of an unsplit
+    tensor's rows, 2 trials)."""
+    rows = torch.randperm(40, generator=torch.Generator().manual_seed(stride))[:23]
+    ids = torch.stack([rows, rows.flip(0)])
+    plan = _check_plan(1, 2, [23], [stride], base, min(stride, 24), 2, ids, True)
+    assert (plan.nvec > 0) == (stride % 4 == 0 and base % 4 == 0)
+
+
+def test_launch_plan_at_the_models_sites():
+    """Every training site (bf16, batch 64) goes by vector chunks, a whole
+    unsplit tensor as one dim of rows, 32-bit indices; the 1-D geometry's
+    rows and the wide switch."""
+    sites = (((64, 1664), 3072, False), ((64, 1664), 768, False), ((88_192,), 1536, True),
+             ((64, 768), 384, False), ((64, 12, 1664), 1664, False))
+    for lead, cols, by_rows in sites:
+        strides, base = ([cols], 0) if by_rows else D.geometry(lead + (cols,))
+        plan = D._plan(1, 2, lead, tuple(strides), base, cols, 1, by_rows, True)
+        assert plan.nvec * plan.vec == cols and len(plan.sizes) == 1 and not plan.wide
+        assert plan.rows == math.prod(lead)
+    assert D._plan(1, 4, (2**20, 2**10), (2**10, 1), 0, 1, 4, False, True).wide
+    plan = D._plan(1, 2, (3, 4), (40, 8), 16, 8, 1, False, True)   # a rank's unit slice
+    assert plan.sizes == (3, 4) and plan.nvec == 1

@@ -32,7 +32,12 @@ a small AST-Small with ``ln_fused`` launches K1 once, K2 once a block and
 K3 once a block and trial. The dropout draw (``csrc/dropout_draw.cu``):
 bit-equal to its plain version in f32 and bf16, unsplit, at a split's
 offsets, in its keep-mask mode, on row-indexed (sorted) rows and under its
-vmap rule (K trials in one launch, more than one launch past 64 trials).
+vmap rule (K trials in one launch, more than one launch past 64 trials); on
+every path of its vector and edge parts (counter bases ≡ 1, 2, 3 mod 4,
+widths 1–20, a view 2 bytes past 16, one row, 64 and 65 trials, 3 with
+host keeps, keep 1 and 2^-20); every non-NaN bf16 value's x / keep, and
+its division-free form against __fdiv_rn at every bf16 x and f32 keep in
+[0.5, 1); no spill.
 One tensor-parallel step (2 ranks on the one card over gloo) of a small
 AST-MoE in f32 against the one-process step: loss 1e-5 relative, gradients
 1e-4 of their largest (the ranks sum partial expert outputs in another
@@ -848,6 +853,45 @@ def test_dropout_draw_vmap_rule_folds_the_trials(cuda_device):
             want = DD._plain(1, xs[i][None], seeds[i:i + 1], 1.0 - rates[i:i + 1], 2, 1,
                              *DD.geometry((8, 96)), None)[0]
             assert torch.equal(out[i], want), i
+
+
+
+def test_dropout_draw_kernel_at_every_edge_geometry(cuda_device):
+    """Bit-equal to the plain version on every path of the kernel's vector
+    and edge parts (``chip_smoke.draw_edge_cases``, which phase 10b runs
+    too), two launches for 65 trials."""
+    from chip_smoke import draw_edge_cases
+
+    g = torch.Generator(cuda_device).manual_seed(1)
+    before = DD.launches
+    names = []
+    for name, got, want in draw_edge_cases(cuda_device, g):
+        assert torch.equal(got, want), name
+        names.append(name)
+    assert DD.launches - before == len(names) + 1   # 65 trials: two launches
+
+
+def test_dropout_draw_divides_every_bf16_value_exactly(cuda_device):
+    """Every non-NaN bf16 value, kept at keep 0.9 and 0.7 (4 seeds: each
+    value kept at least once), equals the plain version's x / keep
+    (``chip_smoke.draw_every_bf16``); the kernel's division-free x / keep
+    equals ``__fdiv_rn`` after rounding to bf16 at every bf16 x and every
+    f32 keep in [0.5, 1) (``check_division``)."""
+    from chip_smoke import draw_every_bf16
+
+    for keep, seed, got, want in draw_every_bf16(cuda_device):
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), (keep, seed)
+    assert DD.check_division(cuda_device)[1] == 0   # every bf16 x, every keep in [0.5, 1)
+
+
+def test_dropout_draw_kernels_spill_nothing(cuda_device):
+    """Every instantiation of the draw (bf16, f32, the mask; 32- and 64-bit
+    indices) and the division check spill nothing (``-Xptxas -v``, a build
+    flag of the library)."""
+    log = _kernels.build_log("dropout_draw")
+    entries = re.findall(r"Compiling entry function '(\S+)'", log)
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
+    assert len(entries) == 7 and len(spills) >= len(entries) and not any(spills)
 
 
 def _tp_moe_rank(seed: int) -> dict | None:
