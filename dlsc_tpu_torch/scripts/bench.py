@@ -45,7 +45,8 @@ Prints one JSON line: ``metric``, ``value`` (clips/s), ``unit``, ``batch``,
 after ``--warmup`` steps), ``mfu`` and ``hw_util`` (``utils/mfu.py`` over
 the card's bf16 peak), ``device``, ``n_chips``, the peak device memory,
 ``profile`` (two more steps under ``torch.profiler``: device ms per step by
-kind of kernel, the top kernels, the busy share) and ``decomp``, read from
+kind of kernel, the top kernels, the busy share, the device ms a step of
+the step's pipeline, forward, backward and optimizer spans) and ``decomp``, read from
 that profile: the attention kernels K2f and K2b per step (depth launches
 each), for AST-MoE the grouped-matmul kernels K4a and K4b, with
 ``--ln-fused`` the add + LayerNorm kernels K3f and K3b, and the rest of the
@@ -82,6 +83,7 @@ from dlsc_tpu_torch.train.metrics import MetricState
 from dlsc_tpu_torch.train.optim import adam, cosine_annealing
 from dlsc_tpu_torch.train.state import TrainState
 from dlsc_tpu_torch.train.steps import make_train_step
+from dlsc_tpu_torch.utils import profiling
 from dlsc_tpu_torch.utils.mfu import ast_step_flops, ast_token_counts, peak_tflops
 
 # configs/model/ast.yaml, written out: the card's machine may lack pyyaml.
@@ -127,6 +129,7 @@ LN_FUSED_NOTE = "; K3 fused residual add + LayerNorm in every block"
 K2F, K2B = "K2f attention forward", "K2b attention backward"
 K3F, K3B = "K3f add+LN forward", "K3b add+LN backward"
 K4A, K4B = "K4a gmm", "K4b tgmm"
+PHASES = ("train.pipeline", "train.forward", "train.backward", "train.optimizer")
 
 # Device-kernel name fragments → the layer they belong to, first match wins.
 _KERNEL_KINDS = (
@@ -248,9 +251,11 @@ def timed_steps(step, state, ms, wave, labels, warmup: int, steps: int):
 def profile_calls(fn, n: int = 2, top: int = 15) -> dict:
     """``n`` calls of ``fn`` under ``torch.profiler``: device ms per call by
     kind of kernel, the ``top`` kernels, kernels launched per call, the
-    device's busy share of the profiled wall time (the profiler slows the
-    host, so the share is a lower bound), and the host ops with the most
-    self CPU time (where a host-bound call spends its wall time)."""
+    device's busy share of the profiled wall time (the union of the kernels'
+    intervals over it: kernels overlapping on two streams count once; the
+    profiler slows the host, so the share is a lower bound), and the host
+    ops with the most self CPU time (where a host-bound call spends its wall
+    time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -261,24 +266,28 @@ def profile_calls(fn, n: int = 2, top: int = 15) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = {}
-    n_kernels = 0
+    intervals = []
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
-            n_kernels += 1
+            intervals.append((evt.time_range.start, evt.time_range.end))
     kinds: dict[str, float] = {}
     for name, t in by_name.items():
         kind = next((k for k, frags in _KERNEL_KINDS if any(f in name for f in frags)), "other")
         kinds[kind] = kinds.get(kind, 0.0) + t / n
-    busy = sum(by_name.values())
+    busy, end = 0.0, float("-inf")   # the union of the intervals, us
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
     host = sorted(((e.key, e.self_cpu_time_total / 1e3 / n, e.count / n)
                    for e in prof.key_averages()), key=lambda kv: -kv[1])[:top]
     return {
         "calls": n,
-        "device_ms_per_call": busy / n,
+        "device_ms_per_call": sum(by_name.values()) / n,
         "wall_ms_per_call": wall_ms / n,
-        "busy_share": busy / wall_ms,
-        "kernels_per_call": n_kernels / n,
+        "busy_share": busy / 1e3 / wall_ms,
+        "kernels_per_call": len(intervals) / n,
         "by_kind_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": {name[:90]: t / n for name, t in
                            sorted(by_name.items(), key=lambda kv: -kv[1])[:top]},
@@ -288,15 +297,20 @@ def profile_calls(fn, n: int = 2, top: int = 15) -> dict:
 
 def profile_steps(step, state, ms, wave, labels, n: int = 2, top: int = 15) -> dict:
     """``profile_calls`` over ``n`` train steps, its per-call numbers named
-    per step."""
+    per step, and the device ms a step of the step's phases, from the spans
+    the step records under the profiler (``utils/profiling.spans``)."""
     box = [ms]
 
     def one_step():
         box[0] = step(state, box[0], wave, labels)[1]
 
     prof = profile_calls(one_step, n, top)
+    recorded = profiling.spans()
+    mine = set(sorted(s.step for s in recorded if s.name == "train.step")[-n:])
+    phases = {name: sum(s.dev_ms for s in recorded if s.name == name and s.step in mine) / n
+              for name in PHASES}
     return {"steps": n, **{k.replace("_per_call", "_per_step"): v for k, v in prof.items()
-                           if k != "calls"}}
+                           if k != "calls"}, "phase_device_ms_per_step": phases}
 
 
 def record(model: torch.nn.Module, batch: int, step_s: float, losses: np.ndarray,

@@ -55,6 +55,7 @@ from dlsc_tpu_torch.data.pipeline import DevicePipeline
 from dlsc_tpu_torch.ops.augment import one_hot
 from dlsc_tpu_torch.train.metrics import MetricState
 from dlsc_tpu_torch.train.state import TrainState
+from dlsc_tpu_torch.utils import profiling
 
 
 def make_train_step(pipeline: DevicePipeline, criterion: Callable, accum: int = 1,
@@ -65,11 +66,33 @@ def make_train_step(pipeline: DevicePipeline, criterion: Callable, accum: int = 
     replace the model's (``ASTViT.forward``'s ``attention``,
     ``grouped_matmul``, ``topk``, ``add_ln``: e.g. the plain
     ``mha_forward_reference``, ``gmm_reference`` and ``add_ln_reference``
-    under autograd, or a router choice replayed from another run)."""
-    ops = {k: v for k, v in ops.items() if v is not None}
+    under autograd, or a router choice replayed from another run).
+
+    Under a profiler session the step records its spans
+    (``utils/profiling.span``): ``train.step`` around the call,
+    ``train.pipeline``, ``train.forward`` (the model and the loss) and
+    ``train.backward`` (the remat re-forward included) for each
+    micro-batch, ``train.optimizer`` around ``state.apply_gradients()``;
+    the metric update is the step's self time. GPipe's schedule
+    (``par.runs_step``) interleaves the phases of its micro-batches: there
+    only ``train.step`` and ``train.optimizer`` are recorded."""
+    body = _train_body(pipeline, criterion, accum, ops)
 
     def train_step(state: TrainState, ms: MetricState, wave: torch.Tensor,
                    labels: torch.Tensor, draws=None, dropout_seed=None):
+        with profiling.span("train.step"):
+            return body(state, ms, wave, labels, draws, dropout_seed)
+
+    return train_step
+
+
+def _train_body(pipeline: DevicePipeline, criterion: Callable, accum: int, ops: dict
+                ) -> Callable:
+    """The train step inside its ``train.step`` span."""
+    ops = {k: v for k, v in ops.items() if v is not None}
+
+    def body(state: TrainState, ms: MetricState, wave: torch.Tensor, labels: torch.Tensor,
+             draws, dropout_seed):
         if wave.shape[0] % accum:
             raise ValueError(f"batch size {wave.shape[0]} not divisible by "
                              f"accumulate_grad_batches={accum}")
@@ -91,36 +114,42 @@ def make_train_step(pipeline: DevicePipeline, criterion: Callable, accum: int = 
                                                          accum, ops)
             else:
                 lo, hi = (0, mb) if par is None else par.plan.rows(mb)
-                x, y = pipeline.train_batch_rows(w, lab, d, lo, hi)
+                with profiling.span("train.pipeline"):
+                    x, y = pipeline.train_batch_rows(w, lab, d, lo, hi)
                 rows = None if par is None or par.plan.n_batch == 1 else (lo, mb)
                 module = state.model if par is None else par.module
                 last = i == accum - 1
                 with (par.no_sync() if par is not None and not last
                       else contextlib.nullcontext()):
-                    logits, aux, stats = module(x, dropout_seed=seed, return_aux=True,
-                                                rows=rows, **ops)
-                    loss = criterion(logits, y) + aux
-                    (loss / accum).backward()   # accum 1: the same gradients, bit for bit
+                    with profiling.span("train.forward"):
+                        logits, aux, stats = module(x, dropout_seed=seed, return_aux=True,
+                                                    rows=rows, **ops)
+                        loss = criterion(logits, y) + aux
+                    with profiling.span("train.backward"):
+                        (loss / accum).backward()   # accum 1: the same gradients, bit for bit
                 loss = loss.detach()
             ms = ms.update(logits.detach(), y.argmax(-1), loss).add_extras(stats)
             loss_sum = loss_sum + loss
-        state.apply_gradients()
+        with profiling.span("train.optimizer"):
+            state.apply_gradients()
         if par is not None:   # the global batch's loss, as the one-process step's
             loss_sum = par.mean_over_batch(loss_sum)
         return state, ms, loss_sum / accum
 
-    return train_step
+    return body
 
 
 def make_train_step_indexed(pipeline: DevicePipeline, criterion: Callable, accum: int = 1,
                             **ops) -> Callable:
     """``train_step(state, ms, pool, idx, labels, ...)``: the train step on
-    the rows ``idx`` of ``pool`` (N, T), gathered on the pool's device."""
-    base = make_train_step(pipeline, criterion, accum, **ops)
+    the rows ``idx`` of ``pool`` (N, T), gathered on the pool's device
+    inside its ``train.step`` span."""
+    body = _train_body(pipeline, criterion, accum, ops)
 
     def train_step(state: TrainState, ms: MetricState, pool: torch.Tensor,
-                   idx: torch.Tensor, labels: torch.Tensor, **kw):
-        return base(state, ms, pool.index_select(0, idx), labels, **kw)
+                   idx: torch.Tensor, labels: torch.Tensor, draws=None, dropout_seed=None):
+        with profiling.span("train.step"):
+            return body(state, ms, pool.index_select(0, idx), labels, draws, dropout_seed)
 
     return train_step
 
