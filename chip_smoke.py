@@ -289,6 +289,7 @@ from dlsc_tpu_torch.models.ast_small import ASTViTSmall
 from dlsc_tpu_torch.models.layers import BatchNorm
 from dlsc_tpu_torch.models.moe import MOE_METRICS, as_moe_spec
 from dlsc_tpu_torch.models.moe import capacity as moe_capacity
+from dlsc_tpu_torch.models import vit as vit_model
 from dlsc_tpu_torch.models.vit import ASTViT
 from dlsc_tpu_torch.ops import attn_fast, dropout_draw, mel_kernel
 from dlsc_tpu_torch.ops import gmm as gmm_ops
@@ -332,6 +333,9 @@ LN_SHAPES = (("AST-Small", TRAIN_BATCH * MOE_N_PAD, 384),
              ("AST-Base", TRAIN_BATCH * N_PAD, 768),
              ("AST-Mini", TRAIN_BATCH * MINI_N_PAD, 192))
 LN_FWD_OPS, LN_BWD_OPS = 8, 12   # f32 operations per element (see phase_ln)
+# the LayerNorm alone (K3 without the add) at the benchmark cell's rows (AST-Base,
+# batch 128) and AST-MoE's (batch 256 of 768 tokens)
+LN_ALONE_SHAPES = (("AST-Base b128", 128 * N_PAD, 768), ("AST-MoE b256", 256 * MOE_N_PAD, 384))
 LONG_N_PAD, LONG_N_REAL = 3328, 3301   # AST-Base on a 10-s clip: 12 x 275 patches + CLS
 CNN_MEL = PipelineConfig().cnn_mel_config()   # the CNN's front end: 1024/512/1024
 
@@ -380,6 +384,11 @@ GMM_BF16_ERR = 1e-2     # K4 bf16: the output rounded to bf16 (2^-9 relative),
 LN_F32_ERR = 1e-5       # K3 f32, normalised by the max |value|: summation order
 LN_BF16_ERR = 1e-2      # K3 bf16: y and dx stored in bf16 (2^-9 relative), the
                         # same f32 arithmetic on both sides; r exact in both
+LN_ULP_FLOOR = 1e-4     # the LN alone in bf16: y and dx each within one bf16 ulp of the
+                        # plain value (both round one f32 value once; the f32 values
+                        # differ by the order of the sums), past this share of the max
+                        # |value|: the f32 rounding that shows where y or dx is near 0,
+                        # some 1e-6 of the max at the rows' offsets and scales
 
 
 def card_line() -> str:
@@ -467,14 +476,38 @@ def _launch_counts() -> dict:
     """Every kernel's launches since the last ``_reset_launches``."""
     return dict(k1=mel_kernel.launches, k2f=attn_fast.launches, k2b=attn_fast.bwd_launches,
                 gmm=gmm_ops.launches, tgmm=gmm_ops.tgmm_launches, k3f=ln_fused.launches,
-                k3b=ln_fused.bwd_launches, drop=dropout_draw.launches)
+                k3b=ln_fused.bwd_launches, ln=ln_fused.ln_launches,
+                ln_bwd=ln_fused.ln_bwd_launches, drop=dropout_draw.launches)
 
 
-def _counts(k1=0, k2f=0, k2b=0, gmm=0, tgmm=0, k3f=0, k3b=0, drop=0) -> dict:
-    """The launch counts a path must show, every kernel named. ``drop``: the
+def _counts(k1=0, k2f=0, k2b=0, gmm=0, tgmm=0, k3f=0, k3b=0, ln=0, ln_bwd=0, drop=0) -> dict:
+    """The launch counts a path must show, every kernel named. ``ln`` /
+    ``ln_bwd``: the LayerNorm alone's (K3f / K3b without the add), which
+    every norm of a bf16 ViT on the card takes (``_ln_steps``). ``drop``: the
     dropout draw's, one launch a site (a ViT block has 2 in its MLP or MoE)
     in each forward, re-forward (remat) and backward (``_draws``)."""
-    return dict(k1=k1, k2f=k2f, k2b=k2b, gmm=gmm, tgmm=tgmm, k3f=k3f, k3b=k3b, drop=drop)
+    return dict(k1=k1, k2f=k2f, k2b=k2b, gmm=gmm, tgmm=tgmm, k3f=k3f, k3b=k3b, ln=ln,
+                ln_bwd=ln_bwd, drop=drop)
+
+
+def _norms(depth: int, ln_fused: bool = False) -> int:
+    """The LayerNorm-alone launches of one forward of a bf16 ViT of ``depth``
+    blocks on the card, and of its backward: each block's norm1 and norm2
+    (norm1 alone with ``ln_fused``, whose norm2 is K3's add form) and the
+    final norm."""
+    return (1 if ln_fused else 2) * depth + 1
+
+
+def _ln_steps(depth: int, steps: int, remat: bool, ln_fused: bool = False, evals: int = 0,
+              trials: int = 1) -> dict:
+    """``ln`` and ``ln_bwd`` of ``steps`` train steps and ``evals`` eval
+    batches of a bf16 ViT on the card (``_norms``), of ``trials`` trials side
+    by side (the vmapped HPO step's per-trial gamma and beta: a launch a
+    trial). A remat re-forward, under every policy, runs the blocks' norms
+    again and not the final norm."""
+    f = _norms(depth, ln_fused)
+    return dict(ln=trials * ((2 * f - 1 if remat else f) * steps + f * evals),
+                ln_bwd=trials * f * steps)
 
 
 def _draws(blocks: int, remat: bool) -> int:
@@ -951,7 +984,7 @@ def phase_slice(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
           f"{t_burst:.3f} s after {t_load:.3f} s of load + warm-up; {batches} device "
           f"batches of {SERVE_BATCH}; launches K1 {k1} K2 {k2} K2b {k2b}", flush=True)
     require(batches >= 1 + -(-len(bodies) // SERVE_BATCH), f"only {batches} device batches")
-    require(counts == _counts(k1=batches, k2f=DEPTH * batches),
+    require(counts == _counts(k1=batches, k2f=DEPTH * batches, ln=_norms(DEPTH) * batches),
             f"launch counts {counts} for {batches} device batches")
     direct = server.serve(np.pad(clips[:1] / np.abs(clips[0]).max(),
                                  ((0, SERVE_BATCH - 1), (0, 0))))[0]
@@ -1028,13 +1061,14 @@ def phase_train(dev: torch.device, seed: int, card: str) -> tuple[dict, dict]:
           f"{TIMED_STEPS} timed steps: {rec['step_ms']:.3f} ms/step, {rec['value']:.2f} "
           f"clips/s, MFU {rec['mfu']:.4f} (hw_util {rec['hw_util']:.4f}), peak memory "
           f"{rec['peak_mem_gib']:.2f} GiB; losses {losses[0]:.4f} .. {losses[-1]:.4f}; "
-          f"launches per step K1 {k1 / n:g} K2f {k2f / n:g} K2b {k2b / n:g}; profiled: "
+          f"launches per step K1 {k1 / n:g} K2f {k2f / n:g} K2b {k2b / n:g} LN alone "
+          f"{counts['ln'] / n:g} / {counts['ln_bwd'] / n:g}; profiled: "
           f"busy share {prof['busy_share']:.3f}, K2f {rec['decomp']['attn_fwd_ms']:.1f} + K2b "
           f"{rec['decomp']['attn_bwd_ms']:.1f} ms of {prof['device_ms_per_step']:.1f} ms "
           f"device time per step  [{card}]", flush=True)
     print(json.dumps(rec), flush=True)
     require(not unchanged, f"{len(unchanged)} of {len(params)} parameters did not change")
-    require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n),
+    require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n, **_ln_steps(DEPTH, n, True)),
             f"launch counts {counts} over {n} steps")
     return counts, rec
 
@@ -1059,20 +1093,22 @@ def phase_parity(dev: torch.device, seed: int) -> None:
         state = TrainState.create(model, sgd(lr=5e-4, momentum=0.9), None, 25,
                                   gradient_clip_val=1.0)
         step = make_train_step(pipe, CrossEntropyLoss(), attention=attention)
-        attn_fast.reset_launches()
+        _reset_launches()
         _, _, loss = step(state, MetricState.create(AST_BASE["num_classes"], dev),
                           wave, labels, draws)
         torch.cuda.synchronize()
         names, params = zip(*model.named_parameters())
+        c = _launch_counts()
         return (loss.item(), [state.optimizer.state[p]["momentum_buffer"] for p in params],
-                [p.detach() for p in params], (attn_fast.launches, attn_fast.bwd_launches),
+                [p.detach() for p in params], (c["k2f"], c["k2b"], c["ln"], c["ln_bwd"]),
                 names)
 
     k32 = one_step(torch.float32, False, None)
     p32 = one_step(torch.float32, False, attn_fast.mha_forward_reference)
     b16 = one_step(torch.bfloat16, True, None)
-    require(k32[3] == (DEPTH, DEPTH) and p32[3] == (0, 0) and b16[3] == (DEPTH, DEPTH),
-            f"parity launches {k32[3]} {p32[3]} {b16[3]}")
+    require(k32[3] == (DEPTH, DEPTH, 0, 0) and p32[3] == (0, 0, 0, 0)
+            and b16[3] == (DEPTH, DEPTH, *_ln_steps(DEPTH, 1, True).values()),
+            f"parity launches (K2f, K2b, LN alone fwd, bwd) {k32[3]} {p32[3]} {b16[3]}")
     require(ln_fused.launches == ln_fused.bwd_launches == 0, "K3 ran without ln_fused")
 
     _compare_steps(k32, p32, "f32 kernels vs f32 plain attention (AST-Base", STEP_F32_LOSS,
@@ -1381,6 +1417,20 @@ class _RoundedPlainMha(torch.autograd.Function):
                                                   ctx.n_real), None)
 
 
+@contextlib.contextmanager
+def _plain_ln():
+    """The ViT norms of a plain run on PyTorch's LN of an f32 copy (the
+    expression ``models/vit.py`` ``_layer_norm`` keeps off the card), where a
+    bf16 stream on the card takes K3 without the add: the same rounding
+    points, plain ops."""
+    kernel = vit_model.kernel_layer_norm
+    vit_model.kernel_layer_norm = lambda x, w, b: ln_fused.ln_reference(x, w, b)[0]
+    try:
+        yield
+    finally:
+        vit_model.kernel_layer_norm = kernel
+
+
 def _plain_ops(rounded: bool = False) -> dict:
     """Plain attention and grouped matmul (autograd of plain ops); with
     ``rounded``, the attention rounds where the TPU kernels round
@@ -1414,7 +1464,7 @@ def phase_moe_slice(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
     require(probs.shape == (SERVE_BATCH, AST_MOE["num_classes"]) and np.isfinite(probs).all()
             and np.abs(probs.sum(-1) - 1.0).max() <= PROB_SUM_ERR,
             "AST-MoE probabilities not finite, misshaped or not summing to 1")
-    require(counts == _counts(k1=1, k2f=DEPTH, gmm=2 * DEPTH),
+    require(counts == _counts(k1=1, k2f=DEPTH, gmm=2 * DEPTH, ln=_norms(DEPTH)),
             f"AST-MoE serving launch counts {counts} for one device batch")
 
     # --- the batch against plain ops in f32, on the same routes ---------------
@@ -1544,7 +1594,8 @@ def phase_moe_train(dev: torch.device, seed: int, card: str) -> tuple[dict, dict
     require(not unchanged, f"parameters that did not change: {unchanged[:8]}")
     require(not experts, f"experts whose weights did not change: {experts[:8]}")
     require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n, gmm=6 * DEPTH * n,
-                              tgmm=2 * DEPTH * n, drop=_draws(DEPTH, True) * n),
+                              tgmm=2 * DEPTH * n, drop=_draws(DEPTH, True) * n,
+                              **_ln_steps(DEPTH, n, True)),
             f"AST-MoE launch counts {counts} over {n} steps")
     return counts, dict(experts_without_tokens=len(idle), idle_experts=idle, record=rec)
 
@@ -1679,8 +1730,10 @@ def phase_moe_parity(dev: torch.device, seed: int, readings: dict | None = None,
         step = make_train_step(pipe, CrossEntropyLoss(), topk=topk,
                                **(_plain_ops(rounded=dtype == torch.bfloat16) if plain else {}))
         _reset_launches()
-        _, _, loss = step(state, MetricState.create(AST_MOE["num_classes"], dev, MOE_METRICS),
-                          wave, labels, draws, dropout_seed)
+        with _plain_ln() if plain else contextlib.nullcontext():
+            _, _, loss = step(state, MetricState.create(AST_MOE["num_classes"], dev,
+                                                        MOE_METRICS),
+                              wave, labels, draws, dropout_seed)
         torch.cuda.synchronize()
         names, params = zip(*model.named_parameters())
         grads = [state.optimizer.state[p]["momentum_buffer"] for p in params]
@@ -1704,7 +1757,7 @@ def phase_moe_parity(dev: torch.device, seed: int, readings: dict | None = None,
     require(k32[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, gmm=4 * DEPTH, tgmm=2 * DEPTH,
                               drop=d32)
             and b16[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, gmm=6 * DEPTH, tgmm=2 * DEPTH,
-                                  drop=d16)
+                                  drop=d16, **_ln_steps(DEPTH, 1, True))
             and p32[3] == _counts(k1=1, drop=d32) and q16[3] == _counts(k1=1, drop=d16)
             and p16[3] == _counts(k1=1, drop=d32),
             f"AST-MoE parity launches {k32[3]} {p32[3]} {b16[3]} {q16[3]} {p16[3]}")
@@ -1731,8 +1784,9 @@ def phase_moe_parity(dev: torch.device, seed: int, readings: dict | None = None,
 # --- phase 12: kernel K3 ----------------------------------------------------------
 
 def _unfused_add_ln(x, delta, gamma, beta):
-    """The block's site that K3 replaces: the residual add, then the port's
-    LayerNorm (cast to f32, ``F.layer_norm``, cast back)."""
+    """The block's site that K3 replaces, as it ran before the LayerNorm
+    alone had a kernel: the residual add, then PyTorch's LN on an f32 copy
+    (cast to f32, ``F.layer_norm``, cast back)."""
     r = x + delta
     return r, F.layer_norm(r.float(), (x.shape[-1],), gamma, beta, ln_fused.EPS).to(x.dtype)
 
@@ -1753,7 +1807,110 @@ def _library_ln(r, mu, rsig, gamma, beta, dy):
         dy, r, (r.shape[-1],), mu, rsig, gamma.to(r.dtype), beta.to(r.dtype), [True] * 3)
 
 
-def phase_ln(dev: torch.device, gen: torch.Generator) -> tuple[dict, dict]:
+def ulp_gap(got: torch.Tensor, want: torch.Tensor, floor: float) -> dict:
+    """A bf16 output against its plain version, element by element: the
+    share of elements that differ (``differ``), the share more than one bf16
+    ulp apart (``over_1ulp``), the most ulps apart (``max_ulps``), and the
+    elements further from the plain value than one ulp of it plus ``floor``
+    times the max |plain| (``bad``)."""
+    def ordered(t):   # the bf16 bit patterns as integers in the order of the values
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    ulps = (ordered(got) - ordered(want)).abs()
+    g, w = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)   # bf16: 8 significant bits
+    bad = int(((g - w).abs() > ulp + floor * w.abs().max()).sum())
+    return dict(differ=int((ulps > 0).sum()) / ulps.numel(),
+                over_1ulp=int((ulps > 1).sum()) / ulps.numel(), max_ulps=int(ulps.max()),
+                bad=bad)
+
+
+def _ln_alone(dev: torch.device, g: torch.Generator) -> tuple[dict, dict]:
+    """The LayerNorm alone (``ln_forward`` / ``ln_backward``: K3f and K3b with
+    the add compiled out) at ``LN_ALONE_SHAPES`` in bf16, against its plain
+    version, which is the ViT blocks' site before it (``ln_reference``: x to
+    f32, PyTorch's LN, y to bf16; ``ln_backward_reference``: dy to f32,
+    PyTorch's LN backward, dx to bf16), and beside PyTorch's LN on the bf16
+    rows themselves. The rows carry an offset of order 1 and a scale of their
+    own, as a residual stream does, so that a centring or scaling fault shows:
+    y and dx each within one bf16 ulp of the plain value (``ulp_gap``, past
+    ``LN_ULP_FLOOR``), the f32 statistics, dgamma and dbeta ``LN_F32_ERR``
+    normalised; two backward calls bit-identical; one launch a call.
+    Bytes: x in and y out (forward), x, dy in and dx out (backward), the f32
+    statistics, gamma and beta (dgamma, dbeta). Returns (forward, backward)
+    readings by shape."""
+    fwd, bwd = {}, {}
+    for name, rows, d in LN_ALONE_SHAPES:
+        offset = torch.randn(rows, 1, generator=g, device=dev)
+        scale = torch.exp(0.5 * torch.randn(rows, 1, generator=g, device=dev))
+        x = (torch.randn(rows, d, generator=g, device=dev) * scale + offset).bfloat16()
+        dy = torch.randn(rows, d, generator=g, device=dev).bfloat16()
+        del offset, scale
+        gamma = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+        beta = 0.1 * torch.randn(d, generator=g, device=dev)
+        ln_fused.reset_launches()
+        (y, mu, rsig), (y_p, mu_p, rsig_p) = (ln_fused.ln_forward(x, gamma, beta),
+                                              ln_fused.ln_reference(x, gamma, beta))
+        (dx, dg, db) = ln_fused.ln_backward(x, mu, rsig, gamma, dy)
+        (dx_p, dg_p, db_p) = ln_fused.ln_backward_reference(x, mu, rsig, gamma, dy)
+        launches = (ln_fused.ln_launches, ln_fused.ln_bwd_launches)
+        y_gap, dx_gap = ulp_gap(y, y_p, LN_ULP_FLOOR), ulp_gap(dx, dx_p, LN_ULP_FLOOR)
+        f32_errs = dict(mu=norm_err(mu, mu_p), rsig=norm_err(rsig, rsig_p),
+                        dgamma=norm_err(dg, dg_p), dbeta=norm_err(db, db_p))
+        det = all(torch.equal(a, b) for a, b in
+                  zip((dx, dg, db), ln_fused.ln_backward(x, mu, rsig, gamma, dy)))
+        del y, y_p, mu_p, rsig_p, dx, dg, db, dx_p, dg_p, db_p
+        gb, bb_ = gamma.bfloat16(), beta.bfloat16()
+        fns = dict(
+            f=lambda: ln_fused.ln_forward(x, gamma, beta),
+            f_plain=lambda: ln_fused.ln_reference(x, gamma, beta),
+            f_lib=lambda: torch.ops.aten.native_layer_norm(x, (d,), gb, bb_, ln_fused.EPS),
+            b=lambda: ln_fused.ln_backward(x, mu, rsig, gamma, dy),
+            b_plain=lambda: ln_fused.ln_backward_reference(x, mu, rsig, gamma, dy),
+            b_lib=lambda: _library_ln(x, mu[:, None], rsig[:, None], gamma, beta, dy))
+        t = {k: graph_ms(fn) for k, fn in fns.items()}
+        split = _split_ms(fns["b"], dict(rows=r"add_ln_bwd_kernel",
+                                         reduce=r"add_ln_bwd_reduce_kernel"), "K3b alone")
+        stats = 2 * rows * 4 + 2 * d * 4
+        bf = bound(LN_FWD_OPS * rows * d, F32_FLOPS, 2 * rows * d * 2 + stats)
+        bb = bound(LN_BWD_OPS * rows * d, F32_FLOPS, 3 * rows * d * 2 + stats + d * 4)
+        plan = ln_fused._bwd_plan(rows, d, torch.cuda.get_device_properties(dev)
+                                  .multi_processor_count, 2, add=False)
+        key = f"{name} ({rows}, {d}) bfloat16"
+
+        def gap(r):
+            return (f"{r['differ']:.4%} differ, {r['over_1ulp']:.2e} by more than 1 ulp, at "
+                    f"most {r['max_ulps']} ulps, {r['bad']} past 1 ulp + floor")
+
+        print(f"K3 LN alone at {key} (rows offset and scaled): y {gap(y_gap)}; dx "
+              f"{gap(dx_gap)}; f32 normalised "
+              f"{', '.join(f'{k} {e:.3e}' for k, e in f32_errs.items())}; backward reruns "
+              f"bit-identical {det}; launches a call {launches}; device ms (graph replays): "
+              f"forward {t['f']:.4f} (the site's f32 path {t['f_plain']:.4f}, "
+              f"native_layer_norm on bf16 {t['f_lib']:.4f}; bound {bf['bound_ms']:.4f}, "
+              f"{bf['bound_by']}: {bf['bound_ms'] / t['f']:.1%}), backward {t['b']:.4f} (the "
+              f"site's f32 autograd {t['b_plain']:.4f}, native_layer_norm_backward on bf16 "
+              f"{t['b_lib']:.4f}; bound {bb['bound_ms']:.4f}: {bb['bound_ms'] / t['b']:.1%}; "
+              f"rows {split['rows']:.4f}, sum of the partials {split['reduce']:.4f}); plan: "
+              f"tiles of {plan['tile_rows']} rows, {plan['stages']} stages of "
+              f"{plan['stage_bytes']} B, grid {plan['grid']}", flush=True)
+        require(y_gap["bad"] == dx_gap["bad"] == 0
+                and all(e <= LN_F32_ERR for e in f32_errs.values()) and launches == (1, 1),
+                f"the LN-alone kernels disagree with their plain versions at {key}")
+        require(det, f"the LN-alone backward reruns differ at {key}")
+        fwd[key] = dict(ms=t["f"], plain_ms=t["f_plain"], library_ms=t["f_lib"],
+                        bound_ms=bf["bound_ms"], bound_by=bf["bound_by"], y=y_gap,
+                        mu_err=f32_errs["mu"], rsig_err=f32_errs["rsig"])
+        bwd[key] = dict(ms=t["b"], plain_ms=t["b_plain"], library_ms=t["b_lib"],
+                        bound_ms=bb["bound_ms"], bound_by=bb["bound_by"], kernels_ms=split,
+                        dx=dx_gap, dgamma_err=f32_errs["dgamma"], dbeta_err=f32_errs["dbeta"],
+                        deterministic=det, plan=plan)
+        del x, dy, mu, rsig
+    return fwd, bwd
+
+
+def phase_ln(dev: torch.device, gen: torch.Generator) -> tuple[dict, dict, dict, dict]:
     """K3f and K3b against their plain versions at the training batch's
     three widths in bf16 and at AST-Small's in f32, each beside the unfused
     site (forward, and autograd's backward: its forward and backward less
@@ -1764,7 +1921,8 @@ def phase_ln(dev: torch.device, gen: torch.Generator) -> tuple[dict, dict]:
     shorter than its Python.
     Bounds by bytes; operations counted as 8 f32 operations per element
     forward (add, two sums, centre, square, scale, gamma, beta) and 12
-    backward."""
+    backward. Then the LayerNorm alone (``_ln_alone``), the ViT blocks'
+    norms on a bf16 stream, at the benchmark cell's rows."""
     build = _build_report("ln_fused")
     g = torch.Generator(dev).manual_seed(int(torch.randint(2**31, (1,), generator=gen)))
     cases = [(shape, torch.bfloat16) for shape in LN_SHAPES] + [(LN_SHAPES[0], torch.float32)]
@@ -1850,7 +2008,7 @@ def phase_ln(dev: torch.device, gen: torch.Generator) -> tuple[dict, dict]:
                     by_shape=results)
 
     return (entry(fwd, ("add_ln_fwd_kernel",)),
-            entry(bwd, ("add_ln_bwd_kernel", "add_ln_bwd_reduce_kernel")))
+            entry(bwd, ("add_ln_bwd_kernel", "add_ln_bwd_reduce_kernel")), *_ln_alone(dev, g))
 
 
 # --- phase 13: K2 at the shapes of K5 and K6 ------------------------------------------
@@ -1995,7 +2153,7 @@ def phase_small_slice(dev: torch.device, seed: int, tmp: Path, card: str) -> dic
     require(probs.shape == (SERVE_BATCH, AST_SMALL["num_classes"]) and np.isfinite(probs).all()
             and np.abs(probs.sum(-1) - 1.0).max() <= PROB_SUM_ERR,
             "AST-Small probabilities not finite, misshaped or not summing to 1")
-    require(counts == _counts(k1=1, k2f=DEPTH, k3f=DEPTH),
+    require(counts == _counts(k1=1, k2f=DEPTH, k3f=DEPTH, ln=_norms(DEPTH, True)),
             f"AST-Small serving launch counts {counts} for one device batch")
     _hold_served(serve.model, serve.pipe, clips, dev, "AST-Small")
 
@@ -2055,7 +2213,8 @@ def phase_small_train(dev: torch.device, seed: int, card: str, base_step_ms: flo
     print(json.dumps(rec), flush=True)
     require(not unchanged, f"AST-Small parameters that did not change: {unchanged[:8]}")
     require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n, k3f=2 * DEPTH * n,
-                              k3b=DEPTH * n, drop=_draws(DEPTH, True) * n),
+                              k3b=DEPTH * n, drop=_draws(DEPTH, True) * n,
+                              **_ln_steps(DEPTH, n, True, True)),
             f"AST-Small launch counts {counts} over {n} steps")
     del step, state, ms, wave, labels
     torch.cuda.empty_cache()
@@ -2069,7 +2228,7 @@ def phase_small_train(dev: torch.device, seed: int, card: str, base_step_ms: flo
           f"[{card}]", flush=True)
     require(not b_unchanged and np.isfinite(b_losses).all(), "AST-Base ln_fused run")
     require(b_counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n, k3f=2 * DEPTH * n,
-                                k3b=DEPTH * n),
+                                k3b=DEPTH * n, **_ln_steps(DEPTH, n, True, True)),
             f"AST-Base ln_fused launch counts {b_counts} over {n} steps")
     return counts
 
@@ -2108,7 +2267,7 @@ def phase_small_parity(dev: torch.device, seed: int) -> None:
     require(k32[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, k3f=DEPTH, k3b=DEPTH, drop=d32)
             and p32[3] == _counts(k1=1, drop=d32)
             and b16[3] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, k3f=2 * DEPTH, k3b=DEPTH,
-                                  drop=d16),
+                                  drop=d16, **_ln_steps(DEPTH, 1, True, True)),
             f"AST-Small parity launches {k32[3]} {p32[3]} {b16[3]}")
     _compare_steps(k32, p32, "f32 K2 + K3 vs f32 plain attention and add + LN (AST-Small "
                    "ln_fused, dropout 0.1", STEP_F32_LOSS, STEP_F32_GRAD)
@@ -2139,7 +2298,8 @@ def phase_mini(dev: torch.device, seed: int, tmp: Path, card: str) -> tuple[dict
     require(probs.shape == (SERVE_BATCH, AST_MINI["num_classes"]) and np.isfinite(probs).all()
             and np.abs(probs.sum(-1) - 1.0).max() <= PROB_SUM_ERR,
             "AST-Mini probabilities not finite, misshaped or not summing to 1")
-    require(serve_counts == _counts(k1=1, k2f=MINI_DEPTH, k3f=MINI_DEPTH),
+    require(serve_counts == _counts(k1=1, k2f=MINI_DEPTH, k3f=MINI_DEPTH,
+                                    ln=_norms(MINI_DEPTH, True)),
             f"AST-Mini serving launch counts {serve_counts}")
     _hold_served(serve.model, serve.pipe, clips, dev, "AST-Mini")
     del serve
@@ -2154,7 +2314,8 @@ def phase_mini(dev: torch.device, seed: int, tmp: Path, card: str) -> tuple[dict
     require(not unchanged, f"AST-Mini parameters that did not change: {unchanged[:8]}")
     require(counts == _counts(k1=steps, k2f=MINI_DEPTH * steps, k2b=MINI_DEPTH * steps,
                               k3f=MINI_DEPTH * steps, k3b=MINI_DEPTH * steps,
-                              drop=_draws(MINI_DEPTH, False) * steps),
+                              drop=_draws(MINI_DEPTH, False) * steps,
+                              **_ln_steps(MINI_DEPTH, steps, False, True)),
             f"AST-Mini launch counts {counts} over {steps} steps")
     return serve_counts, counts
 
@@ -2237,7 +2398,8 @@ def phase_trainer(dev: torch.device, seed: int, tmp: Path, card: str,
     require(all(np.isfinite(res[k]) for k in ("test/acc", "test/f1", "test/auroc", "test/loss"))
             and all(0.0 <= res[k] <= 1.0 for k in ("test/acc", "test/f1", "test/auroc")),
             f"test metrics {res}")
-    require(counts == _counts(k1=steps + evals, k2f=DEPTH * (steps + evals), k2b=DEPTH * steps),
+    require(counts == _counts(k1=steps + evals, k2f=DEPTH * (steps + evals), k2b=DEPTH * steps,
+                              **_ln_steps(DEPTH, steps, True, evals=evals)),
             f"trainer launch counts {counts}: {steps} train steps, {evals} eval batches")
     clips_s = hist[-1]["perf/clips_per_sec_per_chip"]
     ratio = "" if bench_clips_s is None else (
@@ -2913,7 +3075,8 @@ def phase_remat(dev: torch.device, seed: int, card: str) -> dict:
                   flush=True)
             if model_name == "ast":
                 k2f = 2 * DEPTH if policy in REMAT_RERUN_K2F else DEPTH
-                require(counts == _counts(k1=n, k2f=k2f * n, k2b=DEPTH * n),
+                require(counts == _counts(k1=n, k2f=k2f * n, k2b=DEPTH * n,
+                                          **_ln_steps(DEPTH, n, True)),
                         f"remat {policy} bench launches {counts}")
             del step, state, ms
             torch.cuda.empty_cache()
@@ -2944,9 +3107,10 @@ def phase_remat(dev: torch.device, seed: int, card: str) -> dict:
     moe_depth = DEPTH
     # both policies rerun the draw (neither keeps a dropout's output)
     require(c_moe == _counts(k2f=moe_depth, k2b=moe_depth, gmm=4 * moe_depth, tgmm=2 * moe_depth,
-                             drop=_draws(moe_depth, True))
+                             drop=_draws(moe_depth, True), **_ln_steps(moe_depth, 1, True))
             and c_res == _counts(k2f=moe_depth, k2b=moe_depth, gmm=6 * moe_depth,
-                                 tgmm=2 * moe_depth, drop=_draws(moe_depth, True)),
+                                 tgmm=2 * moe_depth, drop=_draws(moe_depth, True),
+                                 **_ln_steps(moe_depth, 1, True)),
             f"AST-MoE remat launches {c_moe} vs {c_res}")
     del runs
     torch.cuda.empty_cache()
@@ -3058,7 +3222,8 @@ def phase_import_int8(dev: torch.device, seed: int, tmp: Path, card: str) -> dic
         counts = _launch_counts()
         # ------------------------------------------------------------------------------
         total.update(counts)
-        require(counts == _counts(k1=1, k2f=DEPTH), f"{mode} serving launches {counts}")
+        require(counts == _counts(k1=1, k2f=DEPTH, ln=_norms(DEPTH)),
+                f"{mode} serving launches {counts}")
         require(probs.shape == (SERVE_BATCH, AST_BASE["num_classes"])
                 and np.isfinite(probs).all() and np.abs(probs.sum(-1) - 1).max() <= PROB_SUM_ERR,
                 f"{mode} probabilities")
@@ -3104,7 +3269,8 @@ def phase_import_int8(dev: torch.device, seed: int, tmp: Path, card: str) -> dic
             batches = server.batcher.batches
             print(f"w8a8 artifact over HTTP: {len(answers)} requests, {batches} device batches, "
                   f"launches {counts}", flush=True)
-            require(counts["k1"] >= 1 and counts["k2f"] == DEPTH * counts["k1"],
+            require(counts["k1"] >= 1 and counts == _counts(
+                k1=counts["k1"], k2f=DEPTH * counts["k1"], ln=_norms(DEPTH) * counts["k1"]),
                     f"w8a8 HTTP launches {counts}")
             del server
         del serve
@@ -3207,7 +3373,7 @@ def phase_moe_lowerings(dev: torch.device, seed: int, card: str, ragged: dict) -
         require(not unchanged, f"{path}: parameters that did not change: {unchanged[:8]}")
         require(not experts, f"{path}: experts whose weights did not change: {experts[:8]}")
         require(counts == _counts(k1=n, k2f=DEPTH * n, k2b=DEPTH * n,
-                                  drop=_draws(DEPTH, True) * n),
+                                  drop=_draws(DEPTH, True) * n, **_ln_steps(DEPTH, n, True)),
                 f"{path} launch counts {counts} over {n} steps")
         del step, state, ms, named
         torch.cuda.empty_cache()
@@ -3320,7 +3486,8 @@ def phase_hpo(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
         token = trial.params["model.router"] == "token"
         want = _counts(k1=steps + evals, k2f=DEPTH * (steps + evals), k2b=DEPTH * steps,
                        gmm=token * (6 * DEPTH * steps + 2 * DEPTH * evals),
-                       tgmm=token * 2 * DEPTH * steps, drop=_draws(DEPTH, True) * steps)
+                       tgmm=token * 2 * DEPTH * steps, drop=_draws(DEPTH, True) * steps,
+                       **_ln_steps(DEPTH, steps, True, evals=evals))
         require(launches == want, f"hpo trial {trial.number} ({trial.params['model.router']}, "
                 f"batch {b}) launches {launches}, expected {want}")
     print(f"hpo study: {HPO_TRIALS} trials in {study_s:.2f} s, states "
@@ -3423,7 +3590,8 @@ def _vm_row(name: str, k: int, dropout: bool, wave, labels, dev: torch.device,
     # runs K3f again (a launch a trial) and draws again, and no K2f (attn_res)
     require(counts == _counts(k1=1, k2f=depth, k2b=depth, k3f=(1 + remat) * depth * k,
                               k3b=depth * k,
-                              drop=_draws(depth, remat) if dropout or model.dropout else 0),
+                              drop=_draws(depth, remat) if dropout or model.dropout else 0,
+                              **_ln_steps(depth, 1, remat, True, trials=k)),
             f"vmapped {name} step launches {counts}")
     require(bool(torch.isfinite(loss).all()), f"vmapped {name} losses {loss}")
     t0 = time.perf_counter()
@@ -3491,7 +3659,8 @@ def _vm_timed_rows(dev: torch.device, seed: int, card: str) -> None:
         n = 1 + k
         seq_drop = _draws(depth, True) * n if name == "ast_small" else 0   # AST-Base: none
         require(counts_seq == _counts(k1=n, k2f=depth * n, k2b=depth * n, k3f=2 * depth * n,
-                                      k3b=depth * n, drop=seq_drop),
+                                      k3b=depth * n, drop=seq_drop,
+                                      **_ln_steps(depth, n, True, True)),
                 f"single {name} steps {counts_seq}")
         del step, state, ms
         torch.cuda.empty_cache()
@@ -3714,7 +3883,8 @@ def phase_vmapped_hpo(dev: torch.device, seed: int, tmp: Path, card: str,
     # dropout drawn again there, and no K2f (the kept out and lse feed K2b)
     want = _counts(k1=steps + evals, k2f=DEPTH * (steps + evals), k2b=DEPTH * steps,
                    k3f=DEPTH * VM_K * (2 * steps + evals), k3b=DEPTH * VM_K * steps,
-                   drop=_draws(DEPTH, True) * steps)
+                   drop=_draws(DEPTH, True) * steps,
+                   **_ln_steps(DEPTH, steps, True, True, evals=evals, trials=VM_K))
     require(counts == want, f"vmapped study launches {counts}, expected {want} for "
             f"{epochs} lockstep epochs of {shapes['steps']} steps and "
             f"{shapes['val_batches']} eval batches")
@@ -4184,11 +4354,16 @@ def _multi_rank(seed: int, modes: tuple, device_type: str = "cuda") -> dict | No
 
 def _expected_multi(mode: str, n: int, ref: dict) -> dict:
     """A mode's launches per rank per step from the one-process step's: a
-    stage runs its share of the blocks on every microbatch."""
+    stage runs its share of the blocks on every microbatch, and the last
+    stage the final norm (an LN-alone launch each way; rank 0, whose counts
+    these are, is the last stage alone at n = 1)."""
     if mode != "pp":
         return ref
     per_block = {k: v for k, v in ref.items() if k != "k1"}
-    return dict(k1=ref["k1"], **{k: v / n * MULTI_MICRO for k, v in per_block.items()})
+    out = dict(k1=ref["k1"], **{k: v / n * MULTI_MICRO for k, v in per_block.items()})
+    for k in ("ln", "ln_bwd"):
+        out[k] = ((ref[k] - 1) / n + (n == 1)) * MULTI_MICRO
+    return out
 
 
 def phase_multi_device(dev: torch.device, seed: int, tmp: Path, card: str) -> dict:
@@ -4308,7 +4483,7 @@ def phase_two_ranks_one_card(dev: torch.device, seed: int, card: str) -> dict:
           f"[{card}]", flush=True)
     require(r["loss_err"] <= STEP_BF16_LOSS and r["grad_err"] <= MULTI_GRAD,
             "phase 30: the two ranks' step differs from the one-process step")
-    require(r["counts"] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH),
+    require(r["counts"] == _counts(k1=1, k2f=DEPTH, k2b=DEPTH, **_ln_steps(DEPTH, 1, True)),
             f"phase 30: launches per rank per step {r['counts']}")
     return r["total"]
 
@@ -4467,7 +4642,8 @@ def phase_two_ranks_tp_study(dev: torch.device, seed: int, tmp: Path, card: str
         require(r["loss_err"] <= loss_tol and r["grad_err"] <= grad_tol,
                 f"phase 31: the {name} TP step differs from the one-process step")
         require(r["counts"] == r["ref_counts"] == _counts(
-            k1=1, k2f=DEPTH, k2b=DEPTH, gmm=6 * DEPTH, tgmm=2 * DEPTH, drop=_draws(DEPTH, True)),
+            k1=1, k2f=DEPTH, k2b=DEPTH, gmm=6 * DEPTH, tgmm=2 * DEPTH, drop=_draws(DEPTH, True),
+            **(_ln_steps(DEPTH, 1, True) if name == "bf16" else {})),
             f"phase 31 TP launches per rank per step {r['counts']}, one process "
             f"{r['ref_counts']}")
 
@@ -4503,7 +4679,9 @@ def phase_two_ranks_tp_study(dev: torch.device, seed: int, tmp: Path, card: str
     steps, evals = SHARD_TRAIN, SHARD_VAL   # 2 trials a rank, under AST-Base's remat
     require(lead["counts"] == _counts(k1=steps + evals, k2f=DEPTH * (steps + evals),
                                       k2b=DEPTH * steps, k3f=DEPTH * 2 * (2 * steps + evals),
-                                      k3b=DEPTH * 2 * steps, drop=_draws(DEPTH, True) * steps),
+                                      k3b=DEPTH * 2 * steps, drop=_draws(DEPTH, True) * steps,
+                                      **_ln_steps(DEPTH, steps, True, True, evals=evals,
+                                                  trials=2)),
             f"phase 31 sharded study launches {lead['counts']}")
     return r["total"], lead["counts"]   # the bf16 TP run's
 
@@ -4605,7 +4783,7 @@ def main() -> None:
     moe_train, moe_train_run = _clock(10, phase_moe_train, dev, seed, card)
     draw = _clock("10b", phase_draw, dev, gen)
     _clock(11, phase_moe_parity, dev, seed)
-    k3f, k3b = _clock(12, phase_ln, dev, gen)
+    k3f, k3b, ln_f, ln_b = _clock(12, phase_ln, dev, gen)
     k5_k6 = _clock(13, phase_attn_k5_k6, dev, gen)
     with tempfile.TemporaryDirectory() as tmp:
         small_serve = _clock(14, phase_small_slice, dev, seed, Path(tmp), card)
@@ -4682,6 +4860,12 @@ def main() -> None:
              replaces="dlsc_tpu/ops/ln_fused.py:53", **launches("k3f"), **k3f),
         dict(name="add_ln_bwd", route="cuda", source="dlsc_tpu_torch/csrc/ln_fused.cu",
              replaces="dlsc_tpu/ops/ln_fused.py:93", **launches("k3b"), **k3b),
+        dict(name="ln_fwd", route="cuda", source="dlsc_tpu_torch/csrc/ln_fused.cu",
+             replaces="dlsc_tpu/models/vit.py:730, dlsc_tpu/models/vit.py:747, "
+                      "dlsc_tpu/models/vit.py:960", **launches("ln"), by_shape=ln_f),
+        dict(name="ln_bwd", route="cuda", source="dlsc_tpu_torch/csrc/ln_fused.cu",
+             replaces="dlsc_tpu/models/vit.py:730, dlsc_tpu/models/vit.py:747, "
+                      "dlsc_tpu/models/vit.py:960", **launches("ln_bwd"), by_shape=ln_b),
         dict(name="dropout_draw", route="cuda", source="dlsc_tpu_torch/csrc/dropout_draw.cu",
              replaces="none: the dropout masks that jax.random draws in XLA "
                       "(dlsc_tpu/models/moe.py:437, dlsc_tpu/models/vit.py:582)",

@@ -56,6 +56,20 @@
 //    (warp w of a summing CTA the CTAs w, w + 32, ... in turn, then the 32
 //    warps in order). ops/ln_fused.py `_bwd_plan` mirrors the launch, and
 //    the C entry point refuses any other.
+//
+// The LayerNorm alone (`dlsc_ln_fwd`, `dlsc_ln_bwd`: the ViT blocks' norms on
+// the bf16 stream) is the same two kernels with the add compiled out (the
+// template's ADD false): the forward reads x once and writes y once, with mu
+// and rsig in f32 from the registers; the backward's stage carries x and dy
+// only (no dr) and writes dx = rsig * (dy*gamma - mean(dy*gamma) - xhat *
+// mean(dy*gamma*xhat)). Bytes bound it too, and more tightly: a row is 2 d
+// elements in the forward (x in, y out; 654 MB, 0.196 ms at AST-Base's
+// 212 992 x 768 bf16) and 3 d in the backward (x, dy in, dx out; 983 MB,
+// 0.293 ms), against 4 d and 4 d with the add. So a stage's row tensors are
+// 2 for 3: at the same 25 KB aim a stage holds twice the rows of a bf16 add
+// stage at the models' widths (8 rows at d = 768), 4 stages a CTA: up to
+// ~197 KB in flight an SM, far above the ~25-50 KB that 3.35 TB/s needs at a
+// microsecond or two of latency.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -74,7 +88,7 @@ constexpr int BWD_WARPS = 4;                          // consumer warps; a produ
 constexpr int BWD_THREADS = (BWD_WARPS + 1) * 32;
 constexpr int BWD_CTAS_PER_SM = 2;
 constexpr int BWD_MAX_STAGES = 4;
-constexpr int BWD_STAGE_TARGET = 24 * 1024;          // bytes of a stage aimed at
+constexpr int BWD_STAGE_TARGET = 25 * 1024;          // bytes of a stage aimed at
 constexpr int SMEM_LIMIT = 232448;                    // a block's shared memory (H100)
 constexpr int BWD_SMEM_BUDGET = SMEM_LIMIT / BWD_CTAS_PER_SM - 1024;  // less the system's 1 KB
 constexpr int BWD_BAR_BYTES = 16 * BWD_MAX_STAGES;   // full[], empty[] mbarriers
@@ -117,8 +131,9 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-// CH: 16-byte chunks per lane, (d / 8 + 31) / 32.
-template <typename T, int CH>
+// CH: 16-byte chunks per lane, (d / 8 + 31) / 32. ADD false: the LayerNorm
+// of x alone (delta and r_out unused).
+template <typename T, int CH, bool ADD>
 __global__ void __launch_bounds__(WARPS * 32)
 add_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ delta,
                   const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -136,14 +151,15 @@ add_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ delta,
   for (int c = 0; c < CH; ++c) {
     const int col = (lane + 32 * c) * VEC;
     if (col < d) {
-      float a[VEC], b[VEC];
-      load8(x + base + col, a);
-      load8(delta + base + col, b);
+      load8(x + base + col, v[c]);
+      if constexpr (ADD) {
+        float b[VEC];
+        load8(delta + base + col, b);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        v[c][i] = a[i] + b[i];
-        sum += v[c][i];
+        for (int i = 0; i < VEC; ++i) v[c][i] += b[i];
       }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) sum += v[c][i];
     }
   }
   const float mu = warp_sum(sum) * inv_d;
@@ -168,7 +184,7 @@ add_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ delta,
       load8(beta + col, b);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) y[i] = (v[c][i] - mu) * rsig * g[i] + b[i];
-      store8(r_out + base + col, v[c]);
+      if constexpr (ADD) store8(r_out + base + col, v[c]);
       store8(y_out + base + col, y);
     }
   }
@@ -181,8 +197,9 @@ add_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ delta,
 // K3b. Shared memory: the mbarriers, then `stages` stages of [r | dy | dr]
 // (tile_rows x d each) [mu | rsig] (tile_rows each), which end as the
 // (warps x slots, 2 d) dgamma / dbeta sums. CH: 16-byte chunks per lane,
-// ceil(d / 8 / lanes).
-template <typename T, int CH>
+// ceil(d / 8 / lanes). ADD false: the LayerNorm's backward alone, no dr
+// stream (dr unused, a stage [r | dy] [mu | rsig]).
+template <typename T, int CH, bool ADD>
 __global__ void __launch_bounds__(BWD_THREADS, BWD_CTAS_PER_SM)
 add_ln_bwd_kernel(const T* __restrict__ r, const float* __restrict__ mu,
                   const float* __restrict__ rsig, const float* __restrict__ gamma,
@@ -194,7 +211,8 @@ add_ln_bwd_kernel(const T* __restrict__ r, const float* __restrict__ mu,
   uint64_t* empty = full + BWD_MAX_STAGES;
   uint8_t* ring = smem + BWD_BAR_BYTES;
   const size_t span = (size_t)tile_rows * d;   // elements of one tensor in a stage
-  const size_t stage_bytes = 3 * span * sizeof(T) + 8 * (size_t)tile_rows;
+  constexpr int STREAMS = ADD ? 3 : 2;          // row tensors in a stage
+  const size_t stage_bytes = STREAMS * span * sizeof(T) + 8 * (size_t)tile_rows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -215,18 +233,19 @@ add_ln_bwd_kernel(const T* __restrict__ r, const float* __restrict__ mu,
         const int row0 = t * tile_rows;
         const int n = min(tile_rows, rows - row0), n4 = n & ~3;
         uint8_t* st = ring + s * stage_bytes;
-        float* smu = reinterpret_cast<float*>(st + 3 * span * sizeof(T));
+        float* smu = reinterpret_cast<float*>(st + STREAMS * span * sizeof(T));
         float* srs = smu + tile_rows;
         for (int j = n4; j < n; ++j) {   // past the tile's last whole 16 bytes of stats
           smu[j] = mu[row0 + j];
           srs[j] = rsig[row0 + j];
         }
         const uint32_t bytes = (uint32_t)((size_t)n * d * sizeof(T));
-        hopper::mbar_arrive_expect_tx(&full[s], 3 * bytes + 8 * n4);
+        hopper::mbar_arrive_expect_tx(&full[s], STREAMS * bytes + 8 * n4);
         const size_t off = (size_t)row0 * d;
         hopper::bulk_load_1d(st, r + off, bytes, &full[s]);
         hopper::bulk_load_1d(st + span * sizeof(T), dy + off, bytes, &full[s]);
-        hopper::bulk_load_1d(st + 2 * span * sizeof(T), dr + off, bytes, &full[s]);
+        if constexpr (ADD)
+          hopper::bulk_load_1d(st + 2 * span * sizeof(T), dr + off, bytes, &full[s]);
         if (n4 > 0) {
           hopper::bulk_load_1d(smu, mu + row0, 4 * n4, &full[s]);
           hopper::bulk_load_1d(srs, rsig + row0, 4 * n4, &full[s]);
@@ -258,8 +277,8 @@ add_ln_bwd_kernel(const T* __restrict__ r, const float* __restrict__ mu,
     const int n = min(tile_rows, rows - row0);
     const T* sr = reinterpret_cast<const T*>(ring + s * stage_bytes);
     const T* sdy = sr + span;
-    const T* sdr = sdy + span;
-    const float* smu = reinterpret_cast<const float*>(sdr + span);
+    const T* sdr = sdy + span;   // ADD only
+    const float* smu = reinterpret_cast<const float*>(sdy + (STREAMS - 1) * span);
     const float* srs = smu + tile_rows;
     for (int grp = warp; grp < groups; grp += BWD_WARPS) {
       const int lr = (grp << (5 - shift)) + slot;
@@ -294,11 +313,15 @@ add_ln_bwd_kernel(const T* __restrict__ r, const float* __restrict__ mu,
           float rv[VEC], dyv[VEC], drv[VEC], out[VEC];
           load8(sr + so + col, rv);
           load8(sdy + so + col, dyv);
-          load8(sdr + so + col, drv);
+          if constexpr (ADD) load8(sdr + so + col, drv);
 #pragma unroll
           for (int e = 0; e < VEC; ++e) {
             const float xh = (rv[e] - m) * rs;
-            out[e] = drv[e] + rs * (dyv[e] * g[c][e] - m1 - xh * m2);
+            const float t = dyv[e] * g[c][e] - m1 - xh * m2;
+            if constexpr (ADD)
+              out[e] = drv[e] + rs * t;
+            else
+              out[e] = rs * t;
             pg[c][e] += dyv[e] * xh;
             pb[c][e] += dyv[e];
           }
@@ -359,19 +382,20 @@ add_ln_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ dga
 }
 
 // K3b's launch, from the shape and the SM count alone (ops/ln_fused.py
-// `_bwd_plan` is the same).
+// `_bwd_plan` is the same). streams: the row tensors a stage carries, 3 with
+// the add (r, dy, dr) and 2 without (x, dy).
 struct BwdPlan {
   int lanes, chunks, tile_rows, stages, smem, tiles, grid;
 };
 
-BwdPlan bwd_plan(int rows, int d, int elem, int sms) {
+BwdPlan bwd_plan(int rows, int d, int elem, int sms, int streams) {
   BwdPlan p;
   const int row_chunks = d / VEC;
   p.lanes = 1;
   while (p.lanes * 4 < row_chunks) p.lanes *= 2;   // the fewest lanes with <= 4 chunks each
   p.chunks = (row_chunks + p.lanes - 1) / p.lanes;
   const int base = BWD_WARPS * (32 / p.lanes);     // a row for every slot of every warp
-  const int base_bytes = 3 * base * d * elem + 8 * base;
+  const int base_bytes = streams * base * d * elem + 8 * base;
   const int k = BWD_STAGE_TARGET / base_bytes > 1 ? BWD_STAGE_TARGET / base_bytes : 1;
   p.tile_rows = base * k;
   const int stage_bytes = base_bytes * k;
@@ -383,7 +407,7 @@ BwdPlan bwd_plan(int rows, int d, int elem, int sms) {
   return p;
 }
 
-template <typename T>
+template <typename T, bool ADD>
 cudaError_t launch_fwd(const void* x, const void* delta, const float* gamma,
                        const float* beta, void* r, void* y, float* mu, float* rsig, int rows,
                        int d, float eps, cudaStream_t st) {
@@ -393,44 +417,80 @@ cudaError_t launch_fwd(const void* x, const void* delta, const float* gamma,
   T* rt = static_cast<T*>(r);
   T* yt = static_cast<T*>(y);
   switch ((d / VEC + 31) / 32) {
-    case 1: add_ln_fwd_kernel<T, 1><<<grid, WARPS * 32, 0, st>>>(xt, dt, gamma, beta, rt, yt, mu, rsig, rows, d, eps); break;
-    case 2: add_ln_fwd_kernel<T, 2><<<grid, WARPS * 32, 0, st>>>(xt, dt, gamma, beta, rt, yt, mu, rsig, rows, d, eps); break;
-    case 3: add_ln_fwd_kernel<T, 3><<<grid, WARPS * 32, 0, st>>>(xt, dt, gamma, beta, rt, yt, mu, rsig, rows, d, eps); break;
-    case 4: add_ln_fwd_kernel<T, 4><<<grid, WARPS * 32, 0, st>>>(xt, dt, gamma, beta, rt, yt, mu, rsig, rows, d, eps); break;
+    case 1: add_ln_fwd_kernel<T, 1, ADD><<<grid, WARPS * 32, 0, st>>>(xt, dt, gamma, beta, rt, yt, mu, rsig, rows, d, eps); break;
+    case 2: add_ln_fwd_kernel<T, 2, ADD><<<grid, WARPS * 32, 0, st>>>(xt, dt, gamma, beta, rt, yt, mu, rsig, rows, d, eps); break;
+    case 3: add_ln_fwd_kernel<T, 3, ADD><<<grid, WARPS * 32, 0, st>>>(xt, dt, gamma, beta, rt, yt, mu, rsig, rows, d, eps); break;
+    case 4: add_ln_fwd_kernel<T, 4, ADD><<<grid, WARPS * 32, 0, st>>>(xt, dt, gamma, beta, rt, yt, mu, rsig, rows, d, eps); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-template <typename T, int CH>
+template <typename T, int CH, bool ADD>
 cudaError_t launch_bwd_ch(const BwdPlan& p, const void* r, const float* mu, const float* rsig,
                           const float* gamma, const void* dr, const void* dy, void* dx,
                           float* part, int rows, int d, cudaStream_t st) {
   const cudaError_t err = cudaFuncSetAttribute(
-      add_ln_bwd_kernel<T, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+      add_ln_bwd_kernel<T, CH, ADD>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  add_ln_bwd_kernel<T, CH><<<p.grid, BWD_THREADS, p.smem, st>>>(
+  add_ln_bwd_kernel<T, CH, ADD><<<p.grid, BWD_THREADS, p.smem, st>>>(
       static_cast<const T*>(r), mu, rsig, gamma, static_cast<const T*>(dr),
       static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, d, p.lanes, p.tile_rows,
       p.stages, p.tiles);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool ADD>
 cudaError_t launch_bwd(const BwdPlan& p, const void* r, const float* mu, const float* rsig,
                        const float* gamma, const void* dr, const void* dy, void* dx,
                        float* part, int rows, int d, cudaStream_t st) {
   switch (p.chunks) {
-    case 1: return launch_bwd_ch<T, 1>(p, r, mu, rsig, gamma, dr, dy, dx, part, rows, d, st);
-    case 2: return launch_bwd_ch<T, 2>(p, r, mu, rsig, gamma, dr, dy, dx, part, rows, d, st);
-    case 3: return launch_bwd_ch<T, 3>(p, r, mu, rsig, gamma, dr, dy, dx, part, rows, d, st);
-    case 4: return launch_bwd_ch<T, 4>(p, r, mu, rsig, gamma, dr, dy, dx, part, rows, d, st);
+    case 1: return launch_bwd_ch<T, 1, ADD>(p, r, mu, rsig, gamma, dr, dy, dx, part, rows, d, st);
+    case 2: return launch_bwd_ch<T, 2, ADD>(p, r, mu, rsig, gamma, dr, dy, dx, part, rows, d, st);
+    case 3: return launch_bwd_ch<T, 3, ADD>(p, r, mu, rsig, gamma, dr, dy, dx, part, rows, d, st);
+    case 4: return launch_bwd_ch<T, 4, ADD>(p, r, mu, rsig, gamma, dr, dy, dx, part, rows, d, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 bool bad_shape(int rows, int d) {
   return rows < 1 || d < VEC || d > MAX_D || d % VEC != 0;
+}
+
+template <bool ADD>
+int fwd(const void* x, const void* delta, const float* gamma, const float* beta, void* r,
+        void* y, float* mu, float* rsig, int rows, int d, float eps, int dtype, void* stream) {
+  if (bad_shape(rows, d)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_fwd<__nv_bfloat16, ADD>(x, delta, gamma, beta, r, y, mu, rsig, rows, d, eps, st);
+  if (dtype == 1)
+    return launch_fwd<float, ADD>(x, delta, gamma, beta, r, y, mu, rsig, rows, d, eps, st);
+  return cudaErrorInvalidValue;
+}
+
+template <bool ADD>
+int bwd(const void* r, const float* mu, const float* rsig, const float* gamma, const void* dr,
+        const void* dy, void* dx, float* dgamma, float* dbeta, float* workspace, int rows,
+        int d, int dtype, int grid, int threads, int smem, int stages, int tile_rows,
+        void* stream) {
+  if (bad_shape(rows, d) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const BwdPlan p = bwd_plan(rows, d, dtype == 0 ? 2 : 4, sms, ADD ? 3 : 2);
+  if (grid != p.grid || threads != BWD_THREADS || smem != p.smem || stages != p.stages ||
+      tile_rows != p.tile_rows)
+    return cudaErrorInvalidConfiguration;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = dtype == 0
+      ? launch_bwd<__nv_bfloat16, ADD>(p, r, mu, rsig, gamma, dr, dy, dx, workspace, rows, d, st)
+      : launch_bwd<float, ADD>(p, r, mu, rsig, gamma, dr, dy, dx, workspace, rows, d, st);
+  if (err != cudaSuccess) return err;
+  add_ln_bwd_reduce_kernel<<<dim3((d + 31) / 32, 2), REDUCE_SPLIT * 32, 0, st>>>(
+      workspace, dgamma, dbeta, d, p.grid);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -444,13 +504,14 @@ extern "C" const char* dlsc_error_string(int err) {
 extern "C" int dlsc_add_ln_fwd(const void* x, const void* delta, const float* gamma,
                                const float* beta, void* r, void* y, float* mu, float* rsig,
                                int rows, int d, float eps, int dtype, void* stream) {
-  if (bad_shape(rows, d)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_fwd<__nv_bfloat16>(x, delta, gamma, beta, r, y, mu, rsig, rows, d, eps, st);
-  if (dtype == 1)
-    return launch_fwd<float>(x, delta, gamma, beta, r, y, mu, rsig, rows, d, eps, st);
-  return cudaErrorInvalidValue;
+  return fwd<true>(x, delta, gamma, beta, r, y, mu, rsig, rows, d, eps, dtype, stream);
+}
+
+// The LayerNorm of x alone: y, mu, rsig as `dlsc_add_ln_fwd` with no delta and no r.
+extern "C" int dlsc_ln_fwd(const void* x, const float* gamma, const float* beta, void* y,
+                           float* mu, float* rsig, int rows, int d, float eps, int dtype,
+                           void* stream) {
+  return fwd<false>(x, nullptr, gamma, beta, nullptr, y, mu, rsig, rows, d, eps, dtype, stream);
 }
 
 // r, dr, dy, dx: (rows, d); mu, rsig: (rows,) f32; gamma, dgamma, dbeta: (d,)
@@ -463,21 +524,17 @@ extern "C" int dlsc_add_ln_bwd(const void* r, const float* mu, const float* rsig
                                float* dgamma, float* dbeta, float* workspace, int rows, int d,
                                int dtype, int grid, int threads, int smem, int stages,
                                int tile_rows, void* stream) {
-  if (bad_shape(rows, d) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const BwdPlan p = bwd_plan(rows, d, dtype == 0 ? 2 : 4, sms);
-  if (grid != p.grid || threads != BWD_THREADS || smem != p.smem || stages != p.stages ||
-      tile_rows != p.tile_rows)
-    return cudaErrorInvalidConfiguration;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = dtype == 0
-            ? launch_bwd<__nv_bfloat16>(p, r, mu, rsig, gamma, dr, dy, dx, workspace, rows, d, st)
-            : launch_bwd<float>(p, r, mu, rsig, gamma, dr, dy, dx, workspace, rows, d, st);
-  if (err != cudaSuccess) return err;
-  add_ln_bwd_reduce_kernel<<<dim3((d + 31) / 32, 2), REDUCE_SPLIT * 32, 0, st>>>(
-      workspace, dgamma, dbeta, d, p.grid);
-  return cudaGetLastError();
+  return bwd<true>(r, mu, rsig, gamma, dr, dy, dx, dgamma, dbeta, workspace, rows, d, dtype,
+                   grid, threads, smem, stages, tile_rows, stream);
+}
+
+// The LayerNorm's backward alone: `dlsc_add_ln_bwd` from the input x with no
+// dr, dx = rsig (dy gamma - mean(dy gamma) - xhat mean(dy gamma xhat)); the
+// plan is `_bwd_plan(..., add=False)`.
+extern "C" int dlsc_ln_bwd(const void* x, const float* mu, const float* rsig,
+                           const float* gamma, const void* dy, void* dx, float* dgamma,
+                           float* dbeta, float* workspace, int rows, int d, int dtype, int grid,
+                           int threads, int smem, int stages, int tile_rows, void* stream) {
+  return bwd<false>(x, mu, rsig, gamma, nullptr, dy, dx, dgamma, dbeta, workspace, rows, d,
+                    dtype, grid, threads, smem, stages, tile_rows, stream);
 }

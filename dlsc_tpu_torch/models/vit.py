@@ -9,8 +9,9 @@ Counterpart of ``dlsc_tpu/models/vit.py`` ``ASTViT``:
   device, so that CPU and card run one token layout; attention masks keys
   >= n_real and the head reads only the CLS row, so pad rows never reach
   the output, and their gradients are exact zeros;
-- pre-LN blocks (eps 1e-6, stats in f32) with packed qkv in [q|k|v] column
-  order, the head-merge projection and an exact-erf GELU MLP;
+- pre-LN blocks (eps 1e-6, stats in f32; on a CUDA bf16 stream kernels
+  K3f / K3b without the add, ``_layer_norm``) with packed qkv in [q|k|v]
+  column order, the head-merge projection and an exact-erf GELU MLP;
 - the final LN, the head in f32 on the CLS token, and the reference's
   sigmoid on the head output (kept, as the JAX package keeps it).
 
@@ -93,7 +94,8 @@ The attention stays on K2f and the patch embed and head in float.
 ``vit.py:648-659``) replaces each block's attention residual add and norm2,
 dense and MoE blocks alike, by the fused op ``ops.ln_fused.add_ln``
 (kernels K3f and K3b on the card, the plain versions on the CPU); the
-parameters stay ``norm2.weight`` / ``norm2.bias``. In bf16 the fused path
+parameters stay ``norm2.weight`` / ``norm2.bias``; norm1 and the final norm
+stay ``_layer_norm``. In bf16 the fused path
 takes norm2's statistics from the unrounded f32 sum, so it differs from the
 unfused one by the rounding of the residual. The op is kept by no remat
 policy: a rematerialised block runs K3f again.
@@ -136,6 +138,7 @@ from dlsc_tpu_torch.ops.dropout_draw import (SITE_ATTN, SITE_HIDDEN, SITE_OUT, D
                                              dropout, make_draw)
 from dlsc_tpu_torch.ops.gmm import grouped_matmul as gmm_op
 from dlsc_tpu_torch.ops.ln_fused import add_ln as add_ln_op
+from dlsc_tpu_torch.ops.ln_fused import layer_norm as kernel_layer_norm
 from dlsc_tpu_torch.ops.quant import QUANT_MODES, int8_dot, materialize, w8_dot
 from dlsc_tpu_torch.utils import remat
 from dlsc_tpu_torch.utils.remat import current_tag, func_checkpoint, kept, remat_tag, tagging
@@ -230,7 +233,13 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_real: i
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """LN with f32 statistics, output in the input's dtype (Flax LayerNorm)."""
+    """LN with f32 statistics, output in the input's dtype (Flax LayerNorm).
+    A CUDA bf16 stream takes ``ops.ln_fused.layer_norm`` (K3's kernels with
+    the add compiled out: x read once and y written once in bf16, no f32
+    copy either way); anything else (the CPU, f32) PyTorch's LN on an f32
+    copy. Both round y, and x's gradient, once to the input's dtype."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return kernel_layer_norm(x, ln.weight, ln.bias)
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
                         LN_EPS).to(x.dtype)
 

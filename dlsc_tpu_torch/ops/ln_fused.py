@@ -40,6 +40,18 @@ computes the same plan and refuses any other launch.
   with per-trial gamma and beta, (K, d), it launches once a trial, and so
   does the backward always, whose dgamma and dbeta are sums over one
   trial's rows ((K, d) out).
+
+The LayerNorm alone, of the ViT blocks' bf16 stream (``models/vit.py``
+``_layer_norm`` on CUDA bf16 inputs), is the same two kernels with the add
+compiled out: ``layer_norm(x, weight, bias) -> y``, an ``autograd.Function``
+over the ops ``dlsc_tpu_torch::ln`` ((y, mu, rsig); ``ln_forward``) and
+``dlsc_tpu_torch::ln_bwd`` ((dx, dgamma, dbeta); ``ln_backward``), with the
+same vmap rules. x is read once and y written once in x's dtype, with f32
+statistics of x; the backward rebuilds xhat from x and writes dx once. Its
+rounding points are those of ``F.layer_norm(x.float(), ...).to(x.dtype)``
+and of that expression's autograd (y and dx each rounded once to x's dtype),
+so only the order of the f32 sums differs; CPU tensors run that expression's
+own ops (``ln_reference``, ``ln_backward_reference``), bit for bit.
 """
 
 from __future__ import annotations
@@ -58,21 +70,22 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # producer warp), resident CTAs an SM, ring stages at most, the bytes of a
 # stage aimed at; a block's shared memory (H100: 227 KB), of which each of the
 # resident CTAs may use its share less the system's 1 KB; the mbarriers' bytes
-BWD_WARPS, BWD_CTAS_PER_SM, BWD_MAX_STAGES, BWD_STAGE_TARGET = 4, 2, 4, 24 * 1024
+BWD_WARPS, BWD_CTAS_PER_SM, BWD_MAX_STAGES, BWD_STAGE_TARGET = 4, 2, 4, 25 * 1024
 BWD_THREADS = 32 * (BWD_WARPS + 1)
 SMEM_LIMIT = 232_448
 BWD_SMEM_BUDGET = SMEM_LIMIT // BWD_CTAS_PER_SM - 1024
 BWD_BAR_BYTES = 16 * BWD_MAX_STAGES
 REDUCE_SPLIT = 32   # warps of a summing CTA: warp w sums the CTAs w, w + 32, ...
 
-launches = 0      # forward kernel launches since the last reset (see reset_launches)
-bwd_launches = 0  # backward kernel launches
+launches = 0         # add + LN forward kernel launches since the last reset
+bwd_launches = 0     # add + LN backward kernel launches
+ln_launches = 0      # LN-alone forward launches
+ln_bwd_launches = 0  # LN-alone backward launches
 
 
 def reset_launches() -> None:
-    global launches, bwd_launches
-    launches = 0
-    bwd_launches = 0
+    global launches, bwd_launches, ln_launches, ln_bwd_launches
+    launches = bwd_launches = ln_launches = ln_bwd_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -82,6 +95,10 @@ def _lib() -> ctypes.CDLL:
     lib.dlsc_add_ln_fwd.restype = i
     lib.dlsc_add_ln_bwd.argtypes = [p] * 10 + [i] * 8 + [p]
     lib.dlsc_add_ln_bwd.restype = i
+    lib.dlsc_ln_fwd.argtypes = [p] * 6 + [i, i, f, i, p]
+    lib.dlsc_ln_fwd.restype = i
+    lib.dlsc_ln_bwd.argtypes = [p] * 9 + [i] * 8 + [p]
+    lib.dlsc_ln_bwd.restype = i
     return lib
 
 
@@ -175,17 +192,19 @@ def fused_add_ln_forward(x: torch.Tensor, delta: torch.Tensor, weight: torch.Ten
     return r, y, mu, rsig
 
 
-def _bwd_plan(rows: int, d: int, n_sm: int, elem: int = 2) -> dict:
+def _bwd_plan(rows: int, d: int, n_sm: int, elem: int = 2, add: bool = True) -> dict:
     """K3b's launch for ``rows`` rows of width ``d`` in ``elem``-byte elements
-    on a card of ``n_sm`` SMs (``csrc/ln_fused.cu`` computes the same by the
-    same formulas and refuses a launch whose numbers differ).
+    on a card of ``n_sm`` SMs, with the add (``add``) or of the LayerNorm
+    alone (``csrc/ln_fused.cu`` computes the same by the same formulas and
+    refuses a launch whose numbers differ).
 
     A row takes ``lanes`` lanes (the fewest powers of two with at most 4
     16-byte chunks each: ``chunks``), so a consumer warp holds
     ``rows_per_warp`` = 32 / lanes rows at once; a tile holds a row for every
     slot of every consumer warp (times the ``BWD_STAGE_TARGET`` fit, at least
     once): ``tile_rows``, a multiple of 4, so that every tile's mu / rsig span
-    starts on 16 bytes. A stage holds the tile's r, dy, dr and its mu, rsig;
+    starts on 16 bytes. A stage holds the tile's r, dy, dr (``streams`` 3; x
+    and dy alone without the add: 2) and its mu, rsig;
     ``stages`` as many as the CTA's share of shared memory holds, at most
     ``BWD_MAX_STAGES``. The grid: ``BWD_CTAS_PER_SM`` CTAs an SM, never more
     than the tiles; ``workspace``: the CTAs' (2, grid, d) f32 partials;
@@ -196,14 +215,15 @@ def _bwd_plan(rows: int, d: int, n_sm: int, elem: int = 2) -> dict:
     while lanes * 4 < row_chunks:
         lanes *= 2
     base = BWD_WARPS * (32 // lanes)
-    base_bytes = 3 * base * d * elem + 8 * base
+    streams = 3 if add else 2
+    base_bytes = streams * base * d * elem + 8 * base
     k = max(1, BWD_STAGE_TARGET // base_bytes)
     stage_bytes = base_bytes * k
     stages = min(BWD_MAX_STAGES, (BWD_SMEM_BUDGET - BWD_BAR_BYTES) // stage_bytes)
     tiles = -(-rows // (base * k))
     grid = min(n_sm * BWD_CTAS_PER_SM, tiles)
     return dict(lanes=lanes, chunks=-(-row_chunks // lanes), rows_per_warp=32 // lanes,
-                tile_rows=base * k, stage_bytes=stage_bytes, stages=stages,
+                streams=streams, tile_rows=base * k, stage_bytes=stage_bytes, stages=stages,
                 smem=BWD_BAR_BYTES + stages * stage_bytes, tiles=tiles, grid=grid,
                 threads=BWD_THREADS, workspace=2 * grid * d, reduce_grid=(-(-d // 32), 2))
 
@@ -336,3 +356,173 @@ def add_ln(x: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
     """Differentiable fused add + LayerNorm: (r, y, mu, rsig), as
     ``fused_add_ln_forward``; its backward is ``fused_add_ln_backward``."""
     return _AddLn.apply(x, delta, weight, bias)
+
+
+def ln_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain LayerNorm by the ops of ``F.layer_norm(x.float(), ...).to(x.dtype)``:
+    (y in x's dtype; mu, rsig f32 of shape x.shape[:-1])."""
+    y, mu, rsig = torch.native_layer_norm(x.float(), (x.shape[-1],), weight, bias, EPS)
+    return y.to(x.dtype), mu.squeeze(-1), rsig.squeeze(-1)
+
+
+def ln_backward_reference(x: torch.Tensor, mu: torch.Tensor, rsig: torch.Tensor,
+                          weight: torch.Tensor, dy: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward by the ops of the autograd of ``ln_reference``'s
+    expression (dy to f32, PyTorch's LN backward, dx to x's dtype): (dx,
+    dgamma, dbeta f32). The bias slot takes ``weight``: the op reads it for
+    dbeta's shape and dtype only."""
+    dx, dgamma, dbeta = torch.ops.aten.native_layer_norm_backward(
+        dy.float(), x.float(), (x.shape[-1],), mu[..., None], rsig[..., None], weight, weight,
+        [True, True, True])
+    return dx.to(x.dtype), dgamma, dbeta
+
+
+def ln_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(x (..., d); gamma, beta (d,) f32) → (y, mu, rsig).
+
+    CUDA tensors: K3f without the add (x made contiguous where it is
+    strided, such as the CLS rows ``x[:, 0]``). CPU tensors: ``ln_reference``.
+    """
+    if x.ndim < 1 or x.numel() == 0:
+        raise ValueError(f"ln_forward: x {tuple(x.shape)} has no rows")
+    d = x.shape[-1]
+    _check_width("ln_forward", d)
+    _check_params("ln_forward", x, weight)
+    _check_params("ln_forward", x, bias)
+    if x.device.type == "cpu":
+        return ln_reference(x, weight, bias)
+    x, weight, bias = aligned(x), aligned(weight), aligned(bias)
+    _check_kernel_operands("ln_forward", x)
+    _check_kernel_operands("ln_forward", weight, bias)   # both float32
+    y = torch.empty_like(x)
+    mu, rsig = (torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+                for _ in range(2))
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.dlsc_ln_fwd(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), mu.data_ptr(),
+            rsig.data_ptr(), x.numel() // d, d, EPS, _DTYPES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _kernels.check(lib, err, "LayerNorm forward kernel")
+    global ln_launches
+    ln_launches += 1
+    return y, mu, rsig
+
+
+def ln_backward(x: torch.Tensor, mu: torch.Tensor, rsig: torch.Tensor, weight: torch.Tensor,
+                dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(x (..., d), mu, rsig (...) f32, gamma (d,) f32, dy (..., d)) → (dx,
+    dgamma, dbeta).
+
+    CUDA tensors: K3b without the dr stream (``_bwd_plan(..., add=False)``;
+    one launch counted for its two kernels). CPU tensors:
+    ``ln_backward_reference``. x and dy may be strided.
+    """
+    d = x.shape[-1]
+    _check_width("ln_backward", d)
+    _check_params("ln_backward", x, weight)
+    if dy.shape != x.shape or mu.shape != x.shape[:-1] or rsig.shape != x.shape[:-1]:
+        raise ValueError(f"ln_backward: dy {tuple(dy.shape)}, mu {tuple(mu.shape)}, rsig "
+                         f"{tuple(rsig.shape)} for x {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return ln_backward_reference(x, mu, rsig, weight, dy)
+    x, dy, weight = aligned(x), aligned(dy), aligned(weight)
+    _check_kernel_operands("ln_backward", x, dy)
+    _check_kernel_operands("ln_backward", mu, rsig, weight)   # all float32
+    rows = x.numel() // d
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = _bwd_plan(rows, d, sms, x.element_size(), add=False)
+    dx = torch.empty_like(x)
+    dgamma, dbeta = (torch.empty(d, dtype=torch.float32, device=x.device) for _ in range(2))
+    workspace = torch.empty(plan["workspace"], dtype=torch.float32, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.dlsc_ln_bwd(
+            x.data_ptr(), mu.data_ptr(), rsig.data_ptr(), weight.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), workspace.data_ptr(), rows, d,
+            _DTYPES[x.dtype], plan["grid"], plan["threads"], plan["smem"], plan["stages"],
+            plan["tile_rows"], torch.cuda.current_stream().cuda_stream)
+    _kernels.check(lib, err, "LayerNorm backward kernel")
+    global ln_bwd_launches
+    ln_bwd_launches += 1
+    return dx, dgamma, dbeta
+
+
+@torch.library.custom_op("dlsc_tpu_torch::ln", mutates_args=())
+def _ln_op(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The LayerNorm alone as an op: (y, mu, rsig), as ``ln_forward``."""
+    return ln_forward(x, weight, bias)
+
+
+@_ln_op.register_fake
+def _(x, weight, bias):
+    _check_width("ln_forward", x.shape[-1])
+    stats = x.new_empty(x.shape[:-1], dtype=torch.float32)
+    return x.new_empty(x.shape), stats, torch.empty_like(stats)
+
+
+@_ln_op.register_vmap
+def _(info, in_dims, x, weight, bias):
+    (x,) = trial_major(info, in_dims[:1], x)
+    if in_dims[1] is None and in_dims[2] is None:   # shared gamma, beta: one launch
+        return _ln_op(x, weight, bias), (0, 0, 0)
+    weight, bias = (aligned(t) for t in trial_major(info, in_dims[1:], weight, bias))
+    outs = [_ln_op(x[i], weight[i], bias[i]) for i in range(info.batch_size)]
+    return tuple(torch.stack(o) for o in zip(*outs)), (0, 0, 0)
+
+
+@torch.library.custom_op("dlsc_tpu_torch::ln_bwd", mutates_args=())
+def _ln_bwd_op(x: torch.Tensor, mu: torch.Tensor, rsig: torch.Tensor, weight: torch.Tensor,
+               dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The LayerNorm's backward as an op: (dx, dgamma, dbeta), as ``ln_backward``."""
+    return ln_backward(x, mu, rsig, weight, dy)
+
+
+@_ln_bwd_op.register_fake
+def _(x, mu, rsig, weight, dy):
+    return x.new_empty(x.shape), torch.empty_like(weight), torch.empty_like(weight)
+
+
+@_ln_bwd_op.register_vmap
+def _(info, in_dims, x, mu, rsig, weight, dy):
+    # dgamma and dbeta are sums over one trial's rows: one launch a trial
+    ts = trial_major(info, in_dims, x, mu, rsig, weight, dy)
+    outs = [_ln_bwd_op(*(t[i] for t in ts)) for i in range(info.batch_size)]
+    return tuple(torch.stack(o) for o in zip(*outs)), (0, 0, 0)
+
+
+class _Ln(torch.autograd.Function):
+    """forward ``dlsc_tpu_torch::ln``, backward ``dlsc_tpu_torch::ln_bwd``;
+    composes with ``torch.func`` as ``_AddLn`` does."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, weight, bias):
+        return _ln_op(x, weight, bias)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, weight, _ = inputs
+        _, mu, rsig = output
+        ctx.save_for_backward(x, mu, rsig, weight)
+        ctx.mark_non_differentiable(mu, rsig)
+        # y is the one differentiable output, so dy is never None; mu's and
+        # rsig's gradients stay None instead of two zero fills a call
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, dy, _dmu, _drsig):
+        x, mu, rsig, weight = ctx.saved_tensors
+        with torch.no_grad():
+            return _ln_bwd_op(x, mu, rsig, weight, dy)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Differentiable LayerNorm of x over its last axis (gamma, beta (d,) f32):
+    y in x's dtype, as ``ln_forward``; its backward is ``ln_backward``."""
+    return _Ln.apply(x, weight, bias)[0]

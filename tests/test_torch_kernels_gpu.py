@@ -21,7 +21,17 @@ in both types (both round one f32 sum), y, dx, dgamma and dbeta 1e-5
 normalised in f32 (summation order only) and 1e-2 in bf16 (the outputs
 stored in bf16), two K3b calls bit-identical, no K3 kernel spilling, and a
 K3b launch other than ``_bwd_plan``'s refused; the small AST-Small train step with ``ln_fused`` through
-K2 and K3 vs plain ops 1e-4, as the AST step. The vmap rules (the vmapped
+K2 and K3 vs plain ops 1e-4, as the AST step. The LayerNorm alone (K3 with
+the add compiled out) against PyTorch's LN on an f32 copy
+(``ln_reference``), on rows with an offset and a scale of their own: y and
+dx in bf16 each within one bf16 ulp of the plain value (each rounded once to
+bf16 on both sides, a last-bit difference either way) past 1e-4 of the max,
+mu, rsig, dgamma, dbeta 1e-5 (f32 sums in another order), at AST-Base's and
+AST-MoE's rows;
+two calls bit-identical; a bf16 AST-Small train step under remat
+``attn_res`` takes it at every norm and calls no PyTorch LN, its loss 1e-2
+relative of the same step on PyTorch's LN (the same rounding points; the
+other order of f32 sums moves some bf16 values a last bit). The vmap rules (the vmapped
 HPO step): K2f and K2b fold K trials into one launch, each trial's
 gradients within 1e-6 normalised of its own launch's (independent (b, h)
 problems: equal in practice); K3 with per-trial gamma launches once a
@@ -552,32 +562,39 @@ def test_add_ln_backward_is_deterministic(dtype, d, rows, cuda_device):
 
 
 def test_add_ln_kernels_spill_nothing(cuda_device):
-    """Every K3 kernel (each type and chunk count, and K3b's summing kernel)
-    spills nothing (``-Xptxas -v``, a build flag of the library)."""
+    """Every K3 kernel (each type, chunk count and add switch, and K3b's
+    summing kernel) spills nothing (``-Xptxas -v``, a build flag of the library)."""
     log = _kernels.build_log("ln_fused")
     entries = re.findall(r"Compiling entry function '(\S+)'", log)
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
-    assert len(entries) == 17 and len(spills) >= len(entries) and not any(spills)
+    assert len(entries) == 33 and len(spills) >= len(entries) and not any(spills)
 
 
-def test_add_ln_backward_refuses_another_plan(cuda_device):
-    """The C entry point launches only ``_bwd_plan``'s grid and tiles."""
+@pytest.mark.parametrize("add", [True, False])
+def test_add_ln_backward_refuses_another_plan(add, cuda_device):
+    """The C entry points launch only ``_bwd_plan``'s grid and tiles, with
+    the add and without (the plan of the other form among the refused)."""
     rows, d = 4096, 384
     t = torch.zeros(rows, d, device=cuda_device, dtype=torch.bfloat16)
     f = torch.zeros(rows, device=cuda_device)
     w = torch.ones(d, device=cuda_device)
-    plan = LN._bwd_plan(rows, d, torch.cuda.get_device_properties(cuda_device)
-                        .multi_processor_count)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = LN._bwd_plan(rows, d, sms, add=add)
     ws = torch.empty(plan["workspace"] + 2 * d, device=cuda_device)
     lib = LN._lib()
+    stream = torch.cuda.current_stream().cuda_stream
     for bad in (dict(grid=plan["grid"] + 1), dict(tile_rows=plan["tile_rows"] * 2),
-                dict(stages=plan["stages"] - 1)):
+                dict(stages=plan["stages"] - 1), LN._bwd_plan(rows, d, sms, add=not add)):
         p = {**plan, **bad}
-        err = lib.dlsc_add_ln_bwd(t.data_ptr(), f.data_ptr(), f.data_ptr(), w.data_ptr(),
-                                  t.data_ptr(), t.data_ptr(), t.data_ptr(), w.data_ptr(),
-                                  w.data_ptr(), ws.data_ptr(), rows, d, 0, p["grid"],
-                                  p["threads"], p["smem"], p["stages"], p["tile_rows"],
-                                  torch.cuda.current_stream().cuda_stream)
+        args = (p["grid"], p["threads"], p["smem"], p["stages"], p["tile_rows"], stream)
+        if add:
+            err = lib.dlsc_add_ln_bwd(t.data_ptr(), f.data_ptr(), f.data_ptr(), w.data_ptr(),
+                                      t.data_ptr(), t.data_ptr(), t.data_ptr(), w.data_ptr(),
+                                      w.data_ptr(), ws.data_ptr(), rows, d, 0, *args)
+        else:
+            err = lib.dlsc_ln_bwd(t.data_ptr(), f.data_ptr(), f.data_ptr(), w.data_ptr(),
+                                  t.data_ptr(), t.data_ptr(), w.data_ptr(), w.data_ptr(),
+                                  ws.data_ptr(), rows, d, 0, *args)
         assert err != 0, bad
 
 
@@ -646,6 +663,130 @@ def test_small_ast_small_ln_fused_train_step_matches_plain(cuda_device):
             assert (a == 0).all()
 
 
+def _ulps_past(got, want, floor):
+    """The elements of a bf16 ``got`` further from ``want`` than one bf16 ulp
+    of ``want`` plus ``floor`` times the max |want|."""
+    g, w = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)   # bf16: 8 significant bits
+    return int(((g - w).abs() > ulp + floor * w.abs().max()).sum())
+
+
+@pytest.mark.parametrize("dtype,d,rows", [(torch.bfloat16, 768, 212_992),
+                                          (torch.bfloat16, 384, 196_608),
+                                          (torch.bfloat16, 192, 5003), (torch.bfloat16, 1024, 3),
+                                          (torch.bfloat16, 8, 1), (torch.float32, 768, 5003)])
+def test_ln_kernels_match_plain(dtype, d, rows, cuda_device):
+    """K3f and K3b without the add against PyTorch's LN on an f32 copy and
+    its autograd (``ln_reference``, ``ln_backward_reference``), one launch
+    each: AST-Base's rows (batch 128 x 1664 tokens), AST-MoE's (256 x 768),
+    a short last tile, one short tile, the narrowest width, and f32. The rows
+    carry an offset of order 1 and a scale of their own, as a residual stream
+    does, so that a centring or scaling fault shows: in bf16, y and dx each
+    within one bf16 ulp of the plain value past 1e-4 of the max |value| (the
+    f32 rounding near 0), in f32 1e-5 normalised; mu, rsig, dgamma, dbeta
+    1e-5 normalised."""
+    gen = torch.Generator(cuda_device).manual_seed(d + rows)
+    offset = torch.randn(rows, 1, generator=gen, device=cuda_device)
+    scale = torch.exp(0.5 * torch.randn(rows, 1, generator=gen, device=cuda_device))
+    x = (torch.randn(rows, d, generator=gen, device=cuda_device) * scale + offset).to(dtype)
+    dy = torch.randn(rows, d, generator=gen, device=cuda_device).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(d, generator=gen, device=cuda_device)
+    beta = 0.1 * torch.randn(d, generator=gen, device=cuda_device)
+
+    def close(name, g, w, stored):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        if stored and dtype == torch.bfloat16:
+            assert _ulps_past(g, w, 1e-4) == 0, name
+        else:
+            assert _norm_err(g.float(), w.float()) <= 1e-5, name
+
+    LN.reset_launches()
+    got = LN.ln_forward(x, gamma, beta)
+    want = LN.ln_reference(x, gamma, beta)
+    for name, g, w, stored in zip(("y", "mu", "rsig"), got, want, (True, False, False)):
+        close(name, g, w, stored)
+    _, mu, rsig = want
+    got = LN.ln_backward(x, mu, rsig, gamma, dy)
+    want = LN.ln_backward_reference(x, mu, rsig, gamma, dy)
+    torch.cuda.synchronize()
+    for name, g, w, stored in zip(("dx", "dgamma", "dbeta"), got, want, (True, False, False)):
+        close(name, g, w, stored)
+    assert (LN.ln_launches, LN.ln_bwd_launches, LN.launches, LN.bwd_launches) == (1, 1, 0, 0)
+
+
+@pytest.mark.parametrize("d,rows", [(768, 212_992), (384, 196_608)])
+def test_ln_backward_is_deterministic(d, rows, cuda_device):
+    """Two bf16 calls of the LN-alone backward give the same bits."""
+    gen = torch.Generator(cuda_device).manual_seed(d)
+    x, dy = (torch.randn(rows, d, generator=gen, device=cuda_device).bfloat16()
+             for _ in range(2))
+    gamma = 1 + 0.1 * torch.randn(d, generator=gen, device=cuda_device)
+    _, mu, rsig = LN.ln_forward(x, gamma, torch.zeros_like(gamma))
+    a = LN.ln_backward(x, mu, rsig, gamma, dy)
+    b = LN.ln_backward(x, mu, rsig, gamma, dy)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def test_bf16_train_step_takes_the_ln_kernels_at_every_norm(cuda_device):
+    """One bf16 AST-Small step under remat ``attn_res``: the LN-alone
+    kernels run at every norm (forward 2 a block, again in the re-forward,
+    and the final norm; backward 2 a block and the final norm), K3's add
+    form never, and no PyTorch LN op runs; the loss within 1e-2 relative of
+    the same step on PyTorch's LN."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from dlsc_tpu_torch.models import vit
+    from dlsc_tpu_torch.models.ast_small import ASTViTSmall
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    depth = 2
+    pipe = DevicePipeline(PipelineConfig(mode="ast", num_classes=7, time_mask=192,
+                                         freq_mask=48, enable_mixup=True))
+    rng = np.random.default_rng(3)
+    wave = torch.from_numpy((rng.standard_normal((4, 44_100)) * 0.3).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 7, 4))
+    draws = pipe.draw(4, 44_100, rng)
+    losses = []
+    for kernel in (True, False):
+        model = ASTViTSmall(num_classes=7, emb_dim=128, depth=depth, num_heads=2,
+                            patch_stride=16, overlap=0, dtype=torch.bfloat16, remat=True,
+                            remat_policy="attn_res", device=cuda_device,
+                            generator=torch.Generator().manual_seed(0))
+        state = TrainState.create(model, sgd(lr=0.1, momentum=0.9), None, 1)
+        step = make_train_step(pipe, CrossEntropyLoss())
+        LN.reset_launches()
+        ops = Ops()
+        orig = vit.kernel_layer_norm
+        try:
+            if not kernel:   # the site's f32 expression, as on the CPU
+                vit.kernel_layer_norm = lambda x, w, b: torch.nn.functional.layer_norm(
+                    x.float(), (x.shape[-1],), w, b, LN.EPS).to(x.dtype)
+            with ops:
+                state, _, loss = step(state, MetricState.create(7, cuda_device),
+                                      wave.to(cuda_device), labels.to(cuda_device), draws, 99)
+            torch.cuda.synchronize()
+        finally:
+            vit.kernel_layer_norm = orig
+        counts = (LN.ln_launches, LN.ln_bwd_launches, LN.launches, LN.bwd_launches)
+        if kernel:
+            assert counts == (4 * depth + 1, 2 * depth + 1, 0, 0)
+            assert not ops.names & {"aten.native_layer_norm", "aten.native_layer_norm_backward",
+                                    "aten.layer_norm"}, sorted(ops.names)
+        else:
+            assert counts == (0, 0, 0, 0) and "aten.native_layer_norm" in ops.names
+        losses.append(loss.item())
+    assert np.isfinite(losses).all() and abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1])
+
+
 # ---- the vmap rules: K trials in one launch (the vmapped HPO step) ---------------
 
 def _vmapped_vs_per_trial(f, batched):
@@ -694,6 +835,40 @@ def test_add_ln_launches_once_a_trial_with_per_trial_gamma(cuda_device):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("shared", [True, False])
+def test_ln_vmap_rule_launches(shared, cuda_device):
+    """The LN alone under vmap(grad): with gamma and beta shared by the
+    trials the forward takes every trial's rows in one launch, with
+    per-trial (K, d) ones it launches once a trial, and the backward once a
+    trial always; each trial's y and gradients bit-equal to its own calls'
+    (the loss, a sum, within 1e-6 relative: vmap reduces it in another order)."""
+    from torch.func import grad_and_value, vmap
+
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    K, R, D = 3, 2 * 1664, 768
+    x, cot = (torch.randn((K, R, D), generator=gen, device=cuda_device, dtype=torch.bfloat16)
+              for _ in range(2))
+    gamma, beta = (torch.randn((K, D), generator=gen, device=cuda_device) for _ in range(2))
+    if shared:
+        gamma, beta = gamma[0], beta[0]
+    f = lambda a, g, b, t: (LN.layer_norm(a, g, b).float() * t.float()).sum()  # noqa: E731
+    pd = None if shared else 0
+    LN.reset_launches()
+    got_g, got_v = vmap(grad_and_value(f, argnums=(0, 1, 2)), in_dims=(0, pd, pd, 0))(
+        x, gamma, beta, cot)
+    torch.cuda.synchronize()
+    assert (LN.ln_launches, LN.ln_bwd_launches) == (1 if shared else K, K)
+    y = vmap(LN.layer_norm, in_dims=(0, pd, pd))(x, gamma, beta)
+    for i in range(K):
+        p = (gamma, beta) if shared else (gamma[i], beta[i])
+        want_g, want_v = grad_and_value(f, argnums=(0, 1, 2))(x[i], *p, cot[i])
+        # the values are sums over a trial's rows, reduced in another order under vmap
+        assert torch.equal(y[i], LN.layer_norm(x[i], *p))
+        assert torch.allclose(got_v[i], want_v, rtol=1e-6, atol=0)
+        for g, w in zip(got_g, want_g):
+            assert torch.equal(g[i], w)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 def test_grouped_matmul_folds_the_trials_into_one_launch(dtype, tol, cuda_device):
     """K4a and K4b under vmap: K trials' E experts as K·E groups, one launch
@@ -722,6 +897,7 @@ def test_grouped_matmul_folds_the_trials_into_one_launch(dtype, tol, cuda_device
 def test_vmapped_runner_step_through_the_kernels(cuda_device, tmp_path):
     """One lockstep step of 2 trials of a small AST-Small (``ln_fused``) on
     the card: K1 once, K2f and K2b once a block, K3f and K3b once a block
+    and trial, the LN-alone kernels (norm1 and the final norm) once a norm
     and trial; every trial's parameters move and stay finite."""
     from dlsc_tpu_torch import hpo
     from dlsc_tpu_torch.data.datamodule import ESC50DataModule
@@ -748,6 +924,7 @@ def test_vmapped_runner_step_through_the_kernels(cuda_device, tmp_path):
     torch.cuda.synchronize()
     assert (MK.launches, A.launches, A.bwd_launches) == (1, depth, depth)
     assert (LN.launches, LN.bwd_launches) == (2 * depth, 2 * depth)
+    assert (LN.ln_launches, LN.ln_bwd_launches) == (2 * (depth + 1), 2 * (depth + 1))
     assert torch.isfinite(st.flat).all() and ((st.flat - before).abs().amax(1) > 0).all()
 
 

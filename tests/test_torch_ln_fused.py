@@ -222,3 +222,126 @@ def test_kernel_summation_order_matches_jax(rows, d):
     got = _mirror_bwd_sums(r.numpy(), mu.numpy(), rsig.numpy(), dy, L._bwd_plan(rows, d, 3))
     for g, w in zip(got, (np.asarray(jg), np.asarray(jb))):
         assert np.abs(g - w).max() <= 1e-6 * np.abs(w).max()
+
+
+# ---- the LayerNorm alone (K3 with the add compiled out; models/vit.py _layer_norm) ----
+
+def _expression(x, weight, bias):
+    """``_layer_norm``'s plain expression: PyTorch's LN on an f32 copy."""
+    return torch.nn.functional.layer_norm(x.float(), (x.shape[-1],), weight, bias,
+                                          L.EPS).to(x.dtype)
+
+
+def _ln_inputs(seed, shape, dtype):
+    x, _, gamma, beta = _inputs(seed, shape)
+    return torch.from_numpy(x).to(dtype), torch.from_numpy(gamma), torch.from_numpy(beta)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("strided", [False, True])
+def test_layer_norm_is_the_expression_on_the_cpu(dtype, strided):
+    """On the CPU ``layer_norm`` runs the expression's own ops: y and the
+    gradients of x, gamma and beta equal the expression's and its autograd's
+    bit for bit, in bf16 and f32, also on strided rows (the final norm's CLS
+    rows ``x[:, 0]``); it counts no launch, and its backward is the
+    ``ln_bwd`` op alone (no zero gradients made for mu and rsig)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    x, gamma, beta = _ln_inputs(7, (6, 5, 48), dtype)
+    dy = torch.from_numpy(np.random.default_rng(8).standard_normal((6, 48) if strided else
+                                                                     (6, 5, 48))).to(dtype)
+    outs = []
+    L.reset_launches()
+    for fn in (L.layer_norm, _expression):
+        leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+        y = fn(leaves[0][:, 0] if strided else leaves[0], leaves[1], leaves[2])
+        with Ops() as ops:
+            y.backward(dy)
+        if fn is L.layer_norm:
+            assert ops.names.count("dlsc_tpu_torch.ln_bwd") == 1, ops.names
+            assert "aten.zeros" not in ops.names, ops.names
+        outs.append((y.detach(), *(t.grad for t in leaves)))
+    for got, want, name in zip(*outs, ("y", "dx", "dgamma", "dbeta")):
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+    assert (L.ln_launches, L.ln_bwd_launches, L.launches, L.bwd_launches) == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_layer_norm_vmap_matches_a_loop(shared, monkeypatch):
+    """``torch.func.vmap`` of the LN's value and gradients over 3 trials,
+    with gamma and beta shared or per trial (K, d) as the vmapped HPO stacks
+    them, equals a loop over the trials bit for bit; the forward op runs
+    once for all trials with shared gamma and beta, else once a trial, and
+    the backward once a trial (dgamma and dbeta are one trial's sums)."""
+    from torch.func import grad_and_value, vmap
+
+    K = 3
+    x, gamma, beta = _ln_inputs(9, (K, 10, 64), torch.bfloat16)
+    gamma, beta = gamma + 0.1 * torch.arange(K)[:, None], beta.expand(K, 64).clone()
+    cot = torch.from_numpy(np.random.default_rng(10).standard_normal((K, 10, 64))).bfloat16()
+    if shared:
+        gamma, beta = gamma[0], beta[0]
+    calls = {"fwd": 0, "bwd": 0}
+    for name, key in (("ln_forward", "fwd"), ("ln_backward", "bwd")):
+        def counted(*a, _f=getattr(L, name), _k=key):
+            calls[_k] += 1
+            return _f(*a)
+        monkeypatch.setattr(L, name, counted)
+    f = lambda a, g, b, t: (L.layer_norm(a, g, b).float() * t.float()).sum()  # noqa: E731
+    pd = None if shared else 0
+    got_g, got_v = vmap(grad_and_value(f, argnums=(0, 1, 2)), in_dims=(0, pd, pd, 0))(
+        x, gamma, beta, cot)
+    assert calls == {"fwd": 1 if shared else K, "bwd": K}
+    for i in range(K):
+        p = (gamma, beta) if shared else (gamma[i], beta[i])
+        want_g, want_v = grad_and_value(f, argnums=(0, 1, 2))(x[i], *p, cot[i])
+        assert torch.equal(got_v[i], want_v)
+        for g, w in zip(got_g, want_g):
+            assert torch.equal(g[i], w)
+
+
+@pytest.mark.parametrize("device,dtype,d,path", [
+    ("cpu", torch.bfloat16, 64, "plain"), ("cpu", torch.float32, 64, "plain"),
+    ("cuda", torch.bfloat16, 64, "kernel"), ("cuda", torch.float32, 64, "plain"),
+    ("cuda", torch.bfloat16, 100, "raises")])
+def test_layer_norm_site_takes_the_kernel_on_cuda_bf16_alone(device, dtype, d, path,
+                                                            monkeypatch):
+    """``models/vit.py`` ``_layer_norm`` takes ``ops.ln_fused.layer_norm`` for
+    every CUDA bf16 stream, and keeps today's expression, bit for bit, for
+    the CPU and f32 (CUDA tensors as fake tensors here: the op's fake shape,
+    dtype and device). A CUDA bf16 width that the kernels do not take raises,
+    as ``add_ln`` does, and never falls back to PyTorch's LN."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from dlsc_tpu_torch.models import vit
+
+    seen = []
+    monkeypatch.setattr(vit, "kernel_layer_norm",
+                        lambda x, w, b: seen.append(x.shape) or L.layer_norm(x, w, b))
+    if device == "cpu":
+        ln = torch.nn.LayerNorm(d, eps=vit.LN_EPS)
+        x = torch.from_numpy(np.random.default_rng(d).standard_normal((4, 3, d))).to(dtype)
+        with torch.no_grad():
+            ln.weight.uniform_(0.5, 1.5)
+            ln.bias.uniform_(-0.5, 0.5)
+        assert torch.equal(vit._layer_norm(x, ln), _expression(x, ln.weight, ln.bias))
+    else:
+        with FakeTensorMode(), torch.no_grad():   # no autograd graph on a card that is not here
+            x = torch.empty(4, 3, d, device="cuda", dtype=dtype)
+            ln = torch.nn.LayerNorm(d, eps=vit.LN_EPS, device="cuda")
+            if path == "raises":
+                with pytest.raises(ValueError, match="multiple of 8"):
+                    vit._layer_norm(x, ln)
+            else:
+                y = vit._layer_norm(x, ln)
+                assert (y.shape, y.dtype, y.device.type) == (x.shape, dtype, "cuda")
+    assert seen == ([] if path == "plain" else [(4, 3, d)])
